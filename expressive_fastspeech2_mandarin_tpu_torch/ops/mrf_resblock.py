@@ -1,0 +1,146 @@
+"""HiFi-GAN MRF resblock: the CUDA kernel's wrapper and its plain version.
+
+Replaces ``expressive_fastspeech2_mandarin_tpu/ops/pallas/mrf_resblock.py``
+(``resblock_fused``, the Pallas TPU kernel). A resblock is, for each
+dilation d::
+
+    x = cast(f32(conv_{k,1}(lrelu(conv_{k,d}(lrelu(x))))) + f32(x))
+
+with leaky-ReLU slope 0.1, 'same' zero padding for every conv, float32
+accumulation and bias, every conv output stored in the working type
+(float32 or bfloat16) and the residual sum taken in float32.
+
+On a CUDA tensor ``mrf_resblock`` launches ``csrc/mrf_resblock.cu`` once per
+conv (six launches per resblock, each counted in ``launch_count``); on a CPU
+tensor it runs ``mrf_resblock_plain``, the same function written with
+``F.conv1d``. Nothing else selects between the two. The kernel is bound by
+its operations (2·K·C² flops per output element); the note at the top of
+the CUDA source says what its design does about that.
+
+Weights are a sequence of ``2 * len(dilations)`` ``(weight, bias)`` pairs,
+``conv1_0, conv2_0, conv1_1, conv2_1, ...``, each weight in
+``torch.nn.Conv1d`` layout ``(C, C, K)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+
+LRELU_SLOPE = 0.1
+KERNEL_SIZES = (3, 7, 11)
+
+# Kernel launches made by ``mrf_resblock`` on CUDA tensors.
+launch_count = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_lib = None
+
+
+def _conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                dilation: int) -> torch.Tensor:
+    """(B, C, T): lrelu in the working type, conv in float32, stored back in
+    the working type."""
+    act = F.leaky_relu(x, LRELU_SLOPE)
+    k = weight.shape[-1]
+    y = F.conv1d(act.float(), weight.float(), bias.float(),
+                 padding=(k - 1) // 2 * dilation, dilation=dilation)
+    return y.to(x.dtype)
+
+
+def mrf_resblock_plain(x: torch.Tensor,
+                       weights: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                       kernel_size: int,
+                       dilations: Sequence[int]) -> torch.Tensor:
+    """Plain PyTorch resblock on (B, T, C); the kernel's reference."""
+    _check(x, weights, kernel_size, dilations)
+    h = x.transpose(1, 2)
+    for i, d in enumerate(dilations):
+        (w1, b1), (w2, b2) = weights[2 * i], weights[2 * i + 1]
+        xt = _conv_plain(_conv_plain(h, w1, b1, d), w2, b2, 1)
+        h = (xt.float() + h.float()).to(x.dtype)
+    return h.transpose(1, 2).contiguous()
+
+
+def _check(x, weights, kernel_size, dilations) -> None:
+    if x.ndim != 3:
+        raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
+    c = x.shape[-1]
+    if len(weights) != 2 * len(dilations):
+        raise ValueError(f"expected {2 * len(dilations)} (weight, bias) "
+                         f"pairs, got {len(weights)}")
+    for w, b in weights:
+        if tuple(w.shape) != (c, c, kernel_size) or tuple(b.shape) != (c,):
+            raise ValueError(
+                f"conv weight {tuple(w.shape)} / bias {tuple(b.shape)} do "
+                f"not fit C={c}, K={kernel_size}")
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from ..kernels.build import load
+
+        lib = load("mrf_resblock")
+        for fn in (lib.mrf_conv_f32, lib.mrf_conv_bf16):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(fn, x, weight, bias, res, out, kernel_size, dilation, stream):
+    global launch_count
+    b, t, c = x.shape
+    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+             None if res is None else res.data_ptr(), out.data_ptr(),
+             b, t, c, kernel_size, dilation, stream)
+    if err != 0:
+        raise RuntimeError(f"mrf_conv launch failed: CUDA error {err}")
+    launch_count += 1
+
+
+def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
+    _check(x, weights, kernel_size, dilations)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mrf_resblock kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if kernel_size not in KERNEL_SIZES or x.shape[-1] % 32 != 0:
+        raise ValueError(f"mrf_resblock kernel takes K in {KERNEL_SIZES} "
+                         f"and C a multiple of 32, got K={kernel_size}, "
+                         f"C={x.shape[-1]}")
+    for w, b in weights:
+        for p in (w, b):
+            if p.device != x.device or p.dtype != x.dtype:
+                raise TypeError("weights must be on x's device in x's dtype")
+            if not p.is_contiguous():
+                raise ValueError("weights must be contiguous")
+    lib = _library()
+    fn = lib.mrf_conv_bf16 if x.dtype == torch.bfloat16 else lib.mrf_conv_f32
+    x = x.contiguous()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        state = x
+        for i, d in enumerate(dilations):
+            (w1, b1), (w2, b2) = weights[2 * i], weights[2 * i + 1]
+            h = torch.empty_like(state)
+            _launch(fn, state, w1, b1, None, h, kernel_size, d, stream)
+            out = torch.empty_like(state)
+            _launch(fn, h, w2, b2, state, out, kernel_size, 1, stream)
+            state = out
+    return state
+
+
+def mrf_resblock(x: torch.Tensor,
+                 weights: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 kernel_size: int, dilations: Sequence[int]) -> torch.Tensor:
+    """One MRF resblock on (B, T, C). CUDA tensors go through the kernel
+    (or raise); CPU tensors through the plain version."""
+    if x.device.type == "cuda":
+        return _mrf_resblock_cuda(x, weights, kernel_size, dilations)
+    if x.device.type == "cpu":
+        return mrf_resblock_plain(x, weights, kernel_size, dilations)
+    raise ValueError(f"mrf_resblock runs on cuda or cpu, not {x.device}")
