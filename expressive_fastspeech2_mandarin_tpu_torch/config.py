@@ -79,7 +79,8 @@ class TransformerConfig:
     conv_kernel_size: tuple[int, int] = (9, 1)
     encoder_dropout: float = 0.2
     decoder_dropout: float = 0.2
-    # "auto" | "xla" (both: plain matmul + softmax) | "flash" (not ported)
+    # "auto" (flash on the card past 2048 frames) | "xla" (plain matmul +
+    # softmax) | "flash" (the CUDA kernel on the card, plain on the CPU)
     attention_impl: str = "auto"
 
 

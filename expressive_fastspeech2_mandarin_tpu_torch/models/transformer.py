@@ -90,17 +90,24 @@ class _Stack(nn.Module):
             torch.from_numpy(sinusoid_encoding_table(max_seq_len + 1,
                                                      d_model)),
             persistent=False)
+        self._regrown: torch.Tensor | None = None
         self.layer_stack = nn.ModuleList([
             FFTBlock(d_model, n_head, cfg.conv_filter_size,
                      cfg.conv_kernel_size, cfg.attention_impl)
             for _ in range(n_layer)])
 
     def positions(self, t: int, like: torch.Tensor) -> torch.Tensor:
-        """(T, D) table in ``like``'s dtype, regrown past max_seq_len."""
+        """(T, D) table in ``like``'s dtype, regrown past max_seq_len. The
+        longest regrown table is kept on ``like``'s device (a row depends
+        only on its position, so a shorter T takes its head)."""
         table = self.position_enc
         if t > self.max_seq_len:
-            table = torch.from_numpy(
-                sinusoid_encoding_table(t, self.d_model)).to(like.device)
+            table = self._regrown
+            if (table is None or table.shape[0] < t
+                    or table.device != like.device):
+                table = torch.from_numpy(
+                    sinusoid_encoding_table(t, self.d_model)).to(like.device)
+                self._regrown = table
         return table[:t].to(like.dtype)
 
     def run_layers(self, x: torch.Tensor,

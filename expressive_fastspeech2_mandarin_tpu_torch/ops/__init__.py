@@ -1,5 +1,7 @@
-"""Compute primitives of the synthesis path. The MRF resblock, a CUDA kernel
-on the card, is in ``ops.mrf_resblock`` with its launch counter."""
+"""Compute primitives of the synthesis path. The two CUDA kernels of the
+card, each with its plain version and launch counter, are in
+``ops.mrf_resblock`` (the HiFi-GAN MRF resblock) and ``ops.flash_mha`` (the
+attention core that ``multi_head_attention`` takes past 2048 frames)."""
 
 from .attention import multi_head_attention
 from .conv import batch_norm_inference, conv1d, conv_transpose1d, layer_norm

@@ -1,8 +1,16 @@
-"""Batched multi-head self-attention for the FFT blocks (the math path of the
-JAX package's ``ops/attention.py``).
+"""Batched multi-head self-attention for the FFT blocks (the JAX package's
+``ops/attention.py``).
 
 Masked keys get ``-inf`` before the softmax; a row whose keys are all masked
 comes out as zeros. The projections are ``nn.Linear`` weights, ``(H*D, D_model)``.
+``impl`` chooses the core, as the JAX package does:
+
+* ``"xla"`` (the JAX package's name for the math path): ``flash_mha_plain``;
+* ``"flash"``: ``flash_mha``, the CUDA kernel on the card (the plain version
+  on the CPU);
+* ``"auto"``: flash on the card when T > 2048 and D = 128, the head dim the
+  kernel takes (the JAX rule, with "on a TPU" read as "on the card" and
+  "D % 128 == 0" as "D = 128"), else the math path.
 """
 
 from __future__ import annotations
@@ -10,9 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_FLASH_NOT_PORTED = (
-    "attention_impl='flash' is not ported yet (ROADMAP.md, queue 2: "
-    "flash_mha); use 'auto'")
+from .flash_mha import flash_mha, flash_mha_plain, supported
 
 
 def multi_head_attention(
@@ -25,11 +31,8 @@ def multi_head_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """Self-attention core: (B, T, D) → (B, T, H*Dv); ``key_padding_mask``
-    is (B, T), True at padded keys. ``impl``: "auto" and "xla" (the JAX
-    package's name for this math path) run it; "flash" is not ported."""
-    if impl == "flash":
-        raise NotImplementedError(_FLASH_NOT_PORTED)
-    if impl not in ("auto", "xla"):
+    is (B, T), True at padded keys."""
+    if impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attention_impl {impl!r}")
     b, t, _ = x.shape
 
@@ -39,19 +42,13 @@ def multi_head_attention(
     q = split(F.linear(x, wq, bq))
     k = split(F.linear(x, wk, bk))
     v = split(F.linear(x, wv, bv))
-    sm_scale = float(q.shape[-1]) ** -0.5
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    scores = scores.masked_fill(key_padding_mask[:, None, None, :],
-                                float("-inf"))
-    attn = masked_softmax(scores)
-    out = torch.matmul(attn.to(v.dtype).float(), v.float())
+    head_dim = q.shape[-1]
+    sm_scale = float(head_dim) ** -0.5
+    if impl == "auto":
+        impl = "flash" if supported(x.device, t, head_dim) else "xla"
+    if impl == "flash":
+        out = flash_mha(q.contiguous(), k.contiguous(), v.contiguous(),
+                        key_padding_mask, sm_scale)
+    else:
+        out = flash_mha_plain(q, k, v, key_padding_mask, sm_scale)
     return out.transpose(1, 2).reshape(b, t, -1).to(x.dtype)
-
-
-def masked_softmax(scores: torch.Tensor) -> torch.Tensor:
-    """Stable softmax over the last axis; rows that are all ``-inf`` → 0."""
-    m = scores.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    e = torch.exp(scores - m)
-    s = e.sum(dim=-1, keepdim=True)
-    return e / torch.where(s == 0.0, torch.ones_like(s), s)

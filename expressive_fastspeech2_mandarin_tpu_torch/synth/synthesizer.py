@@ -1,17 +1,20 @@
-"""Offline synthesis: text → phoneme IDs → FastSpeech2 mel → HiFi-GAN
-waveform, trimmed to the predicted lengths; the JAX package's
+"""Offline and streaming synthesis: text → phoneme IDs → FastSpeech2 mel →
+HiFi-GAN waveform, trimmed to the predicted lengths; the JAX package's
 ``synth/synthesizer.py``.
 
 Emotion names map through the emotion maps and the fixed arousal/valence
 table; texts are padded to static source buckets and the mel length to a
-bucket guessed from the text length. The vocoder runs in
-``VocoderConfig.compute_dtype`` (bfloat16 by default) and every MRF resblock
-goes through the CUDA kernel on the card.
+bucket guessed from the text length, or to ``max_mel_len``. The vocoder runs
+in ``VocoderConfig.compute_dtype`` (bfloat16 by default) and every MRF
+resblock goes through the CUDA kernel on the card; past 2048 frames the
+decoder's attention goes through the flash kernel there
+(``attention_impl="auto"``).
 """
 
 from __future__ import annotations
 
 import os
+from collections.abc import Iterator
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,9 +22,16 @@ import torch
 from scipy.io import wavfile
 
 from ..config import Config
+from ..data import PreprocessedCorpus
 from ..device import resolve_device
+from ..interop.torch_ckpt import (
+    fastspeech2_checkpoint_state,
+    load_torch_state_dict,
+    load_vocoder_state,
+)
 from ..models import FastSpeech2, Generator
 from ..text import text_to_ids
+from .streaming import vocode_streaming
 
 SRC_BUCKETS = (16, 32, 64, 128, 256)
 MEL_BUCKETS = (250, 500, 1000, 2000)
@@ -92,11 +102,31 @@ class Synthesizer:
         self.emotion_maps = emotion_maps or {}
 
     @classmethod
-    def from_torch_checkpoint(cls, *args, **kwargs) -> "Synthesizer":
-        raise NotImplementedError(f"from_torch_checkpoint {_NOT_PORTED}")
-
-    def synthesize_streaming(self, *args, **kwargs):
-        raise NotImplementedError(f"streaming synthesis {_NOT_PORTED}")
+    def from_torch_checkpoint(
+        cls,
+        cfg: Config,
+        model_ckpt: str,
+        vocoder_ckpt: str | None = None,
+        preprocessed_path: str | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "Synthesizer":
+        """The reference's FastSpeech2 checkpoint (``{"model": state_dict}``)
+        and a HiFi-GAN generator, either a reference checkpoint
+        (``{"generator": state_dict}``, weight norm folded) or a native
+        ``generator.npz``; speaker and emotion maps and stats from the
+        preprocessed directory when it exists."""
+        stats = speaker_map = emotion_maps = None
+        path = preprocessed_path or cfg.preprocess.path.preprocessed_path
+        if path and os.path.isdir(path):
+            corpus = PreprocessedCorpus(path)
+            stats = corpus.stats
+            speaker_map = corpus.speaker_map
+            emotion_maps = corpus.emotion_maps
+        fs2 = fastspeech2_checkpoint_state(
+            load_torch_state_dict(model_ckpt, key="model"), cfg.model, stats)
+        voc = load_vocoder_state(vocoder_ckpt) if vocoder_ckpt else None
+        return cls(cfg, fs2, voc, stats, speaker_map, emotion_maps,
+                   device=device)
 
     def resolve_ids(self, speaker: str | int, emotion: str | int):
         spk = (self.speaker_map.get(str(speaker), 0)
@@ -185,6 +215,40 @@ class Synthesizer:
                 sampling_rate=sr,
             ))
         return results
+
+    def synthesize_streaming(
+        self,
+        text: str,
+        speaker: str | int = 0,
+        emotion: str | int = "Neutral",
+        pitch_control: float = 1.0,
+        energy_control: float = 1.0,
+        duration_control: float = 1.0,
+        chunk_frames: int = 100,
+        max_mel_len: int | None = None,
+    ) -> Iterator[np.ndarray]:
+        """Yield float32 waveform chunks of one utterance as they are
+        vocoded: the first audio after one chunk of ``chunk_frames`` mel
+        frames instead of the whole utterance. The concatenation is
+        ``mel_frames * hop`` samples and equals the HiFi-GAN output of the
+        trimmed mel (``synth/streaming.py``)."""
+        if self.vocoder is None:
+            raise ValueError("streaming requires HiFi-GAN weights")
+        [result] = self.synthesize(
+            [text], [speaker], [emotion], pitch_control, energy_control,
+            duration_control, vocoder="none", max_mel_len=max_mel_len)
+        hop = self.cfg.preprocess.stft.hop_length
+        dtype = next(self.vocoder.parameters()).dtype
+        mel = torch.from_numpy(result.mel)[None].to(self.device, dtype)
+        total = result.mel.shape[0] * hop
+        emitted = 0
+        for chunk in vocode_streaming(self.vocoder, mel,
+                                      chunk_frames=chunk_frames):
+            wav = chunk[0].float().cpu().numpy()
+            take = min(len(wav), max(total - emitted, 0))
+            emitted += take
+            if take:
+                yield wav[:take]
 
     def save_results(self, results: list[SynthesisResult], out_dir: str,
                      tag: str | None = None,

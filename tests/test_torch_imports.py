@@ -41,3 +41,17 @@ def test_port_sources_name_no_jax_module():
             assert top not in ("jax", "jaxlib", "flax", "optax",
                                "expressive_fastspeech2_mandarin_tpu"), (
                 f"{path.relative_to(ROOT)} imports {name}")
+
+
+def test_walk_covers_every_slice_module():
+    """The import check above walks these modules of the two slices."""
+    import pkgutil
+
+    import expressive_fastspeech2_mandarin_tpu_torch as port
+
+    names = {m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   port.__name__ + ".")}
+    for mod in ("ops.mrf_resblock", "ops.flash_mha", "ops.attention",
+                "synth.synthesizer", "synth.streaming", "interop.from_jax",
+                "interop.torch_ckpt", "data.metadata", "kernels.build"):
+        assert f"{port.__name__}.{mod}" in names, mod

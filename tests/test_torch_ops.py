@@ -75,13 +75,53 @@ def test_attention_with_fully_padded_row():
     np.testing.assert_array_equal(out[2], 0.0)
 
 
-def test_attention_flash_is_not_ported():
-    x = torch.zeros(1, 2, 4)
-    w, b = torch.zeros(4, 4), torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        multi_head_attention(x, w, b, w, b, w, b, 2,
-                             torch.zeros(1, 2, dtype=torch.bool),
-                             impl="flash")
+def _attention_inputs(b, t, d, lens, seed):
+    """x and (weight, bias) pairs for both packages: JAX (d_in, d_out),
+    torch nn.Linear (d_out, d_in)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, t, d)).astype(np.float32)
+    mask = np.arange(t)[None, :] >= np.asarray(lens)[:, None]
+    jargs, targs = [], []
+    for _ in range(3):
+        w = rng.normal(size=(d, d)).astype(np.float32) * d ** -0.5
+        bias = rng.normal(size=(d,)).astype(np.float32) * 0.1
+        jargs += [jnp.asarray(w), jnp.asarray(bias)]
+        targs += [torch.from_numpy(w.T.copy()), torch.from_numpy(bias)]
+    return x, mask, jargs, targs
+
+
+def test_attention_flash_matches_jax_flash_at_valid_rows():
+    """impl="flash" on the CPU (the plain version) against the JAX
+    package's impl="flash" (the TPU kernel in interpret mode), at the valid
+    query rows (the FFT block zeroes the others), within 1e-5."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    lens = (200, 61)
+    x, mask, jargs, targs = _attention_inputs(2, 200, 256, lens, seed=4)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_mha(jnp.asarray(x), *jargs, 2,
+                                 jnp.asarray(mask), impl="flash"))
+    out = multi_head_attention(torch.from_numpy(x), *targs, 2,
+                               torch.from_numpy(mask), impl="flash").numpy()
+    for i, n in enumerate(lens):
+        np.testing.assert_allclose(out[i, :n], ref[i, :n], atol=1e-5, rtol=0)
+
+
+def test_attention_auto_on_cpu_takes_the_math_path():
+    """Past 2048 frames with D = 128, "auto" still takes the math path on
+    the CPU (as the JAX package's does off the TPU): no kernel launch, and
+    the result equals impl="xla"."""
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha
+
+    x, mask, _, targs = _attention_inputs(1, 2100, 256, (1900,), seed=5)
+    args = (torch.from_numpy(x), *targs, 2, torch.from_numpy(mask))
+    before = flash_mha.launch_count
+    auto = multi_head_attention(*args, impl="auto")
+    assert flash_mha.launch_count == before
+    torch.testing.assert_close(auto, multi_head_attention(*args, impl="xla"),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown attention_impl"):
+        multi_head_attention(*args, impl="sdpa")
 
 
 def test_layer_norm():
