@@ -34,7 +34,32 @@ Phases:
      its plain version, its bound and a cuDNN conv chain (library_ms);
      long-form batch synthesis, its text → mel and generator spans,
      streaming first and last chunk, and the flash kernel against its
-     plain version, its bound and SDPA.
+     plain version, its bound and SDPA;
+  2d. the flash attention backward kernels (dQ with Δ, then dK/dV) against
+     the plain backward on the card, float32, at (4, 2, T, 128) for
+     T = 300, 1000, 2300, 4096 and (1, 2, 8192, 128), ragged key lengths
+     with a row of length 0 and random dO at every row: dq, dk, dv within
+     1e-4 · max|ref| (the distance to float64 plain printed); the forward's stored
+     log-sum-exp against torch.logsumexp (+inf for the length-0 row); the
+     length-0 row's gradients exactly 0; a second backward bit-identical;
+  5. training: ``train()`` at ``Config()`` width with the reference recipe
+     (batch 4, Adam (0.9, 0.98, 1e-9), clip 1.0, warm-up 4000) and
+     ``attention_impl="flash"`` on a synthetic corpus written from a seed
+     (32 train and 8 val utterances, 20-120 phones, 200-1000 frames), 20
+     steps in float32: finite losses, 10 forward and 10 + 10 backward flash
+     launches per step (4 encoder and 6 decoder blocks; evaluation and
+     sample synthesis add forward launches only), checkpoints, and a resume
+     that continues the step and the learning rate; then one step from one
+     state, batch and dropout seed under "flash" and under "xla": loss
+     within 1e-5 relative, every gradient within 1e-3 · max|g| of the xla
+     step's or of the xla step's with the inputs moved by float32
+     round-off (a ReLU input within round-off of 0 has two float32
+     answers);
+  6. times: the train step at B = 4, bucket (S, T) = (128, 1000) under
+     "flash" and "auto" (median of 10 after 3 warm-ups, synchronized) with
+     peak memory; the backward kernels at (4, 2, T, 128), T = 1000 and
+     4096, against their bounds, the plain backward and the backward of
+     scaled_dot_product_attention.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -46,7 +71,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
+import tempfile
 import sys
 import time
 import traceback
@@ -94,6 +121,30 @@ FLASH_TIMED = (2300, 4096)  # B = 4, the long-form path's shapes
 # (the kernel online, tile by tile, with rescaling), and expf differs from
 # torch.exp by an ulp or two: a few float32 ulps of the output's magnitude.
 FLASH_REL_BOUND = 1e-5
+
+# Flash backward: the forward's cases and the training path's T = 1000.
+FLASH_BWD_CASES = ((4, 300, (300, 37, 0, 211)), (4, 1000, (1000, 63, 0, 777)),
+                   (4, 2300, (2300, 63, 0, 2049)),
+                   (4, 4096, (4096, 1, 0, 3001)), (1, 8192, (8100,)))
+# The kernels recompute P from the stored log-sum-exp (expf of s - lse
+# against the plain version's normalized exp) and sum dq, dk and dv in
+# another order than cuBLAS, over up to 8192 terms.
+FLASH_BWD_REL_BOUND = 1e-4
+FLASH_BWD_TIMED = (1000, 4096)  # B = 4: the training bucket, long-form
+# Log-sum-exp: expf and logf against torch.logsumexp, a few float32 ulps.
+LSE_REL_BOUND = 1e-5
+
+# Training (phase 5): the reference recipe at Config() width on a corpus
+# written from a seed.
+TRAIN_STEPS = 20
+TRAIN_CADENCE = dict(log_step=5, synth_step=10, val_step=10, save_step=10)
+N_TRAIN_UTTS, N_VAL_UTTS = 32, 8
+GRAD_REL_BOUND = 1e-3   # flash against xla: float32, another sum order
+# Relative perturbation of the phoneme embedding, about float32 round-off:
+# a ReLU input that close to 0 changes sides, and the gradient with it.
+PERTURB = 1e-7
+LOSS_REL_BOUND = 1e-5
+TRAIN_TIMED = (4, 128, 1000)  # B, S bucket, T bucket
 
 # Long-form path: four phone strings of 240, 180, 90 and 24 phones; at
 # duration_control 0.8 the seeded model gives 3338, 2693, 670 and 82 frames.
@@ -726,6 +777,423 @@ def phase_long_times(synth):
     return rows[max(FLASH_TIMED)]
 
 
+def phase_flash_bwd_vs_plain(smoke: Smoke):
+    """The backward kernels against the plain backward; returns the worst
+    max|diff| of dq (the dQ kernel) and of dk, dv (the dK/dV kernel)."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    gen = torch.Generator().manual_seed(4)
+    scale = 128 ** -0.5
+    worst_dq = worst_dkv = 0.0
+    for b, t, lens in FLASH_BWD_CASES:
+        q, k, v, mask = flash_inputs(b, t, lens, gen)
+        dout = torch.randn(q.shape, generator=gen).to("cuda")
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
+        ref = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
+        q64, k64, v64, dout64 = (x.double() for x in (q, k, v, dout))
+        out64 = fa.flash_mha_plain(q64, k64, v64, mask, scale)
+        ref64 = fa.flash_mha_bwd_plain(q64, k64, v64, mask, out64, dout64,
+                                       scale)
+        for name, g, r, r64 in zip(("dq", "dk", "dv"), grads, ref, ref64):
+            diff = (g - r).abs().max().item()  # syncs
+            diff64 = (g.double() - r64).abs().max().item()
+            bound = FLASH_BWD_REL_BOUND * r.abs().max().item()
+            if name == "dq":
+                worst_dq = max(worst_dq, diff)
+            else:
+                worst_dkv = max(worst_dkv, diff)
+            # Against float64 the float32 cancellation in dP - Δ shows
+            # (on a row with one valid key dk is 0 in exact arithmetic, so
+            # both float32 versions hold round-off there): printed only.
+            smoke.check(math.isfinite(diff) and diff <= bound,
+                        f"{name} B={b} T={t:5d} lens={lens}: "
+                        f"max|diff|={diff:.3e} bound={bound:.3e} (float64 "
+                        f"plain: max|diff|={diff64:.3e})")
+        lse_ref = fa.flash_mha_lse_plain(q, k, mask, scale)
+        finite = torch.isfinite(lse_ref)
+        lse_diff = (lse - lse_ref)[finite].abs().max().item()
+        lse_bound = LSE_REL_BOUND * lse_ref[finite].abs().max().item()
+        smoke.check(lse_diff <= lse_bound
+                    and torch.equal(torch.isposinf(lse), ~finite),
+                    f"lse B={b} T={t:5d}: max|diff|={lse_diff:.3e} "
+                    f"bound={lse_bound:.3e}, +inf exactly at the rows with "
+                    f"no valid key")
+        for i, n in enumerate(lens):
+            if n == 0:
+                nonzero = sum(torch.count_nonzero(g[i]).item()
+                              for g in grads)
+                smoke.check(nonzero == 0, f"row {i} of length 0: {nonzero} "
+                                          f"non-zero gradients")
+        again = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
+        smoke.check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                    f"B={b} T={t:5d}: a second backward is bit-identical")
+        del q, k, v, mask, dout, out, lse, grads, ref, ref64, again
+    return worst_dq, worst_dkv
+
+
+def write_training_corpus(root: str, seed: int) -> str:
+    """A reference-format preprocessed corpus of random utterances: 20-120
+    pinyin phones, 200-1000 frames split over them, random log-mels, pitch
+    and energy; 4 speakers and 5 emotions."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.text import symbols
+
+    rng = np.random.default_rng(seed)
+    emotions = ["Angry", "Happy", "Neutral", "Sad", "Surprise"]
+    levels = ["0.1", "0.3", "0.5", "0.8", "0.9"]
+    maps = {"speakers.json": {f"spk{i}": i for i in range(4)},
+            "emotions.json": {
+                "emotion_dict": {e: i for i, e in enumerate(emotions)},
+                "arousal_dict": {a: i for i, a in enumerate(levels)},
+                "valence_dict": {a: i for i, a in enumerate(levels)}},
+            "stats.json": {"pitch": [-3.0, 6.0, 0.0, 1.0],
+                           "energy": [-2.0, 8.0, 0.0, 1.0]}}
+    for sub in ("mel", "pitch", "energy", "duration"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for name, obj in maps.items():
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(obj, f)
+    lines = []
+    for i in range(N_TRAIN_UTTS + N_VAL_UTTS):
+        spk, base = f"spk{i % 4}", f"utt{i:04d}"
+        s = int(rng.integers(20, 121))
+        t = int(rng.integers(200, 1001))
+        durations = rng.multinomial(t - s, np.full(s, 1.0 / s)) + 1
+        arrays = {"duration": durations.astype(np.int64),
+                  "mel": rng.normal(-4.0, 2.0, (t, 80)).astype(np.float32),
+                  "pitch": rng.normal(size=s).astype(np.float32),
+                  "energy": rng.normal(size=s).astype(np.float32)}
+        for kind, a in arrays.items():
+            np.save(os.path.join(root, kind, f"{spk}-{kind}-{base}.npy"), a)
+        phones = " ".join(rng.choice(symbols.PINYIN_PHONEMES, s))
+        lines.append(f"{base}|{spk}|{{{phones}}}|raw|{spk}|x|"
+                     f"{emotions[i % 5]}|{levels[i % 5]}|{levels[-1 - i % 5]}")
+    for name, part in (("train.txt", lines[N_VAL_UTTS:]),
+                       ("val.txt", lines[:N_VAL_UTTS])):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(part) + "\n")
+    return root
+
+
+def training_config(corpus: str, out: str, impl: str):
+    """Config() width, the reference recipe's optimizer (the defaults,
+    configs/ESD-Chinese-Singing-MFA/train.yaml), phase 5's cadence."""
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+
+    return C.Config(
+        preprocess=C.PreprocessConfig(
+            path=C.PathConfig(preprocessed_path=corpus)),
+        model=C.ModelConfig(
+            transformer=C.TransformerConfig(attention_impl=impl)),
+        train=C.TrainConfig(
+            path=C.PathConfig(ckpt_path=os.path.join(out, "ckpt"),
+                              log_path=os.path.join(out, "log"),
+                              result_path=os.path.join(out, "result")),
+            step=C.StepConfig(total_step=TRAIN_STEPS, **TRAIN_CADENCE)))
+
+
+def flash_counts() -> tuple[int, int, int]:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    return fa.launch_count, fa.bwd_dq_launch_count, fa.bwd_dkv_launch_count
+
+
+def reset_flash_counts() -> None:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    fa.launch_count = fa.bwd_dq_launch_count = fa.bwd_dkv_launch_count = 0
+
+
+def _zero_in_exact_arithmetic(name: str) -> bool:
+    """The key projection's bias (the softmax cancels it) and a postnet
+    conv's bias (training-mode BatchNorm removes it): their gradients are
+    float round-off."""
+    return name.endswith("slf_attn.w_ks.bias") or (
+        name.startswith("postnet.") and name.endswith(".conv.bias"))
+
+
+def phase_training(smoke: Smoke, device):
+    """The training path through ``train()``; returns the flash launches
+    (forward, dQ, dK/dV) of its 20-step run."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        CheckpointManager,
+        create_train_state,
+        loss_and_grads,
+        train,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_dir = write_training_corpus(os.path.join(tmp, "corpus"), 0)
+        cfg = training_config(corpus_dir, os.path.join(tmp, "out"), "flash")
+        t = cfg.model.transformer
+        n_blocks = t.encoder_layer + t.decoder_layer
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        state = train(cfg, total_steps=TRAIN_STEPS, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = flash_counts()
+        n_params = sum(p.numel() for p in state.model.parameters())
+        n_val_batches = math.ceil(N_VAL_UTTS / cfg.train.optimizer.batch_size)
+        forwards = (TRAIN_STEPS + TRAIN_STEPS // TRAIN_CADENCE["val_step"]
+                    * n_val_batches
+                    + TRAIN_STEPS // TRAIN_CADENCE["synth_step"])
+        expected = (n_blocks * forwards, n_blocks * TRAIN_STEPS,
+                    n_blocks * TRAIN_STEPS)
+        smoke.check(counts == expected,
+                    f"train(): {TRAIN_STEPS} steps of a {n_params / 1e6:.1f}M"
+                    f"-parameter model in {seconds:.1f} s; flash launches "
+                    f"(forward, dQ, dK/dV) {counts}, expected {expected}: "
+                    f"{n_blocks} of each per step, plus {n_blocks} forward "
+                    f"per evaluation batch and sample synthesis")
+        with open(os.path.join(tmp, "out/log/train/metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        losses = [r["total_loss"] for r in log]
+        smoke.check(state.step == TRAIN_STEPS
+                    and [r["step"] for r in log] == list(range(
+                        TRAIN_CADENCE["log_step"], TRAIN_STEPS + 1,
+                        TRAIN_CADENCE["log_step"]))
+                    and all(math.isfinite(x) for x in losses),
+                    f"steps {state.step}, logged total losses {losses}")
+        ckpt = CheckpointManager(cfg.train.path.ckpt_path)
+        samples = os.listdir(os.path.join(tmp, "out/result/train_samples"))
+        smoke.check(ckpt.steps() == [10, 20] and len(samples) == 4,
+                    f"checkpoints at steps {ckpt.steps()}; sample files "
+                    f"{sorted(samples)}")
+        resumed = train(cfg, total_steps=TRAIN_STEPS + 2, device=device)
+        lr = resumed.optimizer.schedule(TRAIN_STEPS + 2)
+        smoke.check(resumed.step == TRAIN_STEPS + 2
+                    and resumed.optimizer.count == TRAIN_STEPS + 2
+                    and resumed.optimizer.lr == lr,
+                    f"resumed from step {TRAIN_STEPS}: step {resumed.step}, "
+                    f"updates {resumed.optimizer.count}, next lr "
+                    f"{resumed.optimizer.lr:.6e}")
+        del state, resumed
+
+        # One step from one state, batch and dropout seed: flash and xla.
+        corpus = PreprocessedCorpus(corpus_dir)
+        ds = BucketedDataset(corpus, "train.txt", 4, cfg.train.buckets,
+                             drop_last=True, seed=cfg.train.seed)
+        raw = next(ds.epoch(0))
+        batch = stage_batch(raw, device, cfg.train.transfer_dtype)
+        runs = {}
+        for name, impl, perturb in (("flash", "flash", 0.0),
+                                    ("xla", "xla", 0.0),
+                                    ("xla perturbed", "xla", PERTURB)):
+            c = training_config(corpus_dir, tmp, impl)
+            st = create_train_state(c, corpus.stats, device)
+            if perturb:
+                with torch.no_grad():
+                    w = st.model.encoder.src_word_emb.weight
+                    noise = torch.randn(w.shape, generator=torch.Generator(
+                    ).manual_seed(0))
+                    w.mul_(1.0 + perturb * noise.to(device))
+            reset_flash_counts()
+            report, grads = loss_and_grads(st.model, batch, c, st.generator)
+            names = [n for n, _ in st.model.named_parameters()]
+            runs[name] = (float(report.total), dict(zip(names, grads)),
+                          flash_counts())
+            del st
+    (lf, gf, cf), (lx, gx, cx) = runs["flash"], runs["xla"]
+    gp = runs["xla perturbed"][1]
+    rel = abs(lf - lx) / abs(lx)
+    smoke.check(rel <= LOSS_REL_BOUND and cf == (n_blocks,) * 3
+                and cx == (0, 0, 0),
+                f"one step, bucket {tuple(raw['mels'].shape[:2])} mel, "
+                f"{tuple(raw['texts'].shape)} text: loss flash {lf:.7f}, xla "
+                f"{lx:.7f}, rel diff {rel:.2e} (bound {LOSS_REL_BOUND:.0e}); "
+                f"flash launches {cf}, xla {cx}")
+    # Each gradient within 1e-3 · max|g| of its tensor, of the xla step or
+    # of the xla step with the phoneme embedding moved by float32 round-off:
+    # a ReLU input that close to 0 changes sides under any round-off, and
+    # then both sides are float32 answers. (At Config() width and this
+    # batch, a pitch-predictor ReLU input sits 3.5e-8 from 0; the flip moves
+    # that conv's gradient by 3.9 % and, through the encoder, the gradients
+    # upstream of it.)
+    top = max(g.abs().max().item() for g in gx.values())
+    worst, worst_name, noise, sides = 0.0, "", 0.0, []
+    for name, g in gf.items():
+        r = gx[name]
+        if _zero_in_exact_arithmetic(name):
+            noise = max(noise, g.abs().max().item(), r.abs().max().item())
+            continue
+        d_xla = (g - r).abs().max().item()
+        d_pert = (g - gp[name]).abs().max().item()
+        ratio = min(d_xla, d_pert) / r.abs().max().item()
+        if d_pert < d_xla:
+            sides.append(name)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    pitch = "variance_adaptor.pitch_predictor.conv_layer.conv1d_1.conv.weight"
+    jump = ((gp[pitch] - gx[pitch]).abs().max()
+            / gx[pitch].abs().max()).item()
+    smoke.check(worst <= GRAD_REL_BOUND,
+                f"gradients, flash vs xla: worst max|diff| / max|g| "
+                f"{worst:.2e} ({worst_name}), bound {GRAD_REL_BOUND:.0e}; "
+                f"{len(sides)} of {len(gf)} tensors nearer the perturbed "
+                f"xla step, whose pitch-predictor conv gradient moved by "
+                f"{jump:.2e} of its max")
+    smoke.check(noise <= 1e-5 * top,
+                f"gradients zero in exact arithmetic (key biases, postnet "
+                f"conv biases): at most {noise:.2e}, against the largest "
+                f"gradient {top:.3e}")
+    return counts
+
+
+def synthetic_train_batch(b: int, s: int, t: int, seed: int):
+    """A (B, S, T)-bucket training batch of numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    src_lens = np.array([s, s - s // 8, s - s // 4, s // 2][:b], np.int32)
+    mel_lens = np.array([t, t - t // 10, t - t // 4, t // 2][:b], np.int32)
+    durations = np.zeros((b, s), np.int32)
+    for i in range(b):
+        durations[i, :src_lens[i]] = rng.multinomial(
+            mel_lens[i] - src_lens[i], np.full(src_lens[i],
+                                               1.0 / src_lens[i])) + 1
+    texts = rng.integers(4, 100, (b, s)).astype(np.int32)
+    texts[np.arange(s)[None] >= src_lens[:, None]] = 0
+    return {
+        "speakers": rng.integers(0, 4, b).astype(np.int32),
+        "emotions": rng.integers(0, 5, b).astype(np.int32),
+        "arousals": rng.integers(0, 5, b).astype(np.int32),
+        "valences": rng.integers(0, 5, b).astype(np.int32),
+        "texts": texts, "src_lens": src_lens,
+        "mels": rng.normal(-4.0, 2.0, (b, t, 80)).astype(np.float32),
+        "mel_lens": mel_lens,
+        "pitches": rng.normal(size=(b, s)).astype(np.float32),
+        "energies": rng.normal(size=(b, s)).astype(np.float32),
+        "durations": durations,
+    }
+
+
+def flash_bwd_bound_ms(b: int, t: int, kernel: str
+                       ) -> tuple[float, str]:
+    """Least time for one backward kernel at H = 2, D = 128, float32 (TF32
+    tensor-core rate, as the forward's bound): the dQ kernel recomputes S
+    and dP and forms dq (6·B·H·T²·D flops) from q, k, v, out, dO, lse and
+    the mask, writing dq and Δ; the dK/dV kernel recomputes S and dP and
+    forms dk and dv (8·B·H·T²·D) from q, k, v, dO, lse, Δ and the mask,
+    writing dk and dv. ``kernel="both"`` is the whole backward: 10·B·H·T²·D
+    flops (S, dP, dq, dk, dv) against 8·B·H·T·D·4 bytes."""
+    bhtd = b * 2 * t * 128
+    flops = {"dq": 6, "dkv": 8, "both": 10}[kernel] * bhtd * t
+    n_bytes = {"dq": 24 * bhtd + 8 * b * 2 * t + b * t,
+               "dkv": 24 * bhtd + 8 * b * 2 * t + b * t,
+               "both": 32 * bhtd}[kernel]
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, n_bytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_train_times(device):
+    """Train-step times under "flash" and "auto" at the bucket (128, 1000),
+    and the backward kernels at (4, 2, T, 128); returns the kernels' rows
+    at the training bucket's T = 1000."""
+    import torch
+    import torch.nn.functional as F
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        train_step,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+
+    card = nvidia_smi_line()
+    b, s, t = TRAIN_TIMED
+    batch = stage_batch(synthetic_train_batch(b, s, t, seed=5), device)
+    runs = {}
+    for impl in ("flash", "auto"):
+        cfg = C.Config(model=C.ModelConfig(
+            transformer=C.TransformerConfig(attention_impl=impl)))
+        state = create_train_state(cfg, None, device)
+        for _ in range(3):
+            train_step(state, batch, cfg)
+        runs[impl] = {"cfg": cfg, "state": state, "ms": [], "peak": 0.0}
+    # Ten rounds, the two paths in turns; peak memory per path.
+    for _ in range(10):
+        for run in runs.values():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_flash_counts()
+            t0 = time.perf_counter()
+            report = train_step(run["state"], batch, run["cfg"])
+            torch.cuda.synchronize()
+            run["ms"].append(1e3 * (time.perf_counter() - t0))
+            run["peak"] = max(run["peak"],
+                              torch.cuda.max_memory_allocated() / 2**20)
+            run["counts"], run["loss"] = flash_counts(), float(report.total)
+    for impl, run in runs.items():
+        reps, counts, loss = sorted(run["ms"]), run["counts"], run["loss"]
+        print(f"  train step {impl!r}, B={b}, bucket (S, T) = ({s}, {t}): "
+              f"median {(reps[4] + reps[5]) / 2:.3f} ms, min {reps[0]:.3f},"
+              f" max {reps[-1]:.3f} over 10 steps after 3 warm-ups, in turns"
+              f" with the other path; last loss {loss:.4f}; flash launches "
+              f"per step (forward, dQ, dK/dV) {counts}; max_memory_allocated"
+              f" {run['peak']:.1f} MiB [{card}]", flush=True)
+    del runs
+
+    gen = torch.Generator().manual_seed(6)
+    scale = 128 ** -0.5
+    rows = {}
+    for t in FLASH_BWD_TIMED:
+        lens = (t, 3 * t // 4, t // 2, t // 4)
+        q, k, v, mask = flash_inputs(4, t, lens, gen)
+        dout = torch.randn(q.shape, generator=gen).to("cuda")
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        _, delta = fa._flash_mha_bwd_dq_cuda(q, k, v, mask, out, dout, lse,
+                                             scale)
+        iters = 10
+        dq_ms = cuda_time_ms(lambda: fa._flash_mha_bwd_dq_cuda(
+            q, k, v, mask, out, dout, lse, scale), iters)
+        dkv_ms = cuda_time_ms(lambda: fa._flash_mha_bwd_dkv_cuda(
+            q, k, v, mask, dout, lse, delta, scale), iters)
+        plain = cuda_time_ms(lambda: fa.flash_mha_bwd_plain(
+            q, k, v, mask, out, dout, scale), iters)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=~mask[:, None, None, :], scale=scale)
+        lib = cuda_time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dout, retain_graph=True), iters)
+        both, both_by = flash_bwd_bound_ms(4, t, "both")
+        for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            bound, by = flash_bwd_bound_ms(4, t, name)
+            rows[(name, t)] = {"ms": ms, "plain_ms": plain,
+                               "bound_ms": bound, "bound_by": by,
+                               "library_ms": lib}
+        flops = 14 * 4 * 2 * t * t * 128
+        print(f"  flash_mha backward float32 (4, 2, {t}, 128), key lengths "
+              f"{lens}: dQ kernel {dq_ms:.4f} ms (bound "
+              f"{rows[('dq', t)]['bound_ms']:.4f}), dK/dV kernel "
+              f"{dkv_ms:.4f} ms (bound {rows[('dkv', t)]['bound_ms']:.4f}),"
+              f" together {dq_ms + dkv_ms:.4f} ms = "
+              f"{flops / (dq_ms + dkv_ms) / 1e9:.1f} TF/s; whole-backward "
+              f"bound {both:.4f} ms ({both_by}; TF32 rate); plain backward "
+              f"{plain:.4f} ms; SDPA backward {lib:.4f} ms [{card}]",
+              flush=True)
+        del q, k, v, mask, dout, out, lse, delta, qs, ks, vs, o
+    return {name: rows[(name, min(FLASH_BWD_TIMED))] for name in ("dq", "dkv")}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").exists():
         print(f"chip_smoke: the package {PKG} is not beside this script",
@@ -752,6 +1220,8 @@ def main() -> int:
     worst_long = smoke.phase("2c. mrf_resblock kernel vs plain at the "
                              "long-form and streaming shapes",
                              phase_long_kernel_vs_plain, smoke, device)
+    worst_bwd = smoke.phase("2d. flash_mha backward kernels vs plain on "
+                            "the card", phase_flash_bwd_vs_plain, smoke)
     main_run = smoke.phase("3. main path: Synthesizer.synthesize",
                            phase_main_path, smoke, device, TEXTS, EMOTIONS)
     flash_launches = totals = flash_row = None
@@ -764,9 +1234,15 @@ def main() -> int:
                              EMOTIONS)
         flash_row = smoke.phase("4b. times: long-form path and flash kernel",
                                 phase_long_times, main_run[0])
+    train_launches = smoke.phase("5. training: train() under "
+                                 "attention_impl='flash'", phase_training,
+                                 smoke, device)
+    bwd_rows = smoke.phase("6. times: train step and flash backward "
+                           "kernels", phase_train_times, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if (smoke.failures or None in (worst, worst_flash, worst_long,
-                                   flash_launches, totals, flash_row)):
+                                   flash_launches, totals, flash_row,
+                                   worst_bwd, train_launches, bwd_rows)):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
               file=sys.stderr)
         return 1
@@ -792,9 +1268,25 @@ def main() -> int:
         "source": f"{PKG}/csrc/flash_mha.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "flash_mha.py:53",
-        "launches": flash_launches,
+        "launches": train_launches[0],
         "max_abs_err": worst_flash,
         **flash_row,
+    }, {
+        "name": "flash_mha_bwd_dq",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        "launches": train_launches[1],
+        "max_abs_err": worst_bwd[0],
+        **bwd_rows["dq"],
+    }, {
+        "name": "flash_mha_bwd_dkv",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        "launches": train_launches[2],
+        "max_abs_err": worst_bwd[1],
+        **bwd_rows["dkv"],
     }]
     print(f"card: {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))

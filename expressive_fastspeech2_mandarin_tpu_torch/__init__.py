@@ -2,9 +2,10 @@
 Hopper: the port of ``expressive_fastspeech2_mandarin_tpu``.
 
 This package imports ``torch`` and nothing of JAX or of the JAX package.
-Its entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-on the card, the HiFi-GAN MRF resblocks run a hand-written CUDA kernel
-(``csrc/mrf_resblock.cu``), built at first use.
+Its entry points — ``synth.Synthesizer`` and ``train.train`` — run on
+``cuda`` unless the caller passes ``device="cpu"``. On the card the HiFi-GAN
+MRF resblocks and the flash attention forward and backward run hand-written
+CUDA kernels (``csrc/``), built at first use.
 """
 
 __version__ = "0.1.0"

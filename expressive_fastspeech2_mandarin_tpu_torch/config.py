@@ -1,10 +1,12 @@
-"""Typed configuration for the synthesis path.
+"""Typed configuration for synthesis and FastSpeech2 training.
 
-The same three-level shape as the JAX package's configuration — audio, STFT,
-mel and variance features under ``PreprocessConfig``; transformer, variance
-and vocoder sizes under ``ModelConfig`` — with the same field names and
-defaults, so a configuration reads the same in both packages. Training
-sections belong to later parts of the port.
+The same shape as the JAX package's configuration — audio, STFT, mel and
+variance features under ``PreprocessConfig``; transformer, variance and
+vocoder sizes under ``ModelConfig``; optimizer, cadence and buckets under
+``TrainConfig`` — with the same field names and defaults, so a configuration
+reads the same in both packages. Training values that only mean something
+on a TPU (scan chunks, a model-parallel mesh, XLA matmul precision, the JAX
+profiler) raise ``ValueError``. There is no YAML loader yet.
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ class TransformerConfig:
     encoder_dropout: float = 0.2
     decoder_dropout: float = 0.2
     # "auto" (flash on the card past 2048 frames) | "xla" (plain matmul +
-    # softmax) | "flash" (the CUDA kernel on the card, plain on the CPU)
+    # softmax) | "flash" (the CUDA kernels, forward and backward, on the
+    # card; their plain versions on the CPU)
     attention_impl: str = "auto"
 
 
@@ -144,7 +147,103 @@ class ModelConfig:
     padding_inert: bool = True
 
 
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    batch_size: int = 4
+    betas: tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-9
+    weight_decay: float = 0.0
+    grad_clip_thresh: float = 1.0
+    grad_acc_step: int = 1
+    warm_up_step: int = 4000
+    anneal_steps: tuple[int, ...] = (300000, 400000, 500000)
+    anneal_rate: float = 0.3
+    # Multiplier on the Noam schedule for large-batch training.
+    lr_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    total_step: int = 900000
+    log_step: int = 100
+    synth_step: int = 1000
+    val_step: int = 1000
+    save_step: int = 100000
+
+
+@dataclass(frozen=True)
+class BucketConfig:
+    """Padded batch shapes: (src, mel) lengths round up to these sizes."""
+
+    src_buckets: tuple[int, ...] = (32, 64, 96, 128)
+    mel_buckets: tuple[int, ...] = (250, 500, 1000, 1500, 2000)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's device mesh; the port trains on one card, so only
+    ``model_parallel_size=1`` is accepted."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    path: PathConfig = field(default_factory=PathConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    step: StepConfig = field(default_factory=StepConfig)
+    buckets: BucketConfig = field(default_factory=BucketConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    seed: int = 1234
+    # TPU matmul precision; the port takes only "default".
+    matmul_precision: str = "default"
+    # "bfloat16": forward and backward on a bf16 copy of the float32
+    # master parameters; "float32" keeps full precision.
+    amp_dtype: str = "float32"
+    # Optimizer steps per host dispatch (a lax.scan chunk on the TPU); the
+    # port takes only 1.
+    steps_per_call: int = 1
+    # Mel-target staging for the host → device copy: "int16" (per-utterance
+    # affine quantization), "bfloat16" or "float32".
+    transfer_dtype: str = "int16"
+    # Batches staged ahead of the running step.
+    prefetch_chunks: int = 2
+    # JAX profiler window; the port takes only the default (off).
+    profile_start_step: int = -1
+    profile_stop_step: int = -1
+
+    def __post_init__(self):
+        tpu_only = [
+            (self.steps_per_call > 1, f"steps_per_call={self.steps_per_call}"
+             " (lax.scan chunks of optimizer steps)"),
+            (self.mesh.model_parallel_size > 1,
+             f"mesh.model_parallel_size={self.mesh.model_parallel_size} "
+             "(a model-parallel TPU mesh)"),
+            (self.matmul_precision != "default",
+             f"matmul_precision={self.matmul_precision!r} (XLA's TPU "
+             "matmul precision)"),
+            (self.profile_start_step >= 0,
+             f"profile_start_step={self.profile_start_step} (the JAX "
+             "profiler)"),
+        ]
+        for bad, what in tpu_only:
+            if bad:
+                raise ValueError(f"{what} is a TPU setting the PyTorch port "
+                                 f"does not take; leave it at its default")
+        if self.amp_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"amp_dtype must be float32 or bfloat16, got "
+                             f"{self.amp_dtype!r}")
+        if self.transfer_dtype not in ("int16", "bfloat16", "float32"):
+            raise ValueError(f"transfer_dtype must be int16, bfloat16 or "
+                             f"float32, got {self.transfer_dtype!r}")
+
+
 @dataclass(frozen=True)
 class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

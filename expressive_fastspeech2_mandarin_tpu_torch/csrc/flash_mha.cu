@@ -13,6 +13,12 @@
 // with segment IDs and lets padded queries attend to padded keys; the FFT
 // block zeroes those rows in both packages.
 //
+// For the backward (csrc/flash_mha_bwd.cu) the kernel also stores, when
+// given an lse pointer, each row's log-sum-exp of its scaled scores,
+// lse[i] = m_i + log(l_i), in float32. A row with no valid key stores +inf,
+// so that every probability the backward recomputes, exp(s - lse), is
+// exactly 0 there. Inference passes a null pointer and stores nothing.
+//
 // What bounds it: operations. Two products of 2*T*T*D flops per (b, h),
 // 4*B*H*T^2*D flops in all, against 16*B*H*T*D bytes (q, k, v read once and
 // out written once, float32): T/4 flops per byte, 1024 at T = 4096, far
@@ -40,7 +46,8 @@
 // K/V stage are later work (ROADMAP.md, queue 2).
 //
 // Layouts: q, k, v and out (B, H, T, 128) float32, contiguous, 16-byte
-// aligned; mask (B, T) bytes, nonzero at padded keys.
+// aligned; mask (B, T) bytes, nonzero at padded keys; lse (B, H, T) float32
+// or null.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -91,7 +98,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const uint8_t* __restrict__ mask, float* __restrict__ out,
-                     int n_head, int t_len, float sm_scale) {
+                     float* __restrict__ lse, int n_head, int t_len,
+                     float sm_scale) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // [kBq][kQkStride]
   float* ks = qs + kBq * kQkStride;        // [kBk][kQkStride]
@@ -229,23 +237,27 @@ flash_mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                    acc[i][2] / denom, acc[i][3] / denom));
     store4(o + 64 + 4 * tx, make_float4(acc[i][4] / denom, acc[i][5] / denom,
                                         acc[i][6] / denom, acc[i][7] / denom));
+    if (lse != nullptr && tx == 0)
+      lse[head + r] = l[i] == 0.f ? CUDART_INF_F : m[i] + logf(l[i]);
   }
 }
 
 }  // namespace
 
 // q, k, v, out: (batch, n_head, t_len, 128) float32; mask: (batch, t_len)
-// bytes. Returns cudaGetLastError() after the launch (0 on success).
+// bytes; lse: (batch, n_head, t_len) float32, or null to store none.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_mha_fwd_f32(const float* q, const float* k,
                                  const float* v, const uint8_t* mask,
-                                 float* out, int batch, int n_head, int t_len,
-                                 float sm_scale, void* stream) {
+                                 float* out, float* lse, int batch,
+                                 int n_head, int t_len, float sm_scale,
+                                 void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_mha_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_len + kBq - 1) / kBq, n_head, batch);
   flash_mha_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      q, k, v, mask, out, n_head, t_len, sm_scale);
+      q, k, v, mask, out, lse, n_head, t_len, sm_scale);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-"""Readers of a preprocessed corpus's metadata."""
+"""Readers of a preprocessed corpus and the bucketed training batches."""
 
-from .metadata import PreprocessedCorpus
+from .dataset import BucketedDataset, pick_bucket
+from .metadata import EMOTION_AROUSAL_VALENCE, PreprocessedCorpus, Utterance
 
-__all__ = ["PreprocessedCorpus"]
+__all__ = ["BucketedDataset", "pick_bucket", "EMOTION_AROUSAL_VALENCE",
+           "PreprocessedCorpus", "Utterance"]

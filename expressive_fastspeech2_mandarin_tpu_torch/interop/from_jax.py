@@ -64,10 +64,11 @@ def _variance_predictor(out: dict, prefix: str, p: Params) -> None:
     _lin(out, f"{prefix}.linear_layer", p["linear"])
 
 
-def fastspeech2_from_jax(params: Params, bn_state: Params,
-                         consts: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``FastSpeech2`` params, BatchNorm state and consts (the
-    pitch/energy bin boundaries) → the port's ``FastSpeech2`` state dict."""
+def _fastspeech2_params(params: Params, bn_state: Params | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The parameters under the port's names, with the BatchNorm
+    statistics of ``bn_state`` when given; also maps trees shaped like the
+    params, as Adam's moments are."""
     out: dict[str, torch.Tensor] = {}
     out["encoder.src_word_emb.weight"] = _t(params["encoder"]["embed"])
     for i, blk in enumerate(params["encoder"]["layers"]):
@@ -86,9 +87,10 @@ def fastspeech2_from_jax(params: Params, bn_state: Params,
         _conv(out, f"postnet.convolutions.{i}.0.conv", conv)
         out[f"postnet.convolutions.{i}.1.weight"] = _t(conv["bn_g"])
         out[f"postnet.convolutions.{i}.1.bias"] = _t(conv["bn_b"])
-        bn = bn_state["postnet"]["convs"][i]
-        out[f"postnet.convolutions.{i}.1.running_mean"] = _t(bn["mean"])
-        out[f"postnet.convolutions.{i}.1.running_var"] = _t(bn["var"])
+        if bn_state is not None:
+            bn = bn_state["postnet"]["convs"][i]
+            out[f"postnet.convolutions.{i}.1.running_mean"] = _t(bn["mean"])
+            out[f"postnet.convolutions.{i}.1.running_var"] = _t(bn["var"])
     if "speaker_emb" in params:
         out["speaker_emb.weight"] = _t(params["speaker_emb"])
     if "emotion_emb" in params:
@@ -96,9 +98,59 @@ def fastspeech2_from_jax(params: Params, bn_state: Params,
         out["arousal_emb.weight"] = _t(params["arousal_emb"])
         out["valence_emb.weight"] = _t(params["valence_emb"])
         _lin(out, "emotion_linear.0", params["emotion_linear"])
-    out["variance_adaptor.pitch_bins"] = _t(consts["pitch_bins"])
-    out["variance_adaptor.energy_bins"] = _t(consts["energy_bins"])
     return out
+
+
+def fastspeech2_from_jax(params: Params, bn_state: Params,
+                         consts: Mapping[str, Any] | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """JAX ``FastSpeech2`` params, BatchNorm state and consts (the
+    pitch/energy bin boundaries) → the port's ``FastSpeech2`` state dict.
+    Without ``consts`` the bins are left out (load with ``strict=False``
+    over a model that already holds its bins)."""
+    out = _fastspeech2_params(params, bn_state)
+    if consts is not None:
+        out["variance_adaptor.pitch_bins"] = _t(consts["pitch_bins"])
+        out["variance_adaptor.energy_bins"] = _t(consts["energy_bins"])
+    return out
+
+
+def _find(node: Any, *attrs: str) -> Any:
+    """The first node of an optax state tree (named tuples, tuples) that
+    has every one of ``attrs``."""
+    if all(hasattr(node, a) for a in attrs):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find(child, *attrs)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(params: Params, bn_state: Params, opt_state: Any,
+                         step: int, *,
+                         consts: Mapping[str, Any] | None = None) -> dict:
+    """A JAX ``TrainState``'s parts (as numpy trees) → a checkpoint dict of
+    the port (``train.state.load_checkpoint``): the model state dict, and
+    the optimizer state — Adam's ``mu``/``nu`` and count from the
+    ``scale_by_adam`` state, and with ``optax.MultiSteps`` its mini-step
+    and accumulated gradients — under the parameter names of
+    ``fastspeech2_from_jax``; ``consts`` as there (the model's bins are
+    part of a checkpoint)."""
+    adam = _find(opt_state, "mu", "nu", "count")
+    if adam is None:
+        raise ValueError("opt_state holds no scale_by_adam state")
+    multi = _find(opt_state, "mini_step", "acc_grads")
+    optimizer = {
+        "count": int(np.asarray(adam.count)),
+        "mini_step": int(np.asarray(multi.mini_step)) if multi else 0,
+        "mu": _fastspeech2_params(adam.mu),
+        "nu": _fastspeech2_params(adam.nu),
+        "acc": _fastspeech2_params(multi.acc_grads) if multi else {},
+    }
+    return {"model": fastspeech2_from_jax(params, bn_state, consts),
+            "optimizer": optimizer, "step": int(np.asarray(step))}
 
 
 def hifigan_from_jax(params: Params) -> dict[str, torch.Tensor]:

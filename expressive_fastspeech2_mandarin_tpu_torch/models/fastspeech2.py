@@ -1,6 +1,9 @@
 """FastSpeech2 acoustic model with speaker and emotion/arousal/valence
-conditioning, at inference (deterministic: no dropout, BatchNorm on running
-statistics).
+conditioning. At inference (the default) it is deterministic: no dropout,
+BatchNorm on running statistics. With ``training=True`` and a dropout
+generator it applies dropout and the postnet's BatchNorm takes batch
+statistics, updating its running ones in place. With duration (and pitch,
+energy) targets it is teacher-forced, as in training and evaluation.
 
 encoder → +speaker_emb → +relu(emotion_linear(cat(emotion, arousal,
 valence))) → variance adaptor → decoder → mel_linear → postnet (+residual);
@@ -68,12 +71,25 @@ class FastSpeech2(nn.Module):
     def forward(self, speakers: torch.Tensor, emotions: torch.Tensor,
                 arousals: torch.Tensor, valences: torch.Tensor,
                 texts: torch.Tensor, src_lens: torch.Tensor, *,
-                max_mel_len: int, p_control: float = 1.0,
-                e_control: float = 1.0,
-                d_control: float = 1.0) -> FastSpeech2Output:
+                max_mel_len: int,
+                mel_lens: torch.Tensor | None = None,
+                p_targets: torch.Tensor | None = None,
+                e_targets: torch.Tensor | None = None,
+                d_targets: torch.Tensor | None = None,
+                p_control: float = 1.0, e_control: float = 1.0,
+                d_control: float = 1.0, training: bool = False,
+                generator: torch.Generator | None = None
+                ) -> FastSpeech2Output:
         cfg = self.cfg
+        if training and generator is None:
+            raise ValueError("training mode needs a dropout generator")
+        if d_targets is not None and mel_lens is None:
+            raise ValueError("duration targets need the mel lengths")
+        gen = generator if training else None
         src_masks = mask_from_lengths(src_lens, texts.shape[1])
-        x = self.encoder(texts, src_masks)
+        mel_masks = (mask_from_lengths(mel_lens, max_mel_len)
+                     if mel_lens is not None else None)
+        x = self.encoder(texts, src_masks, gen)
         if cfg.multi_speaker:
             x = x + self.speaker_emb(speakers)[:, None, :]
         if cfg.multi_emotion:
@@ -84,16 +100,21 @@ class FastSpeech2(nn.Module):
         if cfg.padding_inert:
             x = x.masked_fill(src_masks[..., None], 0.0)
 
-        (frames, p_pred, e_pred, log_d_pred, d_rounded, mel_lens,
+        (frames, p_pred, e_pred, log_d_pred, d_rounded, mel_lens_out,
          mel_masks) = self.variance_adaptor(
-            x, src_masks, max_mel_len, p_control, e_control, d_control)
+            x, src_masks, max_mel_len, p_control, e_control, d_control,
+            mel_mask=mel_masks, p_targets=p_targets, e_targets=e_targets,
+            d_targets=d_targets, generator=gen)
+        if d_targets is not None:
+            mel_lens_out = mel_lens
 
-        frames = self.decoder(frames, mel_masks)
+        frames = self.decoder(frames, mel_masks, gen)
         mel = self.mel_linear(frames)
         if cfg.padding_inert:
             mel = mel.masked_fill(mel_masks[..., None], 0.0)
-        residual = self.postnet(mel,
-                                mask=mel_masks if cfg.padding_inert else None)
+        residual = self.postnet(
+            mel, mask=mel_masks if cfg.padding_inert else None,
+            generator=gen)
         return FastSpeech2Output(
             mel=mel,
             postnet_mel=mel + residual,
@@ -104,5 +125,5 @@ class FastSpeech2(nn.Module):
             src_masks=src_masks,
             mel_masks=mel_masks,
             src_lens=src_lens,
-            mel_lens=mel_lens,
+            mel_lens=mel_lens_out,
         )

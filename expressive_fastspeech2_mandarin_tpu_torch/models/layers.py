@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import batch_norm_inference
+from ..ops import batch_norm_inference, batch_norm_train
 
 
 class WrappedConv1d(nn.Module):
@@ -18,9 +18,11 @@ class WrappedConv1d(nn.Module):
         self.conv = nn.Conv1d(c_in, c_out, kernel_size)
 
 
-class BatchNormInference(nn.Module):
-    """BatchNorm1d at inference: affine parameters and running statistics,
-    applied over the last axis of (B, T, C)."""
+class BatchNorm(nn.Module):
+    """BatchNorm1d over the last axis of (B, T, C): affine parameters and
+    running statistics. ``forward`` normalizes with the running statistics;
+    ``forward_train`` with the batch's, updating the running ones in
+    place."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -34,3 +36,12 @@ class BatchNormInference(nn.Module):
         return batch_norm_inference(x, self.weight, self.bias,
                                     self.running_mean, self.running_var,
                                     self.eps)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        out, mean, var = batch_norm_train(x, self.weight, self.bias,
+                                          self.running_mean,
+                                          self.running_var, eps=self.eps)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var)
+        return out

@@ -1,6 +1,8 @@
-"""PostNet at inference: 5 × conv1d(k=5) + BatchNorm (running statistics),
-tanh on every layer but the last; the residual add is the caller's. The JAX
-package's ``models/postnet.py``."""
+"""PostNet: 5 × conv1d(k=5) + BatchNorm, tanh on every layer but the last;
+the residual add is the caller's. At inference BatchNorm uses its running
+statistics; in training (a dropout generator given) it uses the batch's and
+updates the running ones in place, and a fixed 0.5 dropout follows every
+layer. The JAX package's ``models/postnet.py``."""
 
 from __future__ import annotations
 
@@ -8,7 +10,11 @@ import torch
 from torch import nn
 
 from ..ops import conv1d
-from .layers import BatchNormInference, WrappedConv1d
+from ..ops.dropout import dropout
+from .layers import BatchNorm, WrappedConv1d
+
+# The reference's postnet dropout, not in the configuration.
+POSTNET_DROPOUT = 0.5
 
 
 class PostNet(nn.Module):
@@ -21,20 +27,22 @@ class PostNet(nn.Module):
                 + [(embedding_dim, n_mel_channels)])
         self.convolutions = nn.ModuleList([
             nn.Sequential(WrappedConv1d(c_in, c_out, kernel_size),
-                          BatchNormInference(c_out))
+                          BatchNorm(c_out))
             for c_in, c_out in dims])
 
-    def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, T, n_mels) → (B, T, n_mels) residual. ``mask`` (True at
-        padded frames) zeroes each layer's output there."""
+        padded frames) zeroes each layer's output there. A ``generator``
+        selects training mode."""
         pad = (self.kernel_size - 1) // 2
         n = len(self.convolutions)
         for i, (wrapped, bn) in enumerate(self.convolutions):
-            x = bn(conv1d(x, wrapped.conv.weight, wrapped.conv.bias,
-                          padding=pad))
+            x = conv1d(x, wrapped.conv.weight, wrapped.conv.bias, padding=pad)
+            x = bn(x) if generator is None else bn.forward_train(x)
             if i < n - 1:
                 x = torch.tanh(x)
+            x = dropout(x, POSTNET_DROPOUT, generator)
             if mask is not None:
                 x = x.masked_fill(mask[..., None], 0.0)
         return x

@@ -1,9 +1,11 @@
-"""FFT-block transformer encoder and decoder (inference).
+"""FFT-block transformer encoder and decoder.
 
 Post-LN residual order, ``-inf`` key masking before the softmax, the padded
 rows zeroed after each sublayer, sinusoidal absolute positions regrown past
-``max_seq_len``; the JAX package's ``models/transformer.py``. Module and
-parameter names are the reference's, so its state dicts load as they are.
+``max_seq_len``; in training (a dropout generator given), dropout after the
+attention's ``fc`` and after the second FFN conv. The JAX package's
+``models/transformer.py``. Module and parameter names are the reference's,
+so its state dicts load as they are.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from ..config import TransformerConfig
 from ..ops import conv1d, layer_norm, multi_head_attention
+from ..ops.dropout import dropout
 
 
 def sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -57,14 +60,17 @@ class FFTBlock(nn.Module):
         self.slf_attn = MultiHeadAttention(d_model, n_head, d_model // n_head)
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        """(B, T, D) → (B, T, D); ``pad_mask`` (B, T) True at padding."""
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                dropout_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, T, D) → (B, T, D); ``pad_mask`` (B, T) True at padding. With
+        a ``generator`` (training), dropout at ``dropout_rate``."""
         a = self.slf_attn
         out = multi_head_attention(
             x, a.w_qs.weight, a.w_qs.bias, a.w_ks.weight, a.w_ks.bias,
             a.w_vs.weight, a.w_vs.bias, a.n_head, pad_mask,
             impl=self.attention_impl)
-        out = a.fc(out)
+        out = dropout(a.fc(out), dropout_rate, generator)
         out = layer_norm(out + x, a.layer_norm.weight, a.layer_norm.bias)
         out = out.masked_fill(pad_mask[..., None], 0.0)
 
@@ -73,6 +79,7 @@ class FFTBlock(nn.Module):
         h = conv1d(out, f.w_1.weight, f.w_1.bias, padding=(k0 - 1) // 2)
         h = F.relu(h)
         h = conv1d(h, f.w_2.weight, f.w_2.bias, padding=(k1 - 1) // 2)
+        h = dropout(h, dropout_rate, generator)
         h = layer_norm(h + out, f.layer_norm.weight, f.layer_norm.bias)
         return h.masked_fill(pad_mask[..., None], 0.0)
 
@@ -81,9 +88,10 @@ class _Stack(nn.Module):
     """Position table + FFT blocks, shared by the encoder and decoder."""
 
     def __init__(self, cfg: TransformerConfig, n_layer: int, d_model: int,
-                 n_head: int, max_seq_len: int):
+                 n_head: int, max_seq_len: int, dropout_rate: float):
         super().__init__()
         self.max_seq_len = max_seq_len
+        self.dropout_rate = dropout_rate
         self.d_model = d_model
         self.register_buffer(
             "position_enc",
@@ -110,11 +118,11 @@ class _Stack(nn.Module):
                 self._regrown = table
         return table[:t].to(like.dtype)
 
-    def run_layers(self, x: torch.Tensor,
-                   pad_mask: torch.Tensor) -> torch.Tensor:
+    def run_layers(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                   generator: torch.Generator | None) -> torch.Tensor:
         x = x + self.positions(x.shape[1], x)[None]
         for layer in self.layer_stack:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, self.dropout_rate, generator)
         return x
 
 
@@ -122,21 +130,22 @@ class Encoder(_Stack):
     def __init__(self, cfg: TransformerConfig, vocab_size: int,
                  max_seq_len: int):
         super().__init__(cfg, cfg.encoder_layer, cfg.encoder_hidden,
-                         cfg.encoder_head, max_seq_len)
+                         cfg.encoder_head, max_seq_len, cfg.encoder_dropout)
         self.src_word_emb = nn.Embedding(vocab_size, cfg.encoder_hidden,
                                          padding_idx=0)
 
-    def forward(self, texts: torch.Tensor,
-                pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, texts: torch.Tensor, pad_mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S) phoneme IDs → (B, S, D)."""
-        return self.run_layers(self.src_word_emb(texts), pad_mask)
+        return self.run_layers(self.src_word_emb(texts), pad_mask, generator)
 
 
 class Decoder(_Stack):
     def __init__(self, cfg: TransformerConfig, max_seq_len: int):
         super().__init__(cfg, cfg.decoder_layer, cfg.decoder_hidden,
-                         cfg.decoder_head, max_seq_len)
+                         cfg.decoder_head, max_seq_len, cfg.decoder_dropout)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, T, D) frame states → (B, T, D)."""
-        return self.run_layers(x, pad_mask)
+        return self.run_layers(x, pad_mask, generator)

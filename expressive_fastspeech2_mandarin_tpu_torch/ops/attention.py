@@ -6,8 +6,9 @@ comes out as zeros. The projections are ``nn.Linear`` weights, ``(H*D, D_model)`
 ``impl`` chooses the core, as the JAX package does:
 
 * ``"xla"`` (the JAX package's name for the math path): ``flash_mha_plain``;
-* ``"flash"``: ``flash_mha``, the CUDA kernel on the card (the plain version
-  on the CPU);
+* ``"flash"``: ``flash_mha``, the CUDA kernels on the card, forward and,
+  when a gradient is wanted, backward (``FlashMHA``); the plain versions on
+  the CPU;
 * ``"auto"``: flash on the card when T > 2048 and D = 128, the head dim the
   kernel takes (the JAX rule, with "on a TPU" read as "on the card" and
   "D % 128 == 0" as "D = 128"), else the math path.

@@ -48,3 +48,24 @@ def batch_norm_inference(x: torch.Tensor, gamma: torch.Tensor,
     """BatchNorm over the channel (last) axis using running statistics."""
     inv = torch.rsqrt(running_var + eps)
     return (x - running_mean) * inv * gamma + beta
+
+
+def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor, *,
+                     momentum: float = 0.1, eps: float = 1e-5
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training-mode BatchNorm over the channel (last) axis of (B, T, C):
+    returns (out, new_running_mean, new_running_var), as torch's
+    BatchNorm1d. Statistics are float32 over every B·T row, padded rows
+    included; the biased variance normalizes, the unbiased one enters the
+    running average, and ``momentum`` weighs the new observation."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    mean = xf.mean(dim=0)
+    var = (xf - mean).square().mean(dim=0)
+    n = xf.shape[0]
+    unbiased = var * (n / max(n - 1, 1))
+    out = (((x.float() - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+           * gamma + beta)
+    new_mean = (1 - momentum) * running_mean + momentum * mean.detach()
+    new_var = (1 - momentum) * running_var + momentum * unbiased.detach()
+    return out, new_mean, new_var

@@ -22,7 +22,7 @@ import torch
 from scipy.io import wavfile
 
 from ..config import Config
-from ..data import PreprocessedCorpus
+from ..data import EMOTION_AROUSAL_VALENCE, PreprocessedCorpus, pick_bucket
 from ..device import resolve_device
 from ..interop.torch_ckpt import (
     fastspeech2_checkpoint_state,
@@ -36,23 +36,7 @@ from .streaming import vocode_streaming
 SRC_BUCKETS = (16, 32, 64, 128, 256)
 MEL_BUCKETS = (250, 500, 1000, 2000)
 
-# Emotion → (arousal, valence) value strings, keys of the arousal/valence maps.
-EMOTION_AROUSAL_VALENCE = {
-    "Angry": ("0.9", "0.1"),
-    "Happy": ("0.8", "0.8"),
-    "Neutral": ("0.5", "0.5"),
-    "Sad": ("0.3", "0.2"),
-    "Surprise": ("0.8", "0.6"),
-}
-
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
-
-
-def _bucket(n: int, buckets) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return buckets[-1]
 
 
 def save_wav(path: str, audio: np.ndarray, sr: int,
@@ -171,8 +155,8 @@ class Synthesizer:
         id_lists = [text_to_ids(t, self.cfg.preprocess.symbol_table)
                     for t in texts]
         longest = max(len(i) for i in id_lists)
-        max_src = _bucket(longest, SRC_BUCKETS)
-        max_mel = max_mel_len or _bucket(
+        max_src = pick_bucket(longest, SRC_BUCKETS)
+        max_mel = max_mel_len or pick_bucket(
             int(longest * 10 * duration_control) + 16, MEL_BUCKETS)
 
         texts_arr = np.zeros((n, max_src), np.int64)

@@ -30,15 +30,21 @@ __all__ = [
 ]
 
 
-def phonemes_to_ids(phonemes: list[str], table: str = "pinyin") -> list[int]:
-    """Map phoneme symbols to IDs; unknown symbols map to pad (the
-    inference-time policy)."""
+def phonemes_to_ids(phonemes: list[str], table: str = "pinyin",
+                    unknown: str = "pad") -> list[int]:
+    """Map phoneme symbols to IDs. Unknown symbols map to pad
+    (``unknown="pad"``, the inference-time policy) or are dropped
+    (``"skip"``, the training-data policy)."""
     sym_to_id = symbols.get_symbol_table(table)
     ids: list[int] = []
     for ph in phonemes:
-        if ph not in sym_to_id:
+        if ph in sym_to_id:
+            ids.append(sym_to_id[ph])
+        elif unknown == "skip":
+            logger.debug("skipping unknown phoneme %r", ph)
+        else:
             logger.warning("unknown phoneme %r mapped to pad", ph)
-        ids.append(sym_to_id.get(ph, sym_to_id[symbols.PAD]))
+            ids.append(sym_to_id[symbols.PAD])
     return ids
 
 

@@ -44,7 +44,7 @@ def test_port_sources_name_no_jax_module():
 
 
 def test_walk_covers_every_slice_module():
-    """The import check above walks these modules of the two slices."""
+    """The import check above walks these modules of the three slices."""
     import pkgutil
 
     import expressive_fastspeech2_mandarin_tpu_torch as port
@@ -53,5 +53,8 @@ def test_walk_covers_every_slice_module():
                                                    port.__name__ + ".")}
     for mod in ("ops.mrf_resblock", "ops.flash_mha", "ops.attention",
                 "synth.synthesizer", "synth.streaming", "interop.from_jax",
-                "interop.torch_ckpt", "data.metadata", "kernels.build"):
+                "interop.torch_ckpt", "data.metadata", "kernels.build",
+                "ops.dropout", "data.dataset", "train.loss",
+                "train.schedule", "train.state", "train.step", "train.loop",
+                "utils.logging"):
         assert f"{port.__name__}.{mod}" in names, mod

@@ -95,3 +95,54 @@ def test_flash_kernel_rejects_unsupported_input_on_card():
         fa.flash_mha(q64, k64, v64, mask64, 1.0)
     with pytest.raises(ValueError):
         fa.flash_mha(q.transpose(2, 3), k, v, mask, 1.0)
+
+
+# The flash attention backward kernels (csrc/flash_mha_bwd.cu) against the
+# plain backward: float32, TF32 off; bound 1e-4 · max|ref| for dq, dk and
+# dv (the kernels recompute P from the stored log-sum-exp and sum in another
+# order than cuBLAS); a rerun is bit-identical (no atomics).
+
+
+def _flash_grads(q, k, v, mask, dout):
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_mha(q, k, v, mask, 128 ** -0.5)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,lens", [(300, (300, 37, 0, 299)),
+                                    (1000, (1000, 63, 0, 999)),
+                                    (2300, (2300, 63, 0, 2049))])
+def test_flash_backward_kernels_match_plain_on_card(t, lens):
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _flash_inputs(len(lens), t, lens, seed=t + 1)
+    dout = torch.randn_like(q)
+    before = (fa.launch_count, fa.bwd_dq_launch_count,
+              fa.bwd_dkv_launch_count)
+    out, dq, dk, dv = _flash_grads(q, k, v, mask, dout)
+    assert (fa.launch_count, fa.bwd_dq_launch_count,
+            fa.bwd_dkv_launch_count) == tuple(n + 1 for n in before)
+    ref = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, 128 ** -0.5)
+    for g, r in zip((dq, dk, dv), ref):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    for g in (dq, dk, dv):  # the row of length 0
+        assert torch.count_nonzero(g[2]).item() == 0
+    again = _flash_grads(q, k, v, mask, dout)
+    for a, b in zip((out, dq, dk, dv), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_forward_lse_matches_logsumexp_on_card():
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lens = (700, 5, 0)
+    q, k, v, mask = _flash_inputs(len(lens), 700, lens, seed=11)
+    out, lse = fa._flash_mha_cuda(q, k, v, mask, 128 ** -0.5, with_lse=True)
+    ref = fa.flash_mha_lse_plain(q, k, mask, 128 ** -0.5)
+    assert torch.isposinf(lse[2]).all()
+    assert (lse[:2] - ref[:2]).abs().max().item() <= 1e-5 * ref[:2].abs().max()
+    torch.testing.assert_close(out, fa.flash_mha(q, k, v, mask, 128 ** -0.5),
+                               rtol=0, atol=0)
