@@ -6,13 +6,16 @@
 Phases:
   1. environment: the card's name and power limit; build every CUDA source
      of the port with nvcc (sm_90a) and print ptxas's register, shared
-     memory and spill lines;
-  2. the MRF resblock kernel against its plain PyTorch version on the card,
-     at the generator's four stage shapes (B=4 × 1000 mel frames) for
-     k = 3, 7, 11 and at the ragged T=700, in float32 and bfloat16;
+     memory and spill lines; the MRF tensor-core kernel must not spill;
+  2. the MRF resblock kernels against their plain PyTorch version on the
+     card, at the generator's four stage shapes (B=4 × 1000 mel frames) for
+     k = 3, 7, 11 and at the ragged T=700, in float32 (the CUDA-core
+     kernel) and bfloat16 (the tensor-core kernel), with each resblock's
+     six launches counted on the kernel of its dtype;
   3. the main path: ``Synthesizer.synthesize`` at ``Config()`` width on four
      utterances with a bfloat16 HiFi-GAN, with random weights from fixed
-     seeds; the kernel's launch count over that run; the duration_control=2
+     seeds; the MRF launches over that run, every one on the tensor-core
+     kernel (72 per generator call); the duration_control=2
      probe; one utterance's float32 waveform from the card against the same
      run on the CPU;
   2b. the flash attention kernel against its plain version on the card,
@@ -30,8 +33,9 @@ Phases:
      ``synthesize_streaming`` in chunks of 100 frames against the
      monolithic waveform of the same mel, with 6 flash launches per call
      and 72 MRF launches per window;
-  4. times: steady-state batch synthesis, and per stage shape the kernel,
-     its plain version, its bound and a cuDNN conv chain (library_ms);
+  4. times: steady-state batch synthesis, and per stage shape the kernel
+     (and its TF/s), its plain version, its bound, the six-launch design's
+     bytes floor and a cuDNN conv chain (library_ms);
      long-form batch synthesis, its text → mel and generator spans,
      streaming first and last chunk, and the flash kernel against its
      plain version, its bound and SDPA;
@@ -207,11 +211,21 @@ def phase_environment(smoke: Smoke):
     t0 = time.time()
     libs = build.build_all()
     print(f"  built {sorted(libs)} in {time.time() - t0:.1f} s")
+    tc_entries, tc_clean, current = 0, 0, ""
     for name in libs:
         for line in build.ptxas_report(name).splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
+            if ("Used" in line or "spill" in line or "Compiling" in line
+                    or "wgmma" in line):
                 print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                current = line
+                tc_entries += "mrf_conv_tc_kernel" in line
+            elif "spill stores" in line and "mrf_conv_tc_kernel" in current:
+                tc_clean += "0 bytes spill stores, 0 bytes spill loads" in line
     smoke.check(bool(libs), "CUDA sources built")
+    smoke.check(tc_entries > 0 and tc_clean == tc_entries,
+                f"MRF tensor-core kernel: {tc_clean} of {tc_entries} "
+                f"instantiations without spills")
 
 
 def random_resblock(c: int, k: int, gen, device, dtype):
@@ -226,10 +240,24 @@ def random_resblock(c: int, k: int, gen, device, dtype):
     return weights
 
 
+def mrf_counts() -> tuple[int, int]:
+    """Launches of the MRF tensor-core (bf16) and CUDA-core (f32) kernels."""
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
+
+    return mrf.tc_launch_count, mrf.fma_launch_count
+
+
+def reset_mrf_counts() -> None:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
+
+    mrf.launch_count = mrf.tc_launch_count = mrf.fma_launch_count = 0
+
+
 def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
                           float64: bool = True):
-    """The MRF kernel against its plain version at (batch, T, C) for each
-    (C, T) of ``shapes``; with ``float64``, float32 also against float64."""
+    """The MRF kernels against their plain version at (batch, T, C) for each
+    (C, T) of ``shapes``; with ``float64``, float32 also against float64.
+    Returns the worst max|diff| of the bf16 (tensor-core) kernel."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
@@ -237,24 +265,29 @@ def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for c, t in shapes:
             x32 = torch.randn(batch, t, c, generator=gen)
             for k in KERNEL_SIZES:
                 weights = random_resblock(c, k, gen, device, dtype)
                 x = x32.to(device, dtype)
+                tc0, fma0 = mrf_counts()
                 out = mrf.mrf_resblock(x, weights, k, DILATIONS)
+                tc, fma = (n - n0 for n, n0 in zip(mrf_counts(), (tc0, fma0)))
                 ref = mrf.mrf_resblock_plain(x, weights, k, DILATIONS)
                 diff = (out.float() - ref.float()).abs().max().item()  # syncs
-                if dtype == torch.float32:
-                    bound = F32_BOUND
-                else:
+                if bf16:
                     bound = BF16_REL_BOUND * ref.float().abs().max().item()
-                worst = max(worst, diff)
+                    worst = max(worst, diff)
+                else:
+                    bound = F32_BOUND
                 smoke.check(
                     out.shape == ref.shape and math.isfinite(diff)
-                    and diff <= bound,
+                    and diff <= bound
+                    and (tc, fma) == ((6, 0) if bf16 else (0, 6)),
                     f"{str(dtype)[6:]:8s} B={batch} C={c:3d} T={t:7d} "
-                    f"k={k:2d} max|diff|={diff:.3e} bound={bound:.3e}")
+                    f"k={k:2d} max|diff|={diff:.3e} bound={bound:.3e}; "
+                    f"launches tensor-core {tc}, CUDA-core {fma}")
                 if dtype == torch.float32 and float64:
                     # The same resblock in float64: the kernel's own error,
                     # which a summation order other than cuDNN's makes
@@ -366,7 +399,6 @@ def phase_main_path(smoke: Smoke, device, texts, emotions):
 
     from expressive_fastspeech2_mandarin_tpu_torch.config import Config
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
-    from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
     from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
 
     cfg = Config()
@@ -377,10 +409,10 @@ def phase_main_path(smoke: Smoke, device, texts, emotions):
     n_resblocks = len(synth.vocoder.resblocks)
     per_call = 2 * len(DILATIONS) * n_resblocks
 
-    mrf.launch_count = 0
+    reset_mrf_counts()
     fa.launch_count = 0
     results = synth.synthesize(texts, speakers, emotions, vocoder="hifigan")
-    launches = mrf.launch_count
+    launches, fma_launches = mrf_counts()
     smoke.check(fa.launch_count == 0,
                 f"flash launches on this path: {fa.launch_count} (every "
                 f"sequence is under 2048 frames: the math path)")
@@ -390,9 +422,10 @@ def phase_main_path(smoke: Smoke, device, texts, emotions):
               and bool(np.isfinite(r.wav).all()))
         smoke.check(ok, f"{r.basename}: mel {r.mel.shape}, wav "
                         f"{r.wav.shape}, finite and non-empty")
-    smoke.check(launches == per_call,
-                f"kernel launches in one generator call: {launches} "
-                f"(expected {per_call})")
+    smoke.check(launches == per_call and fma_launches == 0,
+                f"MRF launches in one bf16 generator call: tensor-core "
+                f"kernel {launches} (expected {per_call}), CUDA-core kernel "
+                f"{fma_launches} (expected 0)")
 
     # Probe: duration_control=2.0 doubles every duration and mel_len (with
     # room enough that no length is clamped).
@@ -435,7 +468,6 @@ def phase_long_form(smoke: Smoke, device, synth):
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
-    from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
     from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
 
     speakers = list(range(len(LONG_TEXTS)))
@@ -445,10 +477,11 @@ def phase_long_form(smoke: Smoke, device, synth):
                   max_mel_len=LONG_MAX_MEL)
 
     fa.launch_count = 0
-    mrf.launch_count = 0
+    reset_mrf_counts()
     results = synth.synthesize(LONG_TEXTS, speakers, EMOTIONS,
                                vocoder="hifigan", **kwargs)
-    flash_launches, mrf_launches = fa.launch_count, mrf.launch_count
+    flash_launches = fa.launch_count
+    mrf_launches, fma_launches = mrf_counts()
     lens = [r.mel.shape[0] for r in results]
     for r in results:
         ok = (r.mel.shape[0] > 0 and r.wav.size == r.mel.shape[0] * 256
@@ -462,9 +495,10 @@ def phase_long_form(smoke: Smoke, device, synth):
     smoke.check(flash_launches == n_dec,
                 f"flash launches in one synthesize call: {flash_launches} "
                 f"(expected {n_dec}, one per decoder layer)")
-    smoke.check(mrf_launches == per_call,
-                f"mrf launches in one generator call: {mrf_launches} "
-                f"(expected {per_call})")
+    smoke.check(mrf_launches == per_call and fma_launches == 0,
+                f"MRF launches in one bf16 generator call: tensor-core "
+                f"kernel {mrf_launches} (expected {per_call}), CUDA-core "
+                f"kernel {fma_launches} (expected 0)")
 
     # The longest utterance in float32: the card (flash) against the CPU
     # (math path), mel only.
@@ -489,20 +523,25 @@ def phase_long_form(smoke: Smoke, device, synth):
 
     # Streaming against the monolithic waveform of the same mel, with the
     # launches of one synthesize_streaming call: the decoder's through
-    # flash, and every resblock of every window through the MRF kernel.
+    # flash, and every resblock of every window through the MRF kernel of
+    # the vocoder's dtype.
     windows = math.ceil(card.mel.shape[0] / STREAM_CHUNK)
     for s, name in ((card_synth, "float32"), (synth, "bfloat16")):
         fa.launch_count = 0
-        mrf.launch_count = 0
+        reset_mrf_counts()
         chunks = list(s.synthesize_streaming(
             *(x[0] for x in one), chunk_frames=STREAM_CHUNK, **kwargs))
+        tc, fma = mrf_counts()
+        want = per_call * windows
         smoke.check(len(chunks) == windows
                     and fa.launch_count == n_dec
-                    and mrf.launch_count == per_call * windows,
+                    and (tc, fma) == ((0, want) if name == "float32"
+                                      else (want, 0)),
                     f"{name} synthesize_streaming: {len(chunks)} chunks "
                     f"(expected {windows}), {fa.launch_count} flash launches"
-                    f" (expected {n_dec}), {mrf.launch_count} mrf launches "
-                    f"(expected {per_call} × {windows} windows)")
+                    f" (expected {n_dec}), MRF launches tensor-core {tc}, "
+                    f"CUDA-core {fma} (expected {per_call} × {windows} "
+                    f"windows on the {name} kernel)")
         stream = np.concatenate(chunks)
         dtype = next(s.vocoder.parameters()).dtype
         with torch.inference_mode():
@@ -560,6 +599,16 @@ def resblock_bound_ms(b: int, t: int, c: int, k: int) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def six_launch_floor_ms(b: int, t: int, c: int, k: int) -> float:
+    """Least time for one bf16 resblock run as six launches, as the port
+    runs it: each conv pair moves the activation five times through device
+    memory (x read, h written, h read, the residual read, out written), plus
+    the weights once; the larger of that and the operations."""
+    flops = 12 * k * c * c * t * b
+    n_bytes = 2 * (15 * b * t * c + 6 * (c * c * k + c))
+    return 1e3 * max(flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES)
 
 
 def generator_split_ms(vocoder, batch: int, frames: int):
@@ -622,7 +671,7 @@ def phase_times(synth, texts, emotions):
 
     gen = torch.Generator().manual_seed(1)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "bound_by_operations_ms": 0.0}
+              "bound_by_operations_ms": 0.0, "floor_ms": 0.0}
     rows = []
     for c, t in STAGE_SHAPES:
         x = torch.randn(BATCH, t, c, generator=gen).to("cuda", torch.bfloat16)
@@ -636,19 +685,31 @@ def phase_times(synth, texts, emotions):
                 lambda: mrf.mrf_resblock_plain(x, w, k, DILATIONS), iters)
             lib = cuda_time_ms(lambda: library_resblock(x, w, k), iters)
             bound, by = resblock_bound_ms(BATCH, t, c, k)
+            floor = six_launch_floor_ms(BATCH, t, c, k)
+            tflops = 12 * k * c * c * t * BATCH / ms / 1e9
             rows.append({"C": c, "T": t, "k": k, "ms": ms, "plain_ms": plain,
                          "library_ms": lib, "bound_ms": bound,
-                         "bound_by": by})
+                         "bound_by": by, "floor_ms": floor, "tflops": tflops})
             for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("library_ms", lib), ("bound_ms", bound)):
+                           ("library_ms", lib), ("bound_ms", bound),
+                           ("floor_ms", floor)):
                 totals[key] += v
             if by == "operations":
                 totals["bound_by_operations_ms"] += bound
             print(f"  mrf_resblock bf16 B={BATCH} C={c:3d} T={t:6d} k={k:2d}:"
-                  f" kernel {ms:.4f} ms, plain {plain:.4f} ms, cuDNN chain "
-                  f"{lib:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+                  f" kernel {ms:.4f} ms ({tflops:.1f} TF/s), plain "
+                  f"{plain:.4f} ms, cuDNN chain {lib:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), six-launch floor {floor:.4f} ms",
+                  flush=True)
         del x
     print("  resblock times: " + json.dumps(rows))
+    flops = sum(12 * r["k"] * r["C"] ** 2 * r["T"] * BATCH for r in rows)
+    print(f"  the 12 resblocks, bf16, B={BATCH} × 1000 frames: kernel "
+          f"{totals['ms']:.3f} ms ({flops / totals['ms'] / 1e9:.1f} TF/s), "
+          f"plain {totals['plain_ms']:.3f} ms, cuDNN chain "
+          f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms,"
+          f" six-launch floor {totals['floor_ms']:.3f} ms "
+          f"[{nvidia_smi_line()}]")
     return totals
 
 

@@ -10,12 +10,15 @@ with leaky-ReLU slope 0.1, 'same' zero padding for every conv, float32
 accumulation and bias, every conv output stored in the working type
 (float32 or bfloat16) and the residual sum taken in float32.
 
-On a CUDA tensor ``mrf_resblock`` launches ``csrc/mrf_resblock.cu`` once per
-conv (six launches per resblock, each counted in ``launch_count``); on a CPU
-tensor it runs ``mrf_resblock_plain``, the same function written with
-``F.conv1d``. Nothing else selects between the two. The kernel is bound by
-its operations (2·K·C² flops per output element); the note at the top of
-the CUDA source says what its design does about that.
+On a CUDA tensor ``mrf_resblock`` launches a kernel of
+``csrc/mrf_resblock.cu`` once per conv (six launches per resblock, each
+counted in ``launch_count``): bfloat16 goes to the tensor-core kernel
+(counted in ``tc_launch_count``) with its weights packed by
+``pack_mrf_weights``, float32 to the exact CUDA-core kernel (counted in
+``fma_launch_count``). On a CPU tensor it runs ``mrf_resblock_plain``, the
+same function written with ``F.conv1d``. Nothing else selects between them.
+The note at the top of the CUDA source says what bounds the kernels and
+what their design does about it.
 
 Weights are a sequence of ``2 * len(dilations)`` ``(weight, bias)`` pairs,
 ``conv1_0, conv2_0, conv1_1, conv2_1, ...``, each weight in
@@ -25,6 +28,7 @@ Weights are a sequence of ``2 * len(dilations)`` ``(weight, bias)`` pairs,
 from __future__ import annotations
 
 import ctypes
+import weakref
 from collections.abc import Sequence
 
 import torch
@@ -33,8 +37,11 @@ import torch.nn.functional as F
 LRELU_SLOPE = 0.1
 KERNEL_SIZES = (3, 7, 11)
 
-# Kernel launches made by ``mrf_resblock`` on CUDA tensors.
+# Kernel launches made by ``mrf_resblock`` on CUDA tensors: all of them, the
+# bfloat16 tensor-core kernel's and the float32 CUDA-core kernel's.
 launch_count = 0
+tc_launch_count = 0
+fma_launch_count = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _lib = None
@@ -79,6 +86,48 @@ def _check(x, weights, kernel_size, dilations) -> None:
                 f"not fit C={c}, K={kernel_size}")
 
 
+def mrf_tiles(channels: int) -> tuple[int, int]:
+    """(BN, KC) of the tensor-core kernel for C channels: output channels
+    per block and input channels per chunk (as ``csrc/mrf_resblock.cu``
+    picks them)."""
+    bn = 128 if channels % 128 == 0 else 64 if channels % 64 == 0 else 32
+    return bn, 64 if channels % 64 == 0 else 32
+
+
+def pack_mrf_weights(weight: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(C_out, C_in, K) conv weight → the image the tensor-core kernel's
+    wgmma B descriptor reads (bf16 for the kernel): one contiguous slab per
+    (N tile, C_in chunk, tap), each slab (KC/8, BN, 8), so that
+    ``packed[nt, kc, j, g, n, e] = weight[nt*BN + n, kc*KC + 8*g + e, j]``."""
+    c_out, c_in, k = weight.shape
+    bn, kc = mrf_tiles(c_out)
+    w = weight.detach().to(dtype)
+    w = w.reshape(c_out // bn, bn, c_in // kc, kc // 8, 8, k)
+    return w.permute(0, 2, 5, 3, 1, 4).contiguous()
+
+
+# id(weight) → (weakref to it, its _version, its packed image). An entry is
+# dropped when its tensor dies and replaced when the tensor is written in
+# place (its version moves).
+_packed: dict[int, tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+def packed_weights(weight: torch.Tensor) -> torch.Tensor:
+    """``pack_mrf_weights(weight)``, packed once per tensor and version.
+    Inference tensors carry no version counter and are packed every call."""
+    if weight.is_inference():
+        return pack_mrf_weights(weight)
+    key = id(weight)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
+        return hit[2]
+    packed = pack_mrf_weights(weight)
+    ref = weakref.ref(weight, lambda _, key=key: _packed.pop(key, None))
+    _packed[key] = (ref, weight._version, packed)
+    return packed
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -92,15 +141,21 @@ def _library():
     return _lib
 
 
-def _launch(fn, x, weight, bias, res, out, kernel_size, dilation, stream):
-    global launch_count
+def _launch(lib, x, weight, bias, res, out, kernel_size, dilation, stream):
+    global launch_count, tc_launch_count, fma_launch_count
     b, t, c = x.shape
+    tc = x.dtype == torch.bfloat16
+    fn = lib.mrf_conv_bf16 if tc else lib.mrf_conv_f32
     err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
              None if res is None else res.data_ptr(), out.data_ptr(),
              b, t, c, kernel_size, dilation, stream)
     if err != 0:
         raise RuntimeError(f"mrf_conv launch failed: CUDA error {err}")
     launch_count += 1
+    if tc:
+        tc_launch_count += 1
+    else:
+        fma_launch_count += 1
 
 
 def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
@@ -119,7 +174,8 @@ def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
             if not p.is_contiguous():
                 raise ValueError("weights must be contiguous")
     lib = _library()
-    fn = lib.mrf_conv_bf16 if x.dtype == torch.bfloat16 else lib.mrf_conv_f32
+    if x.dtype == torch.bfloat16:
+        weights = [(packed_weights(w), b) for w, b in weights]
     x = x.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -127,9 +183,9 @@ def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
         for i, d in enumerate(dilations):
             (w1, b1), (w2, b2) = weights[2 * i], weights[2 * i + 1]
             h = torch.empty_like(state)
-            _launch(fn, state, w1, b1, None, h, kernel_size, d, stream)
+            _launch(lib, state, w1, b1, None, h, kernel_size, d, stream)
             out = torch.empty_like(state)
-            _launch(fn, h, w2, b2, state, out, kernel_size, 1, stream)
+            _launch(lib, h, w2, b2, state, out, kernel_size, 1, stream)
             state = out
     return state
 

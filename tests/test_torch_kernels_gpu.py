@@ -46,6 +46,68 @@ def test_kernel_matches_plain_on_card(dtype, C, T, k):
     assert diff <= tol
 
 
+def _random_resblock(b, t, c, k, seed):
+    gen = torch.Generator().manual_seed(seed)
+    bound = 1.0 / np.sqrt(c * k)
+    weights = [(((torch.rand(c, c, k, generator=gen) * 2 - 1) * bound)
+                .to("cuda", torch.bfloat16),
+                ((torch.rand(c, generator=gen) * 2 - 1) * bound)
+                .to("cuda", torch.bfloat16)) for _ in range(6)]
+    x = torch.randn(b, t, c, generator=gen).to("cuda", torch.bfloat16)
+    return x, weights
+
+
+# The bfloat16 tensor-core kernel (csrc/mrf_resblock.cu, mrf_conv_tc_kernel)
+# against the plain version: the same bf16 values and rounding points, f32
+# sums in another order, which can flip a conv output's bf16 rounding and
+# carry through the chain; bound 2^-6 · max|ref|. Every bf16 launch is the
+# tensor-core kernel's; the float32 CUDA-core kernel is not launched.
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("B,T", [(2, 256),   # two full 128-row tiles
+                                 (2, 333),   # T not a multiple of the tile
+                                 (2, 20),    # T shorter than the halo
+                                 (1, 1040)])  # B = 1, a streaming window
+def test_tc_kernel_matches_plain_on_card(C, k, B, T):
+    _cuda_or_skip()
+    x, weights = _random_resblock(B, T, C, k, seed=C * k + T)
+    before = (mrf.launch_count, mrf.tc_launch_count, mrf.fma_launch_count)
+    out = mrf.mrf_resblock(x, weights, k, DIL)
+    assert (mrf.launch_count, mrf.tc_launch_count, mrf.fma_launch_count) == (
+        before[0] + 6, before[1] + 6, before[2])
+    ref = mrf.mrf_resblock_plain(x, weights, k, DIL)
+    diff = (out.float() - ref.float()).abs().max().item()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert diff <= 2.0 ** -6 * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_float32_resblock_runs_the_cuda_core_kernel_on_card():
+    _cuda_or_skip()
+    x, weights = _random_resblock(1, 200, 64, 7, seed=5)
+    x = x.float()
+    weights = [(w.float(), b.float()) for w, b in weights]
+    before = (mrf.tc_launch_count, mrf.fma_launch_count)
+    mrf.mrf_resblock(x, weights, 7, DIL)
+    assert (mrf.tc_launch_count, mrf.fma_launch_count) == (before[0],
+                                                          before[1] + 6)
+
+
+@pytest.mark.gpu
+def test_tc_kernel_repacks_after_an_in_place_update_on_card():
+    _cuda_or_skip()
+    x, weights = _random_resblock(1, 300, 128, 3, seed=9)
+    first = mrf.mrf_resblock(x, weights, 3, DIL)
+    with torch.no_grad():
+        weights[0][0].mul_(-1.0)
+    second = mrf.mrf_resblock(x, weights, 3, DIL)
+    ref = mrf.mrf_resblock_plain(x, weights, 3, DIL)
+    assert not torch.equal(first, second)
+    assert ((second.float() - ref.float()).abs().max().item()
+            <= 2.0 ** -6 * ref.float().abs().max().item())
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_unsupported_input_on_card():
     _cuda_or_skip()
