@@ -6,7 +6,10 @@
 Phases:
   1. environment: the card's name and power limit; build every CUDA source
      of the port with nvcc (sm_90a) and print ptxas's register, shared
-     memory and spill lines; the MRF tensor-core kernel must not spill;
+     memory and spill lines and the flash forward's dynamic shared memory
+     and key-tile width;
+     the tensor-core kernels (MRF, flash forward) must not spill, and no
+     wgmma may be serialized;
   2. the MRF resblock kernels against their plain PyTorch version on the
      card, at the generator's four stage shapes (B=4 × 1000 mel frames) for
      k = 3, 7, 11 and at the ragged T=700, in float32 (the CUDA-core
@@ -18,10 +21,13 @@ Phases:
      kernel (72 per generator call); the duration_control=2
      probe; one utterance's float32 waveform from the card against the same
      run on the CPU;
-  2b. the flash attention kernel against its plain version on the card,
-     float32, at (B, H, D) = (4, 2, 128) for T = 300, 2300, 4096 and
-     (1, 2, 128) for T = 8192, ragged key lengths with a row of length 0
-     (exactly 0 out), against float32 and float64 plain;
+  2b. the flash attention kernel (TF32 tensor cores at float32 accuracy)
+     against its plain version on the card, float32, at (B, H, D) =
+     (4, 2, 128) for T = 20 (under one key tile), 128 (the encoder's
+     training S), 300, 1000 (a mask that is not a prefix: wholly padded key
+     tiles at the start and in the middle of rows), 2300, 4096 and
+     (1, 2, 128) for T = 8192, ragged key lengths with a row of no valid
+     key (exactly 0 out), against float32 and float64 plain;
   2c. the MRF kernel against its plain version at the long-form path's
      shapes: B=4 × 4096 mel frames, and one streaming window, B=1 × 130
      frames, in float32 and bfloat16;
@@ -38,7 +44,10 @@ Phases:
      bytes floor and a cuDNN conv chain (library_ms);
      long-form batch synthesis, its text → mel and generator spans,
      streaming first and last chunk, and the flash kernel against its
-     plain version, its bound and SDPA;
+     plain version, its bounds at the TF32 rate (over the live key tiles,
+     which is ``bound_ms``, and dense; and both at three TF32 products a
+     product, the kernel's method) and SDPA (default, and under the
+     efficient-attention and math backends, to name the one that ran);
   2d. the flash attention backward kernels (dQ with Δ, then dK/dV) against
      the plain backward on the card, float32, at (4, 2, T, 128) for
      T = 300, 1000, 2300, 4096 and (1, 2, 8192, 128), ragged key lengths
@@ -109,21 +118,36 @@ F32_BOUND = 1e-4
 # such units at the output's peak magnitude.
 BF16_REL_BOUND = 2.0 ** -6
 
-# Published H100 SXM peaks (dense bf16 and TF32 tensor-core rates, the
-# float32 CUDA-core rate, HBM3 bandwidth).
+# Published H100 SXM peaks (dense bf16 and TF32 tensor-core rates, HBM3
+# bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# Flash attention: (B, T, key lengths) at H = 2, D = 128. Every batch of
-# four has a length below 64, a full row and a row of length 0.
-FLASH_CASES = ((4, 300, (300, 37, 0, 211)), (4, 2300, (2300, 63, 0, 2049)),
-               (4, 4096, (4096, 1, 0, 3001)), (1, 8192, (8100,)))
+def prefixes(*lens):
+    """Key-mask rows (the [start, stop) spans of each row's valid keys) for
+    valid prefixes of these lengths."""
+    return tuple(((0, n),) for n in lens)
+
+
+# Flash attention: (B, T, rows) at H = 2, D = 128, a row the [start, stop)
+# spans of its valid keys. Every batch of four has a length below 64, a
+# full row and a row with no valid key. The case that is not a prefix
+# leaves wholly padded 32-key tiles at the start of a row and in the middle
+# of two, and one valid key at the end of a row.
+FLASH_HOLES = (((0, 100), (300, 1000)), ((64, 128), (640, 700)),
+               ((999, 1000),), ())
+FLASH_CASES = ((4, 20, prefixes(20, 1, 0, 13)),
+               (4, 128, prefixes(128, 1, 0, 77)),
+               (4, 300, prefixes(300, 37, 0, 211)), (4, 1000, FLASH_HOLES),
+               (4, 2300, prefixes(2300, 63, 0, 2049)),
+               (4, 4096, prefixes(4096, 1, 0, 3001)),
+               (1, 8192, prefixes(8100)))
 FLASH_TIMED = (2300, 4096)  # B = 4, the long-form path's shapes
-# Kernel and plain version sum the same float32 products in another order
-# (the kernel online, tile by tile, with rescaling), and expf differs from
-# torch.exp by an ulp or two: a few float32 ulps of the output's magnitude.
+# Kernel and plain version sum the same products in another order (the
+# kernel online, tile by tile, with rescaling), expf differs from torch.exp
+# by an ulp or two, and the kernel's split TF32 products leave ~2^-21 of
+# each product: a few float32 ulps of the output's magnitude.
 FLASH_REL_BOUND = 1e-5
 
 # Flash backward: the forward's cases and the training path's T = 1000.
@@ -200,6 +224,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The tensor-core kernels, which must compile without spills.
+TC_KERNELS = ("mrf_conv_tc_kernel", "flash_mha_fwd_kernel")
+
+
 def phase_environment(smoke: Smoke):
     import torch
 
@@ -211,21 +239,35 @@ def phase_environment(smoke: Smoke):
     t0 = time.time()
     libs = build.build_all()
     print(f"  built {sorted(libs)} in {time.time() - t0:.1f} s")
-    tc_entries, tc_clean, current = 0, 0, ""
+    entries = {k: 0 for k in TC_KERNELS}
+    clean = {k: 0 for k in TC_KERNELS}
+    serialized, current = [], ""
     for name in libs:
         for line in build.ptxas_report(name).splitlines():
             if ("Used" in line or "spill" in line or "Compiling" in line
                     or "wgmma" in line):
                 print(f"  ptxas {name}: {line.strip()}")
+            if "wgmma" in line and "serialized" in line:
+                serialized.append(line.strip())
             if "Compiling entry function" in line:
                 current = line
-                tc_entries += "mrf_conv_tc_kernel" in line
-            elif "spill stores" in line and "mrf_conv_tc_kernel" in current:
-                tc_clean += "0 bytes spill stores, 0 bytes spill loads" in line
+                for k in TC_KERNELS:
+                    entries[k] += k in line
+            elif "spill stores" in line:
+                for k in TC_KERNELS:
+                    clean[k] += (k in current and "0 bytes spill stores, "
+                                 "0 bytes spill loads" in line)
+    flash = build.load("flash_mha")
+    print(f"  flash_mha_fwd_kernel: {flash.flash_mha_fwd_smem_bytes()} bytes "
+          f"of dynamic shared memory a block, "
+          f"{flash.flash_mha_fwd_key_tile()}-key tiles")
     smoke.check(bool(libs), "CUDA sources built")
-    smoke.check(tc_entries > 0 and tc_clean == tc_entries,
-                f"MRF tensor-core kernel: {tc_clean} of {tc_entries} "
-                f"instantiations without spills")
+    for k in TC_KERNELS:
+        smoke.check(entries[k] > 0 and clean[k] == entries[k],
+                    f"{k}: {clean[k]} of {entries[k]} instantiations "
+                    f"without spills")
+    smoke.check(not serialized, f"no serialized wgmma ({len(serialized)} "
+                                f"ptxas warnings)")
 
 
 def random_resblock(c: int, k: int, gen, device, dtype):
@@ -323,14 +365,25 @@ def phase_long_kernel_vs_plain(smoke: Smoke, device):
     return worst
 
 
-def flash_inputs(b: int, t: int, lens, gen):
+def flash_mask(t: int, rows):
+    """(B, T) bool key mask, True at padding; a row is the [start, stop)
+    spans of its valid keys."""
+    import torch
+
+    mask = torch.ones(len(rows), t, dtype=torch.bool)
+    for i, row in enumerate(rows):
+        for start, stop in row:
+            mask[i, start:stop] = False
+    return mask
+
+
+def flash_inputs(b: int, t: int, rows, gen):
     """(B, 2, T, 128) float32 q, k, v and the (B, T) key mask on the card."""
     import torch
 
     q, k, v = (torch.randn(b, 2, t, 128, generator=gen).to("cuda")
                for _ in range(3))
-    mask = torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]
-    return q, k, v, mask.to("cuda")
+    return q, k, v, flash_mask(t, rows).to("cuda")
 
 
 def phase_flash_vs_plain(smoke: Smoke):
@@ -341,8 +394,8 @@ def phase_flash_vs_plain(smoke: Smoke):
     gen = torch.Generator().manual_seed(2)
     scale = 128 ** -0.5
     worst = 0.0
-    for b, t, lens in FLASH_CASES:
-        q, k, v, mask = flash_inputs(b, t, lens, gen)
+    for b, t, rows in FLASH_CASES:
+        q, k, v, mask = flash_inputs(b, t, rows, gen)
         out = fa.flash_mha(q, k, v, mask, scale)
         ref = fa.flash_mha_plain(q, k, v, mask, scale)
         diff = (out - ref).abs().max().item()  # syncs
@@ -350,17 +403,17 @@ def phase_flash_vs_plain(smoke: Smoke):
         worst = max(worst, diff)
         smoke.check(out.shape == ref.shape and math.isfinite(diff)
                     and diff <= bound,
-                    f"float32 B={b} T={t:5d} lens={lens}: "
+                    f"float32 B={b} T={t:5d} rows={rows}: "
                     f"max|diff|={diff:.3e} bound={bound:.3e}")
         ref64 = fa.flash_mha_plain(q.double(), k.double(), v.double(), mask,
                                    scale)
         diff64 = (out.double() - ref64).abs().max().item()
         smoke.check(diff64 <= bound, f"float32 kernel vs float64 plain: "
                                      f"max|diff|={diff64:.3e}")
-        for i, n in enumerate(lens):
-            if n == 0:
+        for i in range(b):
+            if bool(mask[i].all()):
                 nonzero = torch.count_nonzero(out[i]).item()
-                smoke.check(nonzero == 0, f"row {i} of length 0: "
+                smoke.check(nonzero == 0, f"row {i}, no valid key: "
                                           f"{nonzero} non-zero outputs")
         del q, k, v, mask, out, ref, ref64
     return worst
@@ -713,18 +766,44 @@ def phase_times(synth, texts, emotions):
     return totals
 
 
-def flash_bound_ms(b: int, t: int) -> tuple[float, str, float]:
-    """Least time for float32 attention at H = 2, D = 128: 4·B·H·T²·D flops
-    at the TF32 tensor-core rate (the fastest at which the card multiplies
-    float32 inputs) against q, k, v read once, out written once and the
-    mask's bytes. Also the time of those flops at the float32 CUDA-core
-    rate."""
+def flash_bounds_ms(mask) -> dict:
+    """Least times for float32 attention at H = 2, D = 128 on a (B, T) key
+    mask, each the larger of operations at the TF32 tensor-core rate (the
+    card's fastest for float32 inputs) and bytes at the memory rate:
+    "tf32_dense", 4·B·H·T²·D flops against q, k, v read once and out
+    written once; "tf32_live", the same over the key tiles with a valid key
+    (the kernel skips the rest, neither reading nor multiplying them),
+    which is this run's ``bound_ms``. For context, the kernel's own method
+    takes three TF32 products per product at least (3xTF32; it takes four
+    for S, three for P V): "x3_dense" and "x3_live". The tile width is the
+    kernel's (``flash_mha_fwd_key_tile``)."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
+
+    tile = build.load("flash_mha").flash_mha_fwd_key_tile()
+    b, t = mask.shape
+    n_tiles = math.ceil(t / tile)
+    valid = torch.zeros(b, n_tiles * tile, dtype=torch.bool,
+                        device=mask.device)
+    valid[:, :t] = ~mask
+    live = int(valid.view(b, n_tiles, tile).any(-1).sum())
     flops = 4 * b * 2 * t * t * 128
+    flops_live = 4 * 2 * t * tile * live * 128
     n_bytes = 16 * b * 2 * t * 128 + b * t
-    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, n_bytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * flops / PEAK_F32_FLOPS)
+    live_bytes = 4 * 2 * 128 * (2 * b * t + 2 * tile * live) + b * t
+
+    def bound(ops, nb):
+        return 1e3 * max(ops / PEAK_TF32_FLOPS, nb / PEAK_BYTES)
+
+    return {"tf32_dense": bound(flops, n_bytes),
+            "tf32_live": bound(flops_live, live_bytes),
+            "x3_dense": bound(3 * flops, n_bytes),
+            "x3_live": bound(3 * flops_live, live_bytes),
+            "bound_by": ("operations" if flops_live / PEAK_TF32_FLOPS
+                         >= live_bytes / PEAK_BYTES else "bytes"),
+            "live_tiles": live, "tiles": b * n_tiles, "tile": tile,
+            "flops_live": flops_live}
 
 
 def phase_long_times(synth):
@@ -812,28 +891,49 @@ def phase_long_times(synth):
           f"{gen_ms:.3f} ms, of which the 12 resblocks' kernels "
           f"{rb_ms:.3f} ms")
 
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     gen = torch.Generator().manual_seed(3)
     scale = 128 ** -0.5
     rows = {}
-    for b, t, lens in FLASH_CASES:
+    for b, t, case_rows in FLASH_CASES:
         if t not in FLASH_TIMED:
             continue
-        q, k, v, mask = flash_inputs(b, t, lens, gen)
+        q, k, v, mask = flash_inputs(b, t, case_rows, gen)
         keep = ~mask[:, None, None, :]  # SDPA's boolean mask: True = attend
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                  scale=scale)
+
         iters = 10
         ms = cuda_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale), iters)
         plain = cuda_time_ms(
             lambda: fa.flash_mha_plain(q, k, v, mask, scale), iters)
-        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=keep, scale=scale), iters)
-        bound, by, f32_ms = flash_bound_ms(b, t)
+        lib = cuda_time_ms(sdpa, iters)
+        # Which backend SDPA took: the one whose time, when forced, is the
+        # default's (float32 with a boolean mask rules out flash and cuDNN).
+        forced = {}
+        for name, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                              ("math", SDPBackend.MATH)):
+            with sdpa_kernel(backend):
+                forced[name] = cuda_time_ms(sdpa, iters)
+        ran = min(forced, key=lambda n: abs(forced[n] - lib))
+        bd = flash_bounds_ms(mask)
         rows[t] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                   "bound_ms": bound, "bound_by": by}
-        print(f"  flash_mha float32 (B, H, T, D) = ({b}, 2, {t}, 128): "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms,"
-              f" bound {bound:.4f} ms ({by}; TF32 rate), {f32_ms:.4f} ms at "
-              f"the float32 CUDA-core rate; kernel "
-              f"{4 * b * 2 * t * t * 128 / ms / 1e9:.1f} TF/s", flush=True)
+                   "bound_ms": bd["tf32_live"], "bound_by": bd["bound_by"]}
+        print(f"  flash_mha float32 (B, H, T, D) = ({b}, 2, {t}, 128), valid "
+              f"keys {case_rows}: kernel {ms:.4f} ms "
+              f"({bd['flops_live'] / ms / 1e9:.1f} TF/s over the "
+              f"{bd['live_tiles']} of {bd['tiles']} live {bd['tile']}-key "
+              f"tiles); bounds (TF32 rate) {bd['tf32_live']:.4f} ms over the "
+              f"live tiles, {bd['tf32_dense']:.4f} ms dense; at three TF32 "
+              f"products a product (3xTF32) {bd['x3_live']:.4f} ms live, "
+              f"{bd['x3_dense']:.4f} ms dense; plain {plain:.4f} ms; SDPA "
+              f"{lib:.4f} ms "
+              f"(forced: efficient {forced['efficient']:.4f} ms, math "
+              f"{forced['math']:.4f} ms; the {ran} backend ran) "
+              f"[{nvidia_smi_line()}]", flush=True)
         del q, k, v, mask, keep
     return rows[max(FLASH_TIMED)]
 
@@ -849,7 +949,7 @@ def phase_flash_bwd_vs_plain(smoke: Smoke):
     scale = 128 ** -0.5
     worst_dq = worst_dkv = 0.0
     for b, t, lens in FLASH_BWD_CASES:
-        q, k, v, mask = flash_inputs(b, t, lens, gen)
+        q, k, v, mask = flash_inputs(b, t, prefixes(*lens), gen)
         dout = torch.randn(q.shape, generator=gen).to("cuda")
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
@@ -1218,7 +1318,7 @@ def phase_train_times(device):
     rows = {}
     for t in FLASH_BWD_TIMED:
         lens = (t, 3 * t // 4, t // 2, t // 4)
-        q, k, v, mask = flash_inputs(4, t, lens, gen)
+        q, k, v, mask = flash_inputs(4, t, prefixes(*lens), gen)
         dout = torch.randn(q.shape, generator=gen).to("cuda")
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         _, delta = fa._flash_mha_bwd_dq_cuda(q, k, v, mask, out, dout, lse,

@@ -69,7 +69,11 @@
 
 #include <cstring>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr float kSlope = 0.1f;
 
@@ -230,68 +234,8 @@ constexpr int kStages = 4;                      // weight-slab ring
 constexpr int kBarrierBytes = 128;              // 2 * kStages mbarriers, padded
 constexpr size_t kMaxSmem = 232448;             // the most a block may use
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\n"
-               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               :: "r"(bar) : "memory");
-}
-
-// The producer's arrival, which also announces the bytes the copy brings.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Contiguous bytes from device memory to shared memory; completion is
-// counted on the mbarrier.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// Generic-proxy stores to shared memory become visible to wgmma.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(kTcConsumers) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+  named_sync<1, kTcConsumers>();
 }
 
 // Shared-memory matrix descriptor, no swizzle: core matrices of 8 rows x 16

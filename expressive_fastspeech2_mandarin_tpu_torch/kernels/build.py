@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
-root of the checkout (listed in ``.gitignore``). The hash covers the source
-and the flags, so an edited source is rebuilt and a built one is reused.
+root of the checkout (listed in ``.gitignore``). The hash covers the source,
+the headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or
+header is rebuilt and a built one is reused.
 ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library (``ptxas_report``).
 """
@@ -47,6 +48,8 @@ def _nvcc() -> str:
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # what the sources include
+        digest.update(header.read_bytes())
     tag = digest.hexdigest()[:12]
     return (src, BUILD_DIR / f"lib{name}-{tag}.so",
             BUILD_DIR / f"lib{name}-{tag}.ptxas.txt")

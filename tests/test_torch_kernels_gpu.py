@@ -118,41 +118,72 @@ def test_kernel_rejects_unsupported_input_on_card():
         mrf.mrf_resblock(x, w, 3, DIL)
 
 
-# The flash attention kernel (csrc/flash_mha.cu) against its plain version:
-# float32, TF32 off; bound 1e-5 · max|ref| (summation order and expf).
+# The flash attention kernel (csrc/flash_mha.cu, TF32 tensor cores at float32
+# accuracy) against its plain version: float32, TF32 off; bound 1e-5·max|ref|
+# (summation order, expf, and the ~2^-21 the split TF32 products leave).
 
 
-def _flash_inputs(b, t, lens, seed, d=128):
+def _prefixes(*lens):
+    """Rows of valid-key spans for valid prefixes of these lengths."""
+    return [[(0, n)] for n in lens]
+
+
+def _flash_inputs(t, rows, seed, d=128):
+    """q, k, v (B, 2, T, d) and the (B, T) key mask, a row given as the
+    [start, stop) spans of its valid keys."""
     gen = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(b, 2, t, d, generator=gen).to("cuda")
+    q, k, v = (torch.randn(len(rows), 2, t, d, generator=gen).to("cuda")
                for _ in range(3))
-    mask = (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).to("cuda")
-    return q, k, v, mask
+    mask = torch.ones(len(rows), t, dtype=torch.bool)
+    for i, spans in enumerate(rows):
+        for start, stop in spans:
+            mask[i, start:stop] = False
+    return q, k, v, mask.to("cuda")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,lens", [(300, (300, 37, 0, 299)),
-                                    (2300, (2300, 63, 0, 2049)),
-                                    (4096, (4096, 1, 0, 3000))])
-def test_flash_kernel_matches_plain_on_card(t, lens):
+@pytest.mark.parametrize("t,rows", [
+    (20, _prefixes(20, 1, 0, 13)),  # under one tile
+    (128, _prefixes(128, 1, 0, 77)),  # the encoder's S
+    (300, _prefixes(300, 37, 0, 299)),
+    # Not a prefix: wholly padded key tiles of 32 at the start and in the
+    # middle of rows, a row with one valid key (the last), a row with none.
+    (1000, [[(0, 100), (300, 1000)], [(64, 128), (640, 700)], [(999, 1000)],
+            []]),
+    (2300, _prefixes(2300, 63, 0, 2049)),
+    (4096, _prefixes(4096, 1, 0, 3000))])
+def test_flash_kernel_matches_plain_on_card(t, rows):
     _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, mask = _flash_inputs(len(lens), t, lens, seed=t)
+    q, k, v, mask = _flash_inputs(t, rows, seed=t)
     before = fa.launch_count
     out = fa.flash_mha(q, k, v, mask, 128 ** -0.5)
     assert fa.launch_count == before + 1
     ref = fa.flash_mha_plain(q, k, v, mask, 128 ** -0.5)
-    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    assert torch.count_nonzero(out[2]).item() == 0  # length-0 row → exactly 0
+    ref64 = fa.flash_mha_plain(q.double(), k.double(), v.double(), mask,
+                               128 ** -0.5)
+    bound = 1e-5 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= bound
+    assert (out.double() - ref64).abs().max().item() <= bound
+    for i in range(len(rows)):
+        if bool(mask[i].all()):  # no valid key → exactly 0
+            assert torch.count_nonzero(out[i]).item() == 0
+    again, lse = fa._flash_mha_cuda(q, k, v, mask, 128 ** -0.5, with_lse=True)
+    assert torch.equal(again, out)
+    lse_ref = fa.flash_mha_lse_plain(q, k, mask, 128 ** -0.5)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isposinf(lse), ~finite)
+    assert ((lse - lse_ref)[finite].abs().max().item()
+            <= 1e-5 * lse_ref[finite].abs().max().item())
 
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_unsupported_input_on_card():
     _cuda_or_skip()
-    q, k, v, mask = _flash_inputs(1, 100, (100,), seed=0)
+    q, k, v, mask = _flash_inputs(100, _prefixes(100), seed=0)
     with pytest.raises(TypeError):
         fa.flash_mha(q.double(), k.double(), v.double(), mask, 1.0)
-    q64, k64, v64, mask64 = _flash_inputs(1, 100, (100,), seed=0, d=64)
+    q64, k64, v64, mask64 = _flash_inputs(100, _prefixes(100), seed=0, d=64)
     with pytest.raises(ValueError):
         fa.flash_mha(q64, k64, v64, mask64, 1.0)
     with pytest.raises(ValueError):
@@ -179,7 +210,7 @@ def _flash_grads(q, k, v, mask, dout):
 def test_flash_backward_kernels_match_plain_on_card(t, lens):
     _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, mask = _flash_inputs(len(lens), t, lens, seed=t + 1)
+    q, k, v, mask = _flash_inputs(t, _prefixes(*lens), seed=t + 1)
     dout = torch.randn_like(q)
     before = (fa.launch_count, fa.bwd_dq_launch_count,
               fa.bwd_dkv_launch_count)
@@ -201,7 +232,7 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
     _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     lens = (700, 5, 0)
-    q, k, v, mask = _flash_inputs(len(lens), 700, lens, seed=11)
+    q, k, v, mask = _flash_inputs(700, _prefixes(*lens), seed=11)
     out, lse = fa._flash_mha_cuda(q, k, v, mask, 128 ** -0.5, with_lse=True)
     ref = fa.flash_mha_lse_plain(q, k, mask, 128 ** -0.5)
     assert torch.isposinf(lse[2]).all()
