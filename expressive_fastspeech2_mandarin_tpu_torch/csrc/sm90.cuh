@@ -2,7 +2,8 @@
 // addresses, mbarriers, bulk and TMA copies, named barriers, the wgmma
 // fence/commit/wait, the 128-byte swizzle and its descriptors, and float32
 // tensor maps. Included by csrc/mrf_resblock.cu (bf16 wgmma) and, through
-// csrc/tf32_wgmma.cuh, by csrc/flash_mha.cu (TF32 wgmma).
+// csrc/tf32_wgmma.cuh, by csrc/flash_mha.cu and csrc/flash_mha_bwd.cu (TF32
+// wgmma).
 //
 // The 128-byte swizzle, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it: a tile
 // is rows of 128 bytes; within each 1024-byte-aligned atom of 8 rows, the
@@ -71,6 +72,21 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// 4 bytes from device memory to shared memory, asynchronously; src_bytes 0
+// writes zero and reads nothing.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// The mbarrier `bar` waits, besides its arrivals, for the completion of
+// every cp.async this thread issued before.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
 // One box of a 3-D tensor map into shared memory at `dst`, counted on the
 // mbarrier `bar`; coordinates innermost first.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -110,10 +126,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// Pin the registers a wgmma reads and writes after wgmma_wait, so that no
-// access to an accumulator is moved above the wait and no register of an A
-// fragment is reused while a wgmma may still read it (CUTLASS's
-// warpgroup_fence_operand).
+// Pin the registers a wgmma reads and writes, after wgmma_wait and before
+// the wgmma that use them, so that no access to an accumulator is moved
+// across the wgmma or the wait and no register of an A fragment is reused
+// while a wgmma may still read it (CUTLASS's warpgroup_fence_operand).
 template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll

@@ -17,6 +17,14 @@ counted in ``launch_count``): bfloat16 goes to the tensor-core kernel
 ``pack_mrf_weights``, float32 to the exact CUDA-core kernel (counted in
 ``fma_launch_count``). On a CPU tensor it runs ``mrf_resblock_plain``, the
 same function written with ``F.conv1d``. Nothing else selects between them.
+
+The kernels are built for C a multiple of 32 and K in ``KERNEL_SIZES``;
+``pad_resblock`` zero-pads any other C and odd K ≤ 11 to those widths
+(exactly: the padded taps and channels contribute zeros, and the padded
+lanes of the result are 0), and the wrapper slices the result back. The
+kernels have no backward: on a CUDA tensor with a gradient wanted the
+wrapper raises rather than return a result cut off from autograd.
+
 The note at the top of the CUDA source says what bounds the kernels and
 what their design does about it.
 
@@ -84,6 +92,38 @@ def _check(x, weights, kernel_size, dilations) -> None:
             raise ValueError(
                 f"conv weight {tuple(w.shape)} / bias {tuple(b.shape)} do "
                 f"not fit C={c}, K={kernel_size}")
+
+
+def padded_kernel_size(kernel_size: int) -> int:
+    """The kernel size the CUDA kernels run an odd K ≤ 11 at: the smallest
+    of ``KERNEL_SIZES`` not below it."""
+    if kernel_size % 2 == 1:
+        for k in KERNEL_SIZES:
+            if k >= kernel_size:
+                return k
+    raise ValueError(f"mrf_resblock kernel takes an odd K of at most "
+                     f"{KERNEL_SIZES[-1]}, got K={kernel_size}")
+
+
+def pad_resblock(x: torch.Tensor,
+                 weights: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 kernel_size: int):
+    """(x, weights, K) zero-padded to the widths the kernels are built for:
+    C to the next multiple of 32 (x's and every bias's lanes, both weight
+    dims), K to ``padded_kernel_size`` with the taps centred (the 'same'
+    padding grows with K, so every output sees the same inputs). The
+    resblock of the padded arguments equals the original in its first C
+    lanes, exactly, and is 0 in the rest. Returns the arguments themselves
+    when nothing needs padding."""
+    c = x.shape[-1]
+    k = padded_kernel_size(kernel_size)
+    dc, side = -c % 32, (k - kernel_size) // 2
+    if dc == 0 and side == 0:
+        return x, list(weights), kernel_size
+    x = F.pad(x, (0, dc))
+    weights = [(F.pad(w, (side, side, 0, dc, 0, dc)), F.pad(b, (0, dc)))
+               for w, b in weights]
+    return x, weights, k
 
 
 def mrf_tiles(channels: int) -> tuple[int, int]:
@@ -163,16 +203,20 @@ def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mrf_resblock kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
-    if kernel_size not in KERNEL_SIZES or x.shape[-1] % 32 != 0:
-        raise ValueError(f"mrf_resblock kernel takes K in {KERNEL_SIZES} "
-                         f"and C a multiple of 32, got K={kernel_size}, "
-                         f"C={x.shape[-1]}")
     for w, b in weights:
         for p in (w, b):
             if p.device != x.device or p.dtype != x.dtype:
                 raise TypeError("weights must be on x's device in x's dtype")
             if not p.is_contiguous():
                 raise ValueError("weights must be contiguous")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for pair in weights for p in pair)):
+        raise RuntimeError(
+            "mrf_resblock's CUDA kernel has no backward: call it under "
+            "torch.no_grad() or torch.inference_mode(). Its autograd "
+            "Function comes with vocoder training (ROADMAP.md queue 1).")
+    c = x.shape[-1]
+    x, weights, kernel_size = pad_resblock(x, weights, kernel_size)
     lib = _library()
     if x.dtype == torch.bfloat16:
         weights = [(packed_weights(w), b) for w, b in weights]
@@ -187,7 +231,7 @@ def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
             out = torch.empty_like(state)
             _launch(lib, h, w2, b2, state, out, kernel_size, 1, stream)
             state = out
-    return state
+    return state if state.shape[-1] == c else state[..., :c].contiguous()
 
 
 def mrf_resblock(x: torch.Tensor,

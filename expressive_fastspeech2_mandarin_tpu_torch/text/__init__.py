@@ -2,7 +2,8 @@
 
 ``text_to_ids`` is the synthesis entry point: pinyin table (hanzi through
 pinyin, or explicit phones, unknown phones mapped to pad) or the IPA table
-(explicit phones, unknown phones mapped to ``@spn``).
+(explicit phones, unknown phones mapped to ``@spn``). ``phonemes_to_ids``
+skips unknown phones unless told otherwise, as the training data wants.
 """
 
 from __future__ import annotations
@@ -31,10 +32,11 @@ __all__ = [
 
 
 def phonemes_to_ids(phonemes: list[str], table: str = "pinyin",
-                    unknown: str = "pad") -> list[int]:
-    """Map phoneme symbols to IDs. Unknown symbols map to pad
-    (``unknown="pad"``, the inference-time policy) or are dropped
-    (``"skip"``, the training-data policy)."""
+                    unknown: str = "skip") -> list[int]:
+    """Map phoneme symbols to IDs. Unknown symbols are dropped
+    (``unknown="skip"``, the training-data policy), map to pad (``"pad"``,
+    the inference-time policy) or raise ``KeyError`` (``"error"``, or any
+    other policy)."""
     sym_to_id = symbols.get_symbol_table(table)
     ids: list[int] = []
     for ph in phonemes:
@@ -42,9 +44,11 @@ def phonemes_to_ids(phonemes: list[str], table: str = "pinyin",
             ids.append(sym_to_id[ph])
         elif unknown == "skip":
             logger.debug("skipping unknown phoneme %r", ph)
-        else:
+        elif unknown == "pad":
             logger.warning("unknown phoneme %r mapped to pad", ph)
             ids.append(sym_to_id[symbols.PAD])
+        else:
+            raise KeyError(f"unknown phoneme: {ph!r}")
     return ids
 
 
@@ -57,7 +61,8 @@ def chinese_text_to_phonemes(text: str) -> list[str]:
 
 def chinese_text_to_ids(text: str) -> list[int]:
     """Hanzi or phones → pinyin-table IDs, unknown phones mapped to pad."""
-    return phonemes_to_ids(chinese_text_to_phonemes(text), "pinyin")
+    return phonemes_to_ids(chinese_text_to_phonemes(text), "pinyin",
+                           unknown="pad")
 
 
 def text_to_sequence_ipa(text: str) -> list[int]:

@@ -111,11 +111,51 @@ def test_tc_kernel_repacks_after_an_in_place_update_on_card():
 @pytest.mark.gpu
 def test_kernel_rejects_unsupported_input_on_card():
     _cuda_or_skip()
-    x = torch.zeros(1, 10, 48, device="cuda")
-    w = [(torch.zeros(48, 48, 3, device="cuda"),
-          torch.zeros(48, device="cuda"))] * 6
-    with pytest.raises(ValueError):
-        mrf.mrf_resblock(x, w, 3, DIL)
+    # An odd K past 11 (no config uses one) and an even K.
+    for k in (13, 4):
+        x = torch.zeros(1, 10, 48, device="cuda")
+        w = [(torch.zeros(48, 48, k, device="cuda"),
+              torch.zeros(48, device="cuda"))] * 6
+        with pytest.raises(ValueError):
+            mrf.mrf_resblock(x, w, k, DIL)
+
+
+# The widths the kernels are not built for run zero-padded to C = 32 and
+# K = 7 (ops/mrf_resblock.py:pad_resblock), within the bounds above.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [2, 4, 8, 16])
+def test_padded_widths_match_plain_on_card(dtype, C):
+    _cuda_or_skip()
+    torch.backends.cudnn.allow_tf32 = False
+    x, weights = _random_resblock(2, 300, C, 5, seed=C)
+    dt = getattr(torch, dtype)
+    x, weights = x.to(dt), [(w.to(dt), b.to(dt)) for w, b in weights]
+    before = mrf.launch_count
+    out = mrf.mrf_resblock(x, weights, 5, DIL)
+    assert mrf.launch_count == before + 6
+    ref = mrf.mrf_resblock_plain(x, weights, 5, DIL)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    diff = (out.float() - ref.float()).abs().max().item()
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -6 * ref.float().abs().max().item()
+    assert diff <= tol
+
+
+# The kernels have no backward: with a gradient wanted the wrapper raises
+# rather than return a tensor cut off from autograd; under no_grad (every
+# synthesis path) it runs.
+@pytest.mark.gpu
+def test_kernel_raises_when_a_gradient_is_wanted_on_card():
+    _cuda_or_skip()
+    x, weights = _random_resblock(1, 100, 32, 3, seed=3)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf.mrf_resblock(x.clone().requires_grad_(), weights, 3, DIL)
+    w_grad = [(w.clone().requires_grad_(), b) for w, b in weights]
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf.mrf_resblock(x, w_grad, 3, DIL)
+    with torch.no_grad():
+        out = mrf.mrf_resblock(x.clone().requires_grad_(), w_grad, 3, DIL)
+    assert out.grad_fn is None and out.shape == x.shape
 
 
 # The flash attention kernel (csrc/flash_mha.cu, TF32 tensor cores at float32

@@ -79,6 +79,59 @@ def test_bfloat16_plain_rounds_each_conv_output():
     assert (out.float() - ref).abs().max() < 2.0 ** -5 * ref.abs().max()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5, 9])
+@pytest.mark.parametrize("C", [2, 4, 8, 16, 48])
+def test_padded_resblock_equals_unpadded(C, k, dtype):
+    """The widths the CUDA kernels are not built for run zero-padded
+    (pad_resblock): C to a multiple of 32, K to 3, 7 or 11 with centred
+    taps. The padded resblock's first C lanes equal the unpadded one's
+    exactly, and its padded lanes are 0."""
+    gen = torch.Generator().manual_seed(C * k)
+    bound = 1.0 / np.sqrt(C * k)
+    weights = [(((torch.rand(C, C, k, generator=gen) * 2 - 1) * bound)
+                .to(dtype),
+                ((torch.rand(C, generator=gen) * 2 - 1) * bound).to(dtype))
+               for _ in range(6)]
+    x = torch.randn(2, 150, C, generator=gen).to(dtype)
+    xp, wp, kp = mrf.pad_resblock(x, weights, k)
+    assert xp.shape[-1] % 32 == 0 and kp in mrf.KERNEL_SIZES and kp >= k
+    ref = mrf.mrf_resblock_plain(x, weights, k, DIL)
+    out = mrf.mrf_resblock_plain(xp, wp, kp, DIL)
+    assert torch.equal(out[..., :C], ref)
+    assert torch.count_nonzero(out[..., C:]) == 0
+
+
+def test_pad_resblock_leaves_kernel_widths_alone():
+    x = torch.zeros(1, 10, 64)
+    w = [(torch.zeros(64, 64, 7), torch.zeros(64))] * 6
+    xp, wp, kp = mrf.pad_resblock(x, w, 7)
+    assert xp is x and kp == 7 and all(a[0] is b[0] for a, b in zip(wp, w))
+
+
+@pytest.mark.parametrize("k", [2, 13])
+def test_pad_resblock_names_the_kernel_size_limit(k):
+    x = torch.zeros(1, 10, 32)
+    w = [(torch.zeros(32, 32, k), torch.zeros(32))] * 6
+    with pytest.raises(ValueError, match="at most 11"):
+        mrf.pad_resblock(x, w, k)
+
+
+def test_plain_resblock_gradient_flows_on_cpu():
+    """On a CPU tensor the plain version runs, and its gradient reaches x
+    and every weight (the CUDA kernel raises there instead)."""
+    gen = torch.Generator().manual_seed(4)
+    weights = [((torch.randn(8, 8, 5, generator=gen) * 0.1).requires_grad_(),
+                (torch.randn(8, generator=gen) * 0.1).requires_grad_())
+               for _ in range(6)]
+    x = torch.randn(1, 40, 8, generator=gen, requires_grad=True)
+    out = mrf.mrf_resblock(x, weights, 5, DIL)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for p in [x] + [p for pair in weights for p in pair]:
+        assert p.grad is not None and p.grad.abs().sum() > 0
+
+
 def test_bad_shapes_raise():
     x = torch.zeros(1, 10, 32)
     w = [(torch.zeros(32, 32, 3), torch.zeros(32))] * 5
