@@ -12,7 +12,8 @@ Phases:
      dK/dV) must not spill, and no wgmma may be serialized;
   2. the MRF resblock kernels against their plain PyTorch version on the
      card, at the generator's four stage shapes (B=4 × 1000 mel frames) for
-     k = 3, 7, 11 and at the ragged T=700, in float32 (the CUDA-core
+     k = 3, 7, 11 and 13 (past the templated sizes: the kernels' run-time
+     tap count) and at the ragged T=700, in float32 (the CUDA-core
      kernel) and bfloat16 (the tensor-core kernel), with each resblock's
      six launches counted on the kernel of its dtype; a width the kernels
      are not built for (C = 16, k = 5, zero-padded by the wrapper); the
@@ -77,7 +78,30 @@ Phases:
      "flash" and "auto" (median of 10 after 3 warm-ups, synchronized) with
      peak memory; the backward kernels at (4, 2, T, 128), T = 1000 and
      4096, against their bounds (over the live 32-key tiles, and dense),
-     the plain backward and the backward of scaled_dot_product_attention.
+     the plain backward and the backward of scaled_dot_product_attention;
+  7. DSP and the non-neural and MelGAN vocoders on the card:
+     ``MelSTFT.mel_energy`` of four 2-8 s signals made from a seed against
+     the CPU (log-mel 1e-4, energy 1e-5 relative), the iSTFT round trip
+     (1e-3); ``Synthesizer.synthesize`` without HiFi-GAN weights at
+     ``Config()`` width on the four phase-3 utterances: Griffin-Lim is the
+     default, its waveforms against the CPU run from the same initial
+     phase (1e-3 of the peak) and at most 0.95 peak; a random-weight MelGAN
+     (seed 2), ``vocoder="melgan"``, against the CPU (1e-4); no MRF or
+     flash launch; times of Griffin-Lim's 60 iterations and MelGAN;
+  8. HiFi-GAN GAN training at ``Config()`` width (HiFi-GAN V1, MPD
+     (2, 3, 5, 7, 11), MSD ×3), batch 16 × 8192 samples, float32, on 24
+     WAVs written from a seed and read back by ``load_corpus_wavs``:
+     ``train_vocoder`` for 20 steps (finite losses, the mean mel L1 of the
+     last 5 steps below the first 5's, no MRF launch, the val record), its
+     checkpoints and a resume that continues the step, the AdamW count and
+     the learning rate; ``generator.npz`` in the Synthesizer in bf16 (72
+     MRF tensor-core launches a call; the kernel path against the plain
+     generator on the card); one GAN step at batch 2 on the card against
+     the CPU from one state and batch (losses 1e-5 relative, each gradient
+     1e-3 · max|g|); 8b: the GAN step's time at batch 16 in float32 and
+     bf16 amp (median of 10 after 3 warm-ups) with its generator-forward,
+     discriminator-update and generator-update spans (CUDA events) and
+     peak memory.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -113,6 +137,9 @@ def stage_shapes(frames: int) -> tuple[tuple[int, int], ...]:
 STAGE_SHAPES = stage_shapes(1000)
 RAGGED_SHAPE = (128, 700)
 KERNEL_SIZES = (3, 7, 11)
+# Phase 2 also holds an odd K past the templated sizes, which the kernels
+# read at run time.
+PHASE2_KERNEL_SIZES = KERNEL_SIZES + (13,)
 DILATIONS = (1, 3, 5)
 BATCH = 4
 F32_BOUND = 1e-4
@@ -317,10 +344,12 @@ def reset_mrf_counts() -> None:
 
 
 def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
-                          float64: bool = True):
+                          float64: bool = True,
+                          kernel_sizes=KERNEL_SIZES):
     """The MRF kernels against their plain version at (batch, T, C) for each
-    (C, T) of ``shapes``; with ``float64``, float32 also against float64.
-    Returns the worst max|diff| of the bf16 (tensor-core) kernel."""
+    (C, T) of ``shapes`` and K of ``kernel_sizes``; with ``float64``,
+    float32 also against float64. Returns the worst max|diff| of the bf16
+    (tensor-core) kernel."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
@@ -331,7 +360,7 @@ def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
         bf16 = dtype == torch.bfloat16
         for c, t in shapes:
             x32 = torch.randn(batch, t, c, generator=gen)
-            for k in KERNEL_SIZES:
+            for k in kernel_sizes:
                 weights = random_resblock(c, k, gen, device, dtype)
                 x = x32.to(device, dtype)
                 tc0, fma0 = mrf_counts()
@@ -381,7 +410,8 @@ def phase_mrf_vs_plain(smoke: Smoke, device):
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
 
     worst = phase_kernel_vs_plain(smoke, device,
-                                  STAGE_SHAPES + (RAGGED_SHAPE,), BATCH)
+                                  STAGE_SHAPES + (RAGGED_SHAPE,), BATCH,
+                                  kernel_sizes=PHASE2_KERNEL_SIZES)
     c, k, b, t = PADDED_SHAPE
     gen = torch.Generator().manual_seed(7)
     x32 = torch.randn(b, t, c, generator=gen)
@@ -1210,8 +1240,20 @@ def phase_training(smoke: Smoke, device):
                     and all(math.isfinite(x) for x in losses),
                     f"steps {state.step}, logged total losses {losses}")
         ckpt = CheckpointManager(cfg.train.path.ckpt_path)
-        samples = os.listdir(os.path.join(tmp, "out/result/train_samples"))
-        smoke.check(ckpt.steps() == [10, 20] and len(samples) == 4,
+        sample_dir = os.path.join(tmp, "out/result/train_samples")
+        samples = os.listdir(sample_dir)
+        # The first val utterance's predicted and ground-truth audio,
+        # through the sample vocoder (Griffin-Lim on the card), where the
+        # prediction is longer than 4 frames.
+        wavs = sorted(
+            f"step{n}_{kind}.wav" for n in (10, 20)
+            for kind in ("predicted", "reconstructed")
+            if np.load(os.path.join(sample_dir,
+                                    f"step{n}_mel_lens.npy"))[0] > 4)
+        smoke.check(ckpt.steps() == [10, 20]
+                    and sorted(samples) == sorted(
+                        wavs + [f"step{n}_{kind}.npy" for n in (10, 20)
+                                for kind in ("mel", "mel_lens")]),
                     f"checkpoints at steps {ckpt.steps()}; sample files "
                     f"{sorted(samples)}")
         resumed = train(cfg, total_steps=TRAIN_STEPS + 2, device=device)
@@ -1464,6 +1506,470 @@ def phase_train_times(device):
     return {name: rows[(name, min(FLASH_BWD_TIMED))] for name in ("dq", "dkv")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: DSP, Griffin-Lim and MelGAN on the card.
+
+SIGNAL_SECONDS = (2.0, 3.5, 5.0, 8.0)
+SR = 22050
+DSP_MEL_ATOL = 1e-4        # cuFFT against the CPU's FFT, log-mel
+DSP_ENERGY_RTOL = 1e-5
+ISTFT_ATOL = 1e-3          # tests/test_dsp.py's round-trip bound
+# Griffin-Lim, card against CPU from the same initial phase: 60 rounds of
+# rFFT → angle → iSTFT on FastSpeech2 mels that themselves differ by
+# float32 round-off; bound on max|diff| / peak.
+GRIFFIN_LIM_REL_BOUND = 1e-3
+MELGAN_F32_BOUND = 1e-4
+
+
+def harmonic_signal(seconds: float, rng):
+    """Five harmonics of a 120-300 Hz fundamental with 5 Hz vibrato, plus
+    noise, at 22050 Hz, peak at most 0.9."""
+    import numpy as np
+
+    t = np.arange(int(seconds * SR)) / SR
+    f0 = rng.uniform(120.0, 300.0)
+    phase = 2 * np.pi * np.cumsum(
+        f0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / SR
+    sig = sum(rng.uniform(0.1, 0.4) / h * np.sin(h * phase + rng.uniform(
+        0, 2 * np.pi)) for h in range(1, 6))
+    sig = sig + 0.01 * rng.standard_normal(len(t))
+    return (0.9 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def phase_dsp_vocoders(smoke: Smoke, device, texts, emotions):
+    """Phase 7. Returns the times of Griffin-Lim and MelGAN."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.config import Config
+    from expressive_fastspeech2_mandarin_tpu_torch.dsp import MelSTFT
+    from expressive_fastspeech2_mandarin_tpu_torch.models import MelGAN
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+
+    cfg = Config()
+    pre = cfg.preprocess
+    card = MelSTFT(pre.stft, pre.mel, SR, device)
+    cpu = MelSTFT(pre.stft, pre.mel, SR)
+    rng = np.random.default_rng(7)
+    for seconds in SIGNAL_SECONDS:
+        x = torch.from_numpy(harmonic_signal(seconds, rng))[None]
+        mel_c, en_c = (a.cpu() for a in card.mel_energy(x.to(device)))
+        mel_p, en_p = cpu.mel_energy(x)
+        mel_diff = (mel_c - mel_p).abs().max().item()
+        en_rel = ((en_c - en_p).abs() / en_p).max().item()
+        smoke.check(mel_c.shape == mel_p.shape and mel_diff <= DSP_MEL_ATOL
+                    and en_rel <= DSP_ENERGY_RTOL,
+                    f"mel_energy of a {seconds} s signal, card vs CPU: "
+                    f"{tuple(mel_c.shape)} log-mel max|diff|={mel_diff:.3e} "
+                    f"(bound {DSP_MEL_ATOL:.0e}), energy max rel diff "
+                    f"{en_rel:.3e} (bound {DSP_ENERGY_RTOL:.0e})")
+        xc = x.to(device)
+        spec = torch.fft.rfft(card.frame(xc) * card.window, dim=-1)
+        back = card.istft(spec.abs(), torch.angle(spec))[0].cpu()
+        n = back.shape[0]
+        rt = (back[1024: n - 1024] - x[0, 1024: n - 1024]).abs().max().item()
+        smoke.check(rt <= ISTFT_ATOL,
+                    f"istft round trip on the card, {seconds} s: "
+                    f"max|diff|={rt:.3e} (bound {ISTFT_ATOL:.0e})")
+
+    # Griffin-Lim: the Synthesizer's default without HiFi-GAN weights, at
+    # Config() width, card against CPU (the same initial phase: drawn on
+    # the CPU from seed 0 in both).
+    fs2, _ = seeded_states(cfg)
+    torch.manual_seed(2)
+    melgan = MelGAN().state_dict()
+    speakers = list(range(len(texts)))
+    synths, runs = {}, {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        synths[name] = Synthesizer(cfg, fs2, emotion_maps=EMOTION_MAPS,
+                                   device=dev, melgan_state=melgan)
+        reset_mrf_counts()
+        fa.launch_count = 0
+        runs[name] = {v: synths[name].synthesize(
+            texts, speakers, emotions, **({} if v == "default"
+                                          else {"vocoder": v}))
+            for v in ("default", "melgan")}
+        if name == "card":
+            smoke.check(mrf_counts() == (0, 0) and fa.launch_count == 0,
+                        f"Griffin-Lim and MelGAN synthesis: MRF launches "
+                        f"{mrf_counts()}, flash {fa.launch_count} (none "
+                        f"expected)")
+    worst_gl = 0.0
+    for (c, p) in zip(runs["card"]["default"], runs["cpu"]["default"]):
+        same = np.array_equal(c.durations, p.durations)
+        peak = float(np.abs(p.wav).max())
+        diff = (float(np.abs(c.wav - p.wav).max()) / peak
+                if same and c.wav.shape == p.wav.shape else math.inf)
+        worst_gl = max(worst_gl, diff)
+        smoke.check(same and diff <= GRIFFIN_LIM_REL_BOUND
+                    and float(np.abs(c.wav).max()) <= 0.95 + 1e-6
+                    and np.isfinite(c.wav).all() and c.wav.size > 0,
+                    f"{c.basename} Griffin-Lim (the default, 60 iterations) "
+                    f"card vs CPU: {c.wav.shape} samples, peak "
+                    f"{float(np.abs(c.wav).max()):.4f} (≤ 0.95), max|diff| / "
+                    f"peak {diff:.3e} (bound {GRIFFIN_LIM_REL_BOUND:.0e})")
+    worst_mg = 0.0
+    for (c, p) in zip(runs["card"]["melgan"], runs["cpu"]["melgan"]):
+        diff = (float(np.abs(c.wav - p.wav).max())
+                if c.wav.shape == p.wav.shape else math.inf)
+        worst_mg = max(worst_mg, diff)
+        smoke.check(diff <= MELGAN_F32_BOUND and c.wav.size > 0
+                    and np.isfinite(c.wav).all(),
+                    f"{c.basename} MelGAN (random weights, seed 2) float32 "
+                    f"card vs CPU: {c.wav.shape} samples, max|diff|="
+                    f"{diff:.3e} (bound {MELGAN_F32_BOUND:.0e})")
+
+    # Times on the card: Griffin-Lim's 60 iterations and MelGAN on the
+    # batch's padded mel (CUDA events), and the two synthesize calls (host
+    # clock, synchronized).
+    synth = synths["card"]
+    card_line = nvidia_smi_line()
+    mels = [r.mel for r in runs["card"]["default"]]
+    mel = np.full((len(mels), max(m.shape[0] for m in mels), 80),
+                  np.log(1e-5), np.float32)
+    for i, m in enumerate(mels):
+        mel[i, :m.shape[0]] = m
+    mel = torch.from_numpy(mel).to(device)
+    with torch.inference_mode():
+        gl_ms = cuda_time_ms(lambda: synth.stft.mel_to_audio(mel, 60), 5)
+        mg_ms = cuda_time_ms(lambda: synth.melgan(mel), 5)
+    calls = {}
+    for v in ("griffin_lim", "melgan"):
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            synth.synthesize(texts, speakers, emotions, vocoder=v)
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t0))
+        calls[v] = sorted(reps)[2]
+    print(f"  Griffin-Lim, 60 iterations on a {tuple(mel.shape)} mel: "
+          f"{gl_ms:.3f} ms; MelGAN on it: {mg_ms:.3f} ms (CUDA events, 5 "
+          f"runs); synthesize of {len(texts)} utterances, median of 5: "
+          f"griffin_lim {calls['griffin_lim']:.3f} ms, melgan "
+          f"{calls['melgan']:.3f} ms [{card_line}]", flush=True)
+    return {"griffin_lim_ms": gl_ms, "melgan_ms": mg_ms,
+            "worst_gl": worst_gl, "worst_melgan": worst_mg}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: HiFi-GAN GAN training at full width.
+
+VOC_STEPS = 20
+VOC_RESUME_TO = 22
+N_VOC_WAVS = 24
+VOC_CADENCE = dict(log_step=1, save_step=10, val_step=20)
+VOC_STEP_BATCH = 2          # card against CPU, one step
+VOC_TIMED_BATCH = 16
+# One GAN step, float32 with TF32 off, card against CPU from one state and
+# batch: the losses are sums of the same products in another order.
+VOC_LOSS_REL_BOUND = 1e-5
+# Each gradient, of its tensor's max|g|. Float32 holds this step's
+# gradients only to ~1.5e-3 of their max: against the same step in float64
+# on the card, the CPU's float32 step is 1.25e-3 off in its worst tensor,
+# the card's 1.46e-3, the card's with cuDNN off 1.17e-3, each in another
+# discriminator tensor (leaky-ReLU inputs within round-off of 0 change
+# sides, as in phase 5; even the CPU's float64 step is 1.6e-4 from the
+# card's). Phase 8 prints these distances beside the check, and holds the
+# card's float32 step to within twice the CPU's distance from float64.
+VOC_GRAD_REL_BOUND = 2e-3
+# The exported generator in bf16: the MRF kernel path against the plain
+# path (stock convs) on the same bf16 weights, and against float32 plain;
+# max|diff| / peak.
+VOC_BF16_REL_BOUND = 5e-2
+
+
+def write_wav_corpus(root: str, seed: int) -> str:
+    """``N_VOC_WAVS`` int16 WAVs of 1.5-4 s at 22050 Hz from a seed, in two
+    speaker folders."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import save_wav
+
+    rng = np.random.default_rng(seed)
+    for i in range(N_VOC_WAVS):
+        d = os.path.join(root, f"spk{i % 2}")
+        os.makedirs(d, exist_ok=True)
+        save_wav(os.path.join(d, f"utt{i:03d}.wav"),
+                 harmonic_signal(rng.uniform(1.5, 4.0), rng), SR)
+    return root
+
+
+def vocoder_config(batch: int, amp: str = "float32"):
+    import dataclasses
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+
+    return C.Config(vocoder_train=dataclasses.replace(
+        C.VocoderTrainConfig(), batch_size=batch, amp_dtype=amp,
+        **VOC_CADENCE))
+
+
+def phase_vocoder_training(smoke: Smoke, device, texts, emotions):
+    """Phase 8. Returns the MRF launches of the exported generator's
+    synthesize call."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.interop import (
+        load_vocoder_state,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.models import Generator
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+
+    cfg = vocoder_config(VOC_TIMED_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = tv.load_corpus_wavs(write_wav_corpus(
+            os.path.join(tmp, "wavs"), 3), SR)
+        out = os.path.join(tmp, "voc")
+        reset_mrf_counts()
+        t0 = time.perf_counter()
+        state = tv.train_vocoder(cfg, wavs, out, total_steps=VOC_STEPS,
+                                 device=device, log=lambda *_: None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = mrf.launch_count
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r for r in records if "mel_l1" in r]
+        vals = [r for r in records if "val_mel_l1" in r]
+        mel = [r["mel_l1"] for r in losses]
+        n_params = sum(p.numel() for p in state.gen.parameters())
+        d_params = sum(p.numel() for m in (state.mpd, state.msd)
+                       for p in m.parameters())
+        smoke.check(len(wavs) == N_VOC_WAVS and state.step == VOC_STEPS
+                    and [r["step"] for r in losses] == list(range(
+                        1, VOC_STEPS + 1))
+                    and all(math.isfinite(r[k]) for r in losses
+                            for k in ("gen_total", "disc", "mel_l1", "fm",
+                                      "adv"))
+                    and launches == 0,
+                    f"train_vocoder: {VOC_STEPS} steps at batch "
+                    f"{VOC_TIMED_BATCH}, segment "
+                    f"{cfg.vocoder_train.segment_size}, generator "
+                    f"{n_params / 1e6:.2f}M and discriminators "
+                    f"{d_params / 1e6:.2f}M parameters, in {seconds:.1f} s; "
+                    f"all losses finite; MRF launches {launches} (the plain "
+                    f"generator)")
+        first, last = float(np.mean(mel[:5])), float(np.mean(mel[-5:]))
+        smoke.check(last < first,
+                    f"mel L1, mean of the first 5 steps {first:.4f}, of the "
+                    f"last 5 {last:.4f}; every step {[round(m, 4) for m in mel]}")
+        smoke.check([r["step"] for r in vals] == [VOC_STEPS]
+                    and math.isfinite(vals[0]["val_mel_l1"]),
+                    f"val records {vals}")
+        steps = sorted(int(n[:-3]) for n in os.listdir(
+            os.path.join(out, "ckpt")) if n.endswith(".pt"))
+        resumed = tv.train_vocoder(cfg, wavs, out, total_steps=VOC_RESUME_TO,
+                                   device=device, log=lambda *_: None)
+        p0 = next(resumed.gen.parameters())
+        lr = resumed.opt_g.param_groups[0]["lr"]
+        smoke.check(steps == [10, 20] and resumed.step == VOC_RESUME_TO
+                    and int(resumed.opt_g.state[p0]["step"]) == VOC_RESUME_TO
+                    and lr == tv.vocoder_lr(cfg, VOC_RESUME_TO - 1),
+                    f"checkpoints at {steps}; resumed to step "
+                    f"{resumed.step}, AdamW updates "
+                    f"{int(resumed.opt_g.state[p0]['step'])}, last lr "
+                    f"{lr:.6e}")
+        del state, resumed
+        npz = os.path.join(out, "generator.npz")
+
+        # The exported generator, bf16, through the Synthesizer: every
+        # resblock on the MRF tensor-core kernel.
+        fs2, _ = seeded_states(cfg)
+        synth = Synthesizer(cfg, fs2, load_vocoder_state(npz),
+                            emotion_maps=EMOTION_MAPS, device=device)
+        speakers = list(range(len(texts)))
+        per_call = 2 * len(DILATIONS) * len(synth.vocoder.resblocks)
+        reset_mrf_counts()
+        results = synth.synthesize(texts, speakers, emotions)
+        tc, fma = mrf_counts()
+        smoke.check((tc, fma) == (per_call, 0)
+                    and all(np.isfinite(r.wav).all() and r.wav.size > 0
+                            for r in results),
+                    f"generator.npz in the Synthesizer (bf16): MRF launches "
+                    f"tensor-core {tc}, CUDA-core {fma} (expected "
+                    f"{per_call}, 0); waveforms finite")
+        mel_b = torch.from_numpy(results[0].mel)[None].to(device)
+        gen32 = Generator(cfg.model.vocoder)
+        gen32.load_state_dict(load_vocoder_state(npz))
+        gen32 = gen32.to(device).eval()
+        with torch.inference_mode():
+            kernel = synth.vocoder(mel_b.bfloat16()).float()
+            plain16 = synth.vocoder(mel_b.bfloat16(), fast=False).float()
+            plain32 = gen32(mel_b, fast=False)
+        peak = plain32.abs().max().item()
+        d16 = (kernel - plain16).abs().max().item() / peak
+        d32 = (kernel - plain32).abs().max().item() / peak
+        smoke.check(d16 <= VOC_BF16_REL_BOUND and d32 <= VOC_BF16_REL_BOUND,
+                    f"trained generator, bf16 kernel path vs plain on the "
+                    f"card: max|diff| / peak {d16:.3e} against bf16 plain, "
+                    f"{d32:.3e} against float32 plain (bound "
+                    f"{VOC_BF16_REL_BOUND:.0e}; peak {peak:.4f})")
+        del synth, gen32
+
+        # One GAN step from one state and batch, card against CPU.
+        cfg2 = vocoder_config(VOC_STEP_BATCH)
+        batch = torch.from_numpy(tv.SegmentSampler(cfg2, wavs, seed=11)
+                                 .sample(VOC_STEP_BATCH))
+        # The CPU's and the card's float32 step, and as yardsticks the
+        # card's step in float64 and in float32 with cuDNN off.
+        runs = (("cpu", "cpu", torch.float32, True),
+                ("card", device, torch.float32, True),
+                ("card float64", device, torch.float64, True),
+                ("card cuDNN off", device, torch.float32, False))
+        states, reports = {}, {}
+        for name, dev, dtype, cudnn in runs:
+            st = tv.init_vocoder_train_state(cfg2, torch.device(dev))
+            if dtype == torch.float64:
+                for m in (st.gen, st.mpd, st.msd):
+                    m.double()
+                st.opt_g, st.opt_d = tv.make_vocoder_optimizers(
+                    cfg2, st.gen, st.mpd, st.msd)
+            if name != "cpu":
+                tv.load_vocoder_checkpoint(st, ckpt0)
+            else:
+                ckpt0 = tv.vocoder_checkpoint(st)
+                ckpt0 = {k: ({n: (t.clone() if torch.is_tensor(t) else t)
+                              for n, t in v.items()}
+                             if k in ("gen", "mpd", "msd") else v)
+                         for k, v in ckpt0.items()}
+            torch.backends.cudnn.enabled = cudnn
+            t0 = time.perf_counter()
+            reports[name] = tv.make_vocoder_train_step(
+                cfg2, torch.device(dev))(st, batch.to(dev, dtype)).as_dict()
+            torch.backends.cudnn.enabled = True
+            print(f"  one GAN step, batch {VOC_STEP_BATCH}, {name}: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            states[name] = st
+    worst_loss = max(abs(reports["card"][k] - reports["cpu"][k])
+                     / abs(reports["cpu"][k]) for k in reports["cpu"])
+    smoke.check(worst_loss <= VOC_LOSS_REL_BOUND,
+                f"one GAN step card vs CPU, losses {reports['card']} vs "
+                f"{reports['cpu']}: worst rel diff {worst_loss:.2e} (bound "
+                f"{VOC_LOSS_REL_BOUND:.0e})")
+    grads = {name: {f"{part}.{n}": p.grad.double().cpu()
+                    for part in ("gen", "mpd", "msd")
+                    for n, p in getattr(st, part).named_parameters()}
+             for name, st in states.items()}
+
+    def worst(a: str, b: str) -> tuple[float, str]:
+        """The largest max|g_a - g_b| / max|g_b| over the tensors."""
+        return max((((grads[a][k] - grads[b][k]).abs().max()
+                     / grads[b][k].abs().max()).item(), k)
+                   for k in grads[b])
+
+    ratio, name = worst("card", "cpu")
+    smoke.check(ratio <= VOC_GRAD_REL_BOUND,
+                f"gradients card vs CPU: worst max|diff| / max|g| "
+                f"{ratio:.2e} ({name}), bound {VOC_GRAD_REL_BOUND:.0e}")
+    to64 = {a: worst(a, "card float64") for a in ("card", "card cuDNN off",
+                                                  "cpu")}
+    smoke.check(to64["card"][0] <= 2 * to64["cpu"][0],
+                "against the card's float64 step, worst max|diff| / max|g|"
+                " (the card's float32 within twice the CPU's): " + "; ".join(
+                    f"{a} {r:.2e} ({k})" for a, (r, k) in to64.items()))
+    return tc
+
+
+def phase_vocoder_times(device):
+    """Phase 8's times: the GAN step at batch 16, float32 (TF32 off) and
+    bf16 amp, median of 10 after 3 warm-ups, with its three spans (CUDA
+    events) and peak memory."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+
+    card = nvidia_smi_line()
+    rng = np.random.default_rng(4)
+    wavs = [harmonic_signal(rng.uniform(1.5, 4.0), rng)
+            for _ in range(N_VOC_WAVS)]
+    rows = {}
+    for amp in ("float32", "bfloat16"):
+        cfg = vocoder_config(VOC_TIMED_BATCH, amp)
+        state = tv.init_vocoder_train_state(cfg, device)
+        sampler = tv.SegmentSampler(cfg, wavs, seed=5)
+        events: list = []
+
+        def mark(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        step = tv.make_vocoder_train_step(cfg, device, mark=mark)
+        batches = [torch.from_numpy(sampler.sample(VOC_TIMED_BATCH)).to(
+            device) for _ in range(13)]
+        for b in batches[:3]:
+            step(state, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, spans = [], {k: [] for k in tv.STEP_SPANS}
+        for b in batches[3:]:
+            events.clear()
+            mark("start")
+            t0 = time.perf_counter()
+            report = step(state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            for (_, a), (name, e) in zip(events, events[1:]):
+                spans[name].append(a.elapsed_time(e))
+        ms.sort()
+        med = {k: float(np.median(v)) for k, v in spans.items()}
+        rows[amp] = {"ms": (ms[4] + ms[5]) / 2, **med}
+        print(f"  GAN step {amp}, batch {VOC_TIMED_BATCH} × "
+              f"{cfg.vocoder_train.segment_size} samples, Config() width: "
+              f"median {rows[amp]['ms']:.3f} ms (host clock, synchronized), "
+              f"min {ms[0]:.3f}, max {ms[-1]:.3f} over 10 steps after 3 "
+              f"warm-ups; spans (CUDA events, medians): " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in med.items())
+              + f"; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; last "
+              f"mel L1 {float(report.mel_l1):.4f} [{card}]", flush=True)
+        rows[amp]["busy"] = profile_gan_steps(step, state, batches[3:5],
+                                              amp)
+        del state, batches
+    return rows
+
+
+def profile_gan_steps(step, state, batches, amp: str) -> float:
+    """``torch.profiler`` over two GAN steps: the device's busy share of
+    the window (the union of the kernels' device intervals over the wall
+    time; the profiler's own cost on the host is in the wall time) and the
+    ten kernels with the most device time. Returns the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def is_kernel(e) -> bool:
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if is_kernel(e)):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy = busy_us / 1e3 / wall_ms
+    top = sorted((e for e in prof.key_averages() if is_kernel(e)),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    print(f"  profile of {len(batches)} GAN steps ({amp}): {wall_ms:.1f} ms "
+          f"wall, kernels busy {busy_us / 1e3:.1f} ms, busy share "
+          f"{busy:.3f}; top kernels by device time: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"×{e.count}" for e in top), flush=True)
+    return busy
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").exists():
         print(f"chip_smoke: the package {PKG} is not beside this script",
@@ -1508,10 +2014,18 @@ def main() -> int:
                                  smoke, device)
     bwd_rows = smoke.phase("6. times: train step and flash backward "
                            "kernels", phase_train_times, device)
+    dsp = smoke.phase("7. DSP, Griffin-Lim and MelGAN on the card",
+                      phase_dsp_vocoders, smoke, device, TEXTS, EMOTIONS)
+    voc_launches = smoke.phase("8. HiFi-GAN GAN training at full width",
+                               phase_vocoder_training, smoke, device, TEXTS,
+                               EMOTIONS)
+    voc_times = smoke.phase("8b. times: GAN step", phase_vocoder_times,
+                            device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if (smoke.failures or None in (worst, worst_flash, worst_long,
                                    flash_launches, totals, flash_row,
-                                   worst_bwd, train_launches, bwd_rows)):
+                                   worst_bwd, train_launches, bwd_rows,
+                                   dsp, voc_launches, voc_times)):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
               file=sys.stderr)
         return 1

@@ -1,12 +1,14 @@
-"""Typed configuration for synthesis and FastSpeech2 training.
+"""Typed configuration for synthesis, FastSpeech2 training and HiFi-GAN
+vocoder training.
 
 The same shape as the JAX package's configuration — audio, STFT, mel and
 variance features under ``PreprocessConfig``; transformer, variance and
 vocoder sizes under ``ModelConfig``; optimizer, cadence and buckets under
-``TrainConfig`` — with the same field names and defaults, so a configuration
-reads the same in both packages. Training values that only mean something
-on a TPU (scan chunks, a model-parallel mesh, XLA matmul precision, the JAX
-profiler) raise ``ValueError``. There is no YAML loader yet.
+``TrainConfig``; the GAN recipe under ``VocoderTrainConfig`` — with the
+same field names and defaults, so a configuration reads the same in both
+packages. Training values that only mean something on a TPU (scan chunks,
+a model-parallel mesh, XLA matmul precision, the JAX profiler, the packed
+generator) raise ``ValueError``. There is no YAML loader yet.
 """
 
 from __future__ import annotations
@@ -243,7 +245,59 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class VocoderTrainConfig:
+    """HiFi-GAN generator training, the GAN recipe whose hyperparameters
+    the reference ships (hifigan/config.json: batch 16, lr 2e-4, Adam
+    (0.8, 0.99), decay 0.999, segment 8192); the JAX package's
+    ``config.py:258-297``."""
+
+    batch_size: int = 16
+    segment_size: int = 8192  # samples; a multiple of hop · prod(ups)
+    learning_rate: float = 2e-4
+    adam_betas: tuple[float, float] = (0.8, 0.99)
+    weight_decay: float = 0.01  # torch AdamW's default, per the recipe
+    lr_decay: float = 0.999
+    # The recipe decays per epoch; here every lr_decay_steps updates.
+    lr_decay_steps: int = 1000
+    mel_loss_weight: float = 45.0
+    # Discriminator ensemble (HiFi-GAN V1).
+    mpd_periods: tuple[int, ...] = (2, 3, 5, 7, 11)
+    msd_scales: int = 3
+    seed: int = 1234
+    # "bfloat16": bf16 generator and discriminator convs, float32 master
+    # parameters, weight-norm statistics and losses.
+    amp_dtype: str = "float32"
+    # The JAX package's packed generator (TPU lane packing); the port takes
+    # only False.
+    packed_generator: bool = False
+    # Optimizer steps per host dispatch (a lax.scan chunk on the TPU); the
+    # port takes only 1.
+    steps_per_call: int = 1
+    total_step: int = 400000
+    log_step: int = 100
+    save_step: int = 10000
+    val_step: int = 5000
+
+    def __post_init__(self):
+        tpu_only = [
+            (self.packed_generator, "packed_generator=True (the TPU's "
+             "lane-packed generator layout)"),
+            (self.steps_per_call > 1, f"steps_per_call={self.steps_per_call}"
+             " (lax.scan chunks of optimizer steps)"),
+        ]
+        for bad, what in tpu_only:
+            if bad:
+                raise ValueError(f"{what} is a TPU setting the PyTorch port "
+                                 f"does not take; leave it at its default")
+        if self.amp_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"amp_dtype must be float32 or bfloat16, got "
+                             f"{self.amp_dtype!r}")
+
+
+@dataclass(frozen=True)
 class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    vocoder_train: VocoderTrainConfig = field(
+        default_factory=VocoderTrainConfig)

@@ -28,13 +28,14 @@
 //     chunks of KC = 64 (32) channels and, inside a chunk, over the K taps;
 //     each (chunk, tap) is KC/16 wgmma.mma_async m64nBNk16 per warpgroup,
 //     bf16 in, f32 accumulators in registers (BN/2 per thread);
-//   * the input rows [t0 - pad, t0 + 128 + pad) of a chunk (pad = (K-1)/2*d,
-//     up to 25) are staged once, leaky-ReLU'd in f32, rounded to bf16, zero
-//     outside [0, T), in the unswizzled "core matrix" layout that wgmma reads
-//     through a shared-memory descriptor: [channel group of 8][row][8
-//     channels], 16 bytes a row. A core matrix is then any 8 consecutive
-//     rows, so tap j reads the same staged tile through a descriptor that
-//     starts j*d rows further: no per-tap copy and no register-sourced A,
+//   * the input rows [t0 - pad, t0 + 128 + pad) of a chunk (pad =
+//     (K-1)/2*d, 25 at K = 11, d = 5) are staged once, leaky-ReLU'd in f32,
+//     rounded to bf16, zero outside [0, T), in the unswizzled "core
+//     matrix" layout that wgmma reads through a shared-memory descriptor:
+//     [channel group of 8][row][8 channels], 16 bytes a row. A core
+//     matrix is then any 8 consecutive rows, so tap j reads the same staged
+//     tile through a descriptor that starts j*d rows further: no per-tap
+//     copy and no register-sourced A,
 //     although d = 3 and 5 shift by rows that are not multiples of 8 (a
 //     128-byte swizzle would need 8-row-aligned starts). The row count of
 //     the buffer is odd, so the 16-byte stores of one row's channel groups
@@ -58,6 +59,16 @@
 // [0, T)) and the weights are staged through shared memory kCi channels at
 // a time.
 //
+// Kernel sizes: both kernels are instantiated for K = 3, 7 and 11 with the
+// tap count a template constant, and once more with K read at run time
+// (template K = 0) for any other odd K; the wrapper zero-pads an odd K < 11
+// to the next templated size. The weight ring holds one (chunk, tap) slab a
+// stage whatever K is; the staged input tile grows with the halo, (K-1)*d
+// rows, and a launch whose shared memory would pass the 232,448 bytes a
+// block may use is refused (cudaErrorInvalidValue): at d = 5 that is K > 45
+// on the CUDA cores (64 output channels a block) and K > 105 on the tensor
+// cores (BN = 128).
+//
 // Layouts: activations (B, T, C) contiguous, channels last; float32 weights
 // as torch.nn.Conv1d keeps them, (C_out, C_in, K); bfloat16 weights packed
 // (see pack_mrf_weights); bias (C) in the working type. Offsets into the
@@ -76,6 +87,7 @@ namespace {
 using namespace sm90;
 
 constexpr float kSlope = 0.1f;
+constexpr size_t kMaxSmem = 232448;  // the most shared memory a block may use
 
 // ---------------------------------------------------------------------------
 // float32 on the CUDA cores.
@@ -94,18 +106,22 @@ struct Tile {
   static constexpr int kWsStride = TCO + 4;            // padded staged-weight row
 };
 
+// K > 0: the tap count as a template constant (the taps unrolled); K == 0:
+// the tap count is kernel_size, read at run time, for an odd K past the
+// templated sizes.
 template <int K, int TCO>
 __global__ void __launch_bounds__(kThreads)
 mrf_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ res, float* __restrict__ out,
-                    int t_len, int channels, int dilation) {
+                    int t_len, int channels, int kernel_size, int dilation) {
   using TL = Tile<TCO>;
+  const int taps = K > 0 ? K : kernel_size;
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                 // [kCi*K][kWsStride]
-  float* xs = smem + kCi * K * TL::kWsStride;       // [rows][kXsStride]
+  float* ws = smem;                                 // [kCi*taps][kWsStride]
+  float* xs = smem + kCi * taps * TL::kWsStride;    // [rows][kXsStride]
 
-  const int pad = (K - 1) / 2 * dilation;
+  const int pad = (taps - 1) / 2 * dilation;
   const int rows = TL::kTimeRows + 2 * pad;
   const int tx = threadIdx.x % TL::kNtx;
   const int ty = threadIdx.x / TL::kNtx;
@@ -123,10 +139,11 @@ mrf_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // Weights: for each output channel the kCi*K values of this chunk are
     // contiguous in (C_out, C_in, K), so consecutive threads read
     // consecutive addresses.
-    for (int i = threadIdx.x; i < TCO * kCi * K; i += kThreads) {
-      const int co = i / (kCi * K);
-      const int q = i - co * (kCi * K);  // ci * K + tap
-      ws[q * TL::kWsStride + co] = w[((int64_t)(co0 + co) * channels + ci0) * K + q];
+    for (int i = threadIdx.x; i < TCO * kCi * taps; i += kThreads) {
+      const int co = i / (kCi * taps);
+      const int q = i - co * (kCi * taps);  // ci * taps + tap
+      ws[q * TL::kWsStride + co] =
+          w[((int64_t)(co0 + co) * channels + ci0) * taps + q];
     }
     // Input rows [t0 - pad, t0 + kTimeRows + pad), leaky-ReLU'd, zero
     // outside [0, T).
@@ -146,8 +163,8 @@ mrf_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll 1
     for (int ci = 0; ci < kCi; ++ci) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float* wrow = ws + (ci * K + k) * TL::kWsStride + tx * kCols;
+      for (int k = 0; k < taps; ++k) {
+        const float* wrow = ws + (ci * taps + k) * TL::kWsStride + tx * kCols;
         const float4 wa = *reinterpret_cast<const float4*>(wrow);
         const float4 wb = *reinterpret_cast<const float4*>(wrow + 4);
         // Output row ty + r*kNty reads input row t - pad + k*d, which is
@@ -190,12 +207,14 @@ mrf_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 template <int K, int TCO>
 cudaError_t launch_f32(const float* x, const float* w, const float* bias,
                        const float* res, float* out, int batch, int t_len,
-                       int channels, int dilation, cudaStream_t stream) {
+                       int channels, int kernel_size, int dilation,
+                       cudaStream_t stream) {
   using TL = Tile<TCO>;
-  const int pad = (K - 1) / 2 * dilation;
+  const int pad = (kernel_size - 1) / 2 * dilation;
   const size_t smem =
-      sizeof(float) * ((size_t)kCi * K * TL::kWsStride +
+      sizeof(float) * ((size_t)kCi * kernel_size * TL::kWsStride +
                        (size_t)(TL::kTimeRows + 2 * pad) * kXsStride);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // Above 48 KB a block may use dynamic shared memory only after this call;
   // without it the launch is refused.
   cudaError_t err = cudaFuncSetAttribute(
@@ -205,7 +224,7 @@ cudaError_t launch_f32(const float* x, const float* w, const float* bias,
   const dim3 grid((t_len + TL::kTimeRows - 1) / TL::kTimeRows,
                   channels / TCO, batch);
   mrf_conv_f32_kernel<K, TCO><<<grid, kThreads, smem, stream>>>(
-      x, w, bias, res, out, t_len, channels, dilation);
+      x, w, bias, res, out, t_len, channels, kernel_size, dilation);
   return cudaGetLastError();
 }
 
@@ -215,10 +234,10 @@ cudaError_t dispatch_f32(const float* x, const float* w, const float* bias,
                          int channels, int kernel_size, int dilation,
                          cudaStream_t s) {
   switch (kernel_size) {
-    case 3: return launch_f32<3, TCO>(x, w, bias, res, out, batch, t_len, channels, dilation, s);
-    case 7: return launch_f32<7, TCO>(x, w, bias, res, out, batch, t_len, channels, dilation, s);
-    case 11: return launch_f32<11, TCO>(x, w, bias, res, out, batch, t_len, channels, dilation, s);
-    default: return cudaErrorInvalidValue;
+    case 3: return launch_f32<3, TCO>(x, w, bias, res, out, batch, t_len, channels, 3, dilation, s);
+    case 7: return launch_f32<7, TCO>(x, w, bias, res, out, batch, t_len, channels, 7, dilation, s);
+    case 11: return launch_f32<11, TCO>(x, w, bias, res, out, batch, t_len, channels, 11, dilation, s);
+    default: return launch_f32<0, TCO>(x, w, bias, res, out, batch, t_len, channels, kernel_size, dilation, s);
   }
 }
 
@@ -232,7 +251,6 @@ constexpr int kTcConsumers = 256;               // two warpgroups
 constexpr int kTcThreads = kTcConsumers + 32;   // and one producer warp
 constexpr int kStages = 4;                      // weight-slab ring
 constexpr int kBarrierBytes = 128;              // 2 * kStages mbarriers, padded
-constexpr size_t kMaxSmem = 232448;             // the most a block may use
 
 __device__ __forceinline__ void consumers_sync() {
   named_sync<1, kTcConsumers>();
@@ -363,12 +381,14 @@ __device__ __forceinline__ void stage_input(const bf16* __restrict__ x,
   }
 }
 
+// K as in mrf_conv_f32_kernel: 0 reads the tap count from kernel_size.
 template <int K, int BN, int KC>
 __global__ void __launch_bounds__(kTcThreads)
 mrf_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
                    const bf16* __restrict__ bias, const bf16* __restrict__ res,
                    bf16* __restrict__ out, int t_len, int channels,
-                   int dilation, int a_stride) {
+                   int kernel_size, int dilation, int a_stride) {
+  const int taps = K > 0 ? K : kernel_size;
   constexpr int kSlabElems = BN * KC;
   constexpr uint32_t kSlabBytes = kSlabElems * 2;
   extern __shared__ __align__(128) uint8_t tc_smem[];
@@ -378,11 +398,11 @@ mrf_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   uint8_t* abuf = ring + kStages * kSlabBytes;
   const uint32_t a_bytes = (KC / 8) * a_stride * 16;
 
-  const int pad = (K - 1) / 2 * dilation;
+  const int pad = (taps - 1) / 2 * dilation;
   const int rows = kTcRows + 2 * pad;
   const int t0 = blockIdx.x * kTcRows;
   const int n_chunks = channels / KC;
-  const int n_slabs = n_chunks * K;
+  const int n_slabs = n_chunks * taps;
   const int64_t batch_off = (int64_t)blockIdx.z * t_len * channels;
   const int tid = threadIdx.x;
 
@@ -424,7 +444,7 @@ mrf_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   fence_proxy_async();
   consumers_sync();
 
-  int i = 0;  // slab index: chunk * K + tap
+  int i = 0;  // slab index: chunk * taps + tap
 #pragma unroll 1
   for (int kc = 0; kc < n_chunks; ++kc) {
     // This warpgroup's 64 output rows start at staged row wg*64; tap j
@@ -432,7 +452,7 @@ mrf_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
     const uint32_t a_base =
         smem_addr(abuf + (kc & 1) * a_bytes) + wg * 64 * 16;
 #pragma unroll 1
-    for (int j = 0; j < K; ++j, ++i) {
+    for (int j = 0; j < taps; ++j, ++i) {
       const int s = i % kStages;
       mbar_wait(smem_addr(&full[s]), (i / kStages) & 1);
       const uint32_t a_tap = a_base + j * dilation * 16;
@@ -498,8 +518,11 @@ mrf_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
 template <int K, int BN, int KC>
 cudaError_t launch_tc(const bf16* x, const bf16* wp, const bf16* bias,
                       const bf16* res, bf16* out, int batch, int t_len,
-                      int channels, int dilation, cudaStream_t stream) {
-  const int pad = (K - 1) / 2 * dilation;
+                      int channels, int kernel_size, int dilation,
+                      cudaStream_t stream) {
+  // The weight ring holds one slab a stage whatever K is; the staged input
+  // tile grows with the halo, (K - 1) * d rows.
+  const int pad = (kernel_size - 1) / 2 * dilation;
   const int a_stride = (kTcRows + 2 * pad) | 1;
   const size_t smem = kBarrierBytes + (size_t)kStages * BN * KC * 2 +
                       2 * (size_t)(KC / 8) * a_stride * 16;
@@ -510,7 +533,7 @@ cudaError_t launch_tc(const bf16* x, const bf16* wp, const bf16* bias,
   if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kTcRows - 1) / kTcRows, channels / BN, batch);
   mrf_conv_tc_kernel<K, BN, KC><<<grid, kTcThreads, smem, stream>>>(
-      x, wp, bias, res, out, t_len, channels, dilation, a_stride);
+      x, wp, bias, res, out, t_len, channels, kernel_size, dilation, a_stride);
   return cudaGetLastError();
 }
 
@@ -520,16 +543,17 @@ cudaError_t dispatch_tc(const bf16* x, const bf16* wp, const bf16* bias,
                         int channels, int kernel_size, int dilation,
                         cudaStream_t s) {
   switch (kernel_size) {
-    case 3: return launch_tc<3, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, dilation, s);
-    case 7: return launch_tc<7, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, dilation, s);
-    case 11: return launch_tc<11, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, dilation, s);
-    default: return cudaErrorInvalidValue;
+    case 3: return launch_tc<3, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, 3, dilation, s);
+    case 7: return launch_tc<7, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, 7, dilation, s);
+    case 11: return launch_tc<11, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, 11, dilation, s);
+    default: return launch_tc<0, BN, KC>(x, wp, bias, res, out, batch, t_len, channels, kernel_size, dilation, s);
   }
 }
 
-bool valid(int batch, int t_len, int channels, int dilation) {
+bool valid(int batch, int t_len, int channels, int kernel_size,
+           int dilation) {
   return batch > 0 && t_len > 0 && channels > 0 && channels % 32 == 0 &&
-         dilation > 0;
+         kernel_size > 0 && kernel_size % 2 == 1 && dilation > 0;
 }
 
 }  // namespace
@@ -541,7 +565,7 @@ extern "C" int mrf_conv_f32(const void* x, const void* w, const void* bias,
                             const void* res, void* out, int batch, int t_len,
                             int channels, int kernel_size, int dilation,
                             void* stream) {
-  if (!valid(batch, t_len, channels, dilation))
+  if (!valid(batch, t_len, channels, kernel_size, dilation))
     return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w);
@@ -562,7 +586,7 @@ extern "C" int mrf_conv_bf16(const void* x, const void* w, const void* bias,
                              const void* res, void* out, int batch, int t_len,
                              int channels, int kernel_size, int dilation,
                              void* stream) {
-  if (!valid(batch, t_len, channels, dilation))
+  if (!valid(batch, t_len, channels, kernel_size, dilation))
     return (int)cudaErrorInvalidValue;
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* wp = static_cast<const bf16*>(w);

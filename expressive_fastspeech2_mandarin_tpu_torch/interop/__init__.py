@@ -2,9 +2,13 @@
 checkpoints."""
 
 from .from_jax import (
+    discriminator_from_jax,
     fastspeech2_from_jax,
     hifigan_from_jax,
+    melgan_from_jax,
     train_state_from_jax,
+    vocoder_train_state_from_jax,
+    wn_generator_from_jax,
 )
 from .torch_ckpt import (
     fastspeech2_checkpoint_state,
@@ -12,9 +16,12 @@ from .torch_ckpt import (
     load_generator_npz,
     load_torch_state_dict,
     load_vocoder_state,
+    melgan_from_state_dict,
 )
 
-__all__ = ["fastspeech2_from_jax", "hifigan_from_jax", "train_state_from_jax",
+__all__ = ["discriminator_from_jax", "fastspeech2_from_jax",
+           "hifigan_from_jax", "melgan_from_jax", "train_state_from_jax",
+           "vocoder_train_state_from_jax", "wn_generator_from_jax",
            "fastspeech2_checkpoint_state", "fold_weight_norm",
            "load_generator_npz", "load_torch_state_dict",
-           "load_vocoder_state"]
+           "load_vocoder_state", "melgan_from_state_dict"]

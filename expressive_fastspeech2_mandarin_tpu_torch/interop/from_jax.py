@@ -168,3 +168,90 @@ def hifigan_from_jax(params: Params) -> dict[str, torch.Tensor]:
             _conv(out, f"resblocks.{i}.convs2.{j}", conv)
     _conv(out, "conv_post", params["conv_post"])
     return out
+
+
+def melgan_from_jax(params: Params) -> dict[str, torch.Tensor]:
+    """JAX MelGAN params (``init_melgan``/``convert_melgan``) → the port's
+    ``MelGAN`` state dict."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(out, "conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        _conv_transpose(out, f"ups.{i}", up)
+    for i, stage in enumerate(params["resblocks"]):
+        for j, block in enumerate(stage):
+            for name in ("conv_dilated", "conv_1x1", "shortcut"):
+                _conv(out, f"resblocks.{i}.{j}.{name}", block[name])
+    _conv(out, "conv_post", params["conv_post"])
+    return out
+
+
+# Weight norm: the JAX package keeps {v, g, bias} with v in its kernel
+# layout (K, C_in, C_out) and g with keepdims (1, 1, C_out) for a conv,
+# (1, C_in, 1) for a transposed conv; the same transposes give torch's
+# weight_v and weight_g (C, 1, 1).
+
+
+def _wn_conv(out: dict, prefix: str, p: Params) -> None:
+    out[f"{prefix}.weight_v"] = _t(np.asarray(p["v"]).transpose(2, 1, 0))
+    out[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).transpose(2, 1, 0))
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _wn_conv_transpose(out: dict, prefix: str, p: Params) -> None:
+    out[f"{prefix}.weight_v"] = _t(np.asarray(p["v"]).transpose(1, 2, 0))
+    out[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).transpose(1, 2, 0))
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def wn_generator_from_jax(tree: Params) -> dict[str, torch.Tensor]:
+    """A JAX weight-norm generator tree (``generator_weight_norm``, or a
+    tree of the same shape: Adam's moments, gradients) → the state dict of
+    ``Generator(weight_norm=True)``."""
+    out: dict[str, torch.Tensor] = {}
+    _wn_conv(out, "conv_pre", tree["conv_pre"])
+    for i, up in enumerate(tree["ups"]):
+        _wn_conv_transpose(out, f"ups.{i}", up)
+    for i, rb in enumerate(tree["resblocks"]):
+        for key in ("convs1", "convs2"):
+            for j, conv in enumerate(rb[key]):
+                _wn_conv(out, f"resblocks.{i}.{key}.{j}", conv)
+    _wn_conv(out, "conv_post", tree["conv_post"])
+    return out
+
+
+def discriminator_from_jax(tree: Params) -> dict[str, torch.Tensor]:
+    """A JAX MPD or MSD tree (``init_mpd``/``init_msd``, or one shaped like
+    it) → the state dict of the port's ``MPD`` or ``MSD``."""
+    out: dict[str, torch.Tensor] = {}
+    for i, sub in enumerate(tree["subs"]):
+        for j, conv in enumerate(sub["convs"]):
+            _wn_conv(out, f"discriminators.{i}.convs.{j}", conv)
+        _wn_conv(out, f"discriminators.{i}.conv_post", sub["conv_post"])
+    return out
+
+
+def _discriminators(tree: Params) -> dict[str, torch.Tensor]:
+    return {f"{name}.{k}": v for name in ("mpd", "msd")
+            for k, v in discriminator_from_jax(tree[name]).items()}
+
+
+def vocoder_train_state_from_jax(gen: Params, mpd: Params, msd: Params,
+                                 opt_g: Any, opt_d: Any, step: int) -> dict:
+    """A JAX ``VocoderTrainState``'s parts (as numpy trees) → a checkpoint
+    dict of the port (``train.vocoder.load_vocoder_checkpoint``): the
+    weight-norm generator, MPD and MSD state dicts, and each AdamW's update
+    count and moments (``scale_by_adam``'s ``mu``/``nu``) by parameter
+    name, the discriminators' under ``mpd.``/``msd.``."""
+    def adam(opt_state, convert):
+        st = _find(opt_state, "mu", "nu", "count")
+        if st is None:
+            raise ValueError("opt_state holds no scale_by_adam state")
+        return {"count": int(np.asarray(st.count)),
+                "exp_avg": convert(st.mu), "exp_avg_sq": convert(st.nu)}
+
+    return {"gen": wn_generator_from_jax(gen),
+            "mpd": discriminator_from_jax(mpd),
+            "msd": discriminator_from_jax(msd),
+            "opt_g": adam(opt_g, wn_generator_from_jax),
+            "opt_d": adam(opt_d, _discriminators),
+            "step": int(np.asarray(step))}

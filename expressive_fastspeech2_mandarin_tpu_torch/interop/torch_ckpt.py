@@ -104,6 +104,43 @@ def load_generator_npz(path: str) -> dict[str, torch.Tensor]:
     return hifigan_from_jax(listify(root))
 
 
+def melgan_from_state_dict(sd: Mapping[str, torch.Tensor]
+                           ) -> dict[str, torch.Tensor]:
+    """A melgan-neurips ``mel2wav.model`` Sequential state dict (an optional
+    ``mel2wav.model.`` or ``model.`` prefix, weight norm) → the port's
+    ``MelGAN`` state dict, weight norm folded; the JAX package's
+    ``convert_melgan``. Sequential indices: 1 conv_pre; per stage s a
+    LeakyReLU, the upsample, then the residual blocks (``block.2`` the
+    dilated conv, ``block.4`` the 1×1, ``shortcut``); conv_post after a
+    LeakyReLU and a ReflectionPad."""
+    from ..models.melgan import N_RESIDUAL, RATIOS
+
+    for pfx in ("mel2wav.model.", "model.", ""):
+        if any(k.startswith(pfx + "1.") for k in sd):
+            break
+    sd = fold_weight_norm({k[len(pfx):]: torch.as_tensor(v)
+                           for k, v in sd.items() if k.startswith(pfx)})
+    out: dict[str, torch.Tensor] = {}
+
+    def take(dst: str, src: str) -> None:
+        out[f"{dst}.weight"] = sd[f"{src}.weight"]
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+    take("conv_pre", "1")
+    idx = 2
+    for i in range(len(RATIOS)):
+        idx += 1  # LeakyReLU
+        take(f"ups.{i}", str(idx))
+        idx += 1
+        for j in range(N_RESIDUAL):
+            take(f"resblocks.{i}.{j}.conv_dilated", f"{idx}.block.2")
+            take(f"resblocks.{i}.{j}.conv_1x1", f"{idx}.block.4")
+            take(f"resblocks.{i}.{j}.shortcut", f"{idx}.shortcut")
+            idx += 1
+    take("conv_post", str(idx + 2))  # after LeakyReLU, ReflectionPad
+    return out
+
+
 def load_vocoder_state(path: str) -> dict[str, torch.Tensor]:
     """HiFi-GAN generator weights from a native ``generator.npz`` or a
     reference checkpoint (``{"generator": state_dict}``, weight norm

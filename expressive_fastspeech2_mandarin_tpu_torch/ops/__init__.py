@@ -12,6 +12,7 @@ from .conv import (
     conv1d,
     conv_transpose1d,
     layer_norm,
+    reflect_pad,
 )
 from .length_regulator import length_regulate
 from .masking import mask_from_lengths
@@ -21,6 +22,7 @@ __all__ = [
     "conv1d",
     "conv_transpose1d",
     "layer_norm",
+    "reflect_pad",
     "batch_norm_inference",
     "batch_norm_train",
     "length_regulate",

@@ -31,6 +31,22 @@ def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int,
+                dim: int = 1) -> torch.Tensor:
+    """``numpy.pad(mode="reflect")`` along ``dim``: mirrored about the end
+    samples, which are not repeated, and reflected again where the pad is
+    longer than the axis (``F.pad`` refuses a pad that long)."""
+    n = x.shape[dim]
+    idx = torch.arange(-left, n + right, device=x.device)
+    if n == 1:
+        idx = torch.zeros_like(idx)
+    else:
+        period = 2 * (n - 1)
+        idx = idx.remainder(period)
+        idx = torch.where(idx >= n, period - idx, idx)
+    return x.index_select(dim, idx)
+
+
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with float32 statistics; the normalised

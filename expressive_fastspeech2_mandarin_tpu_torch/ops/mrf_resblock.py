@@ -18,12 +18,15 @@ counted in ``launch_count``): bfloat16 goes to the tensor-core kernel
 ``fma_launch_count``). On a CPU tensor it runs ``mrf_resblock_plain``, the
 same function written with ``F.conv1d``. Nothing else selects between them.
 
-The kernels are built for C a multiple of 32 and K in ``KERNEL_SIZES``;
-``pad_resblock`` zero-pads any other C and odd K ≤ 11 to those widths
-(exactly: the padded taps and channels contribute zeros, and the padded
-lanes of the result are 0), and the wrapper slices the result back. The
-kernels have no backward: on a CUDA tensor with a gradient wanted the
-wrapper raises rather than return a result cut off from autograd.
+The kernels are built for C a multiple of 32, with the taps unrolled for
+K in ``KERNEL_SIZES`` and read at run time for any other odd K;
+``pad_resblock`` zero-pads any other C and an odd K below 11 to those
+widths (exactly: the padded taps and channels contribute zeros, and the
+padded lanes of the result are 0), and the wrapper slices the result back.
+The kernels have no backward: on a CUDA tensor with a gradient wanted the
+wrapper raises rather than return a result cut off from autograd (the
+vocoder trainer runs the generator's plain path, ``Generator(fast=False)``,
+as the JAX package's trainer does).
 
 The note at the top of the CUDA source says what bounds the kernels and
 what their design does about it.
@@ -95,14 +98,13 @@ def _check(x, weights, kernel_size, dilations) -> None:
 
 
 def padded_kernel_size(kernel_size: int) -> int:
-    """The kernel size the CUDA kernels run an odd K ≤ 11 at: the smallest
-    of ``KERNEL_SIZES`` not below it."""
-    if kernel_size % 2 == 1:
-        for k in KERNEL_SIZES:
-            if k >= kernel_size:
-                return k
-    raise ValueError(f"mrf_resblock kernel takes an odd K of at most "
-                     f"{KERNEL_SIZES[-1]}, got K={kernel_size}")
+    """The kernel size the CUDA kernels run an odd K at: the smallest of
+    ``KERNEL_SIZES`` not below it, or K itself past the last (the kernels'
+    run-time tap count)."""
+    if kernel_size < 1 or kernel_size % 2 == 0:
+        raise ValueError(f"mrf_resblock takes an odd K ('same' padding), "
+                         f"got K={kernel_size}")
+    return next((k for k in KERNEL_SIZES if k >= kernel_size), kernel_size)
 
 
 def pad_resblock(x: torch.Tensor,
@@ -190,7 +192,10 @@ def _launch(lib, x, weight, bias, res, out, kernel_size, dilation, stream):
              None if res is None else res.data_ptr(), out.data_ptr(),
              b, t, c, kernel_size, dilation, stream)
     if err != 0:
-        raise RuntimeError(f"mrf_conv launch failed: CUDA error {err}")
+        # 1 is cudaErrorInvalidValue: a launch the kernel refuses, e.g. a
+        # halo (K - 1) * d too wide for its shared memory.
+        raise RuntimeError(f"mrf_conv launch failed: CUDA error {err} "
+                           f"(C={c}, K={kernel_size}, dilation={dilation})")
     launch_count += 1
     if tc:
         tc_launch_count += 1
@@ -213,8 +218,9 @@ def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
             p.requires_grad for pair in weights for p in pair)):
         raise RuntimeError(
             "mrf_resblock's CUDA kernel has no backward: call it under "
-            "torch.no_grad() or torch.inference_mode(). Its autograd "
-            "Function comes with vocoder training (ROADMAP.md queue 1).")
+            "torch.no_grad() or torch.inference_mode(), or run the "
+            "generator's plain path (Generator.forward(mel, fast=False)), "
+            "as vocoder training does")
     c = x.shape[-1]
     x, weights, kernel_size = pad_resblock(x, weights, kernel_size)
     lib = _library()

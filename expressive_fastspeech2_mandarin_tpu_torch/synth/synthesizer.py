@@ -1,14 +1,24 @@
 """Offline and streaming synthesis: text → phoneme IDs → FastSpeech2 mel →
-HiFi-GAN waveform, trimmed to the predicted lengths; the JAX package's
+waveform, trimmed to the predicted lengths; the JAX package's
 ``synth/synthesizer.py``.
 
 Emotion names map through the emotion maps and the fixed arousal/valence
 table; texts are padded to static source buckets and the mel length to a
-bucket guessed from the text length, or to ``max_mel_len``. The vocoder runs
-in ``VocoderConfig.compute_dtype`` (bfloat16 by default) and every MRF
-resblock goes through the CUDA kernel on the card; past 2048 frames the
-decoder's attention goes through the flash kernel there
+bucket guessed from the text length, or to ``max_mel_len``. Past 2048
+frames the decoder's attention goes through the flash kernel on the card
 (``attention_impl="auto"``).
+
+Vocoders (``synthesize(vocoder=...)``):
+* ``"hifigan"``, the default when HiFi-GAN weights are loaded: in
+  ``VocoderConfig.compute_dtype`` (bfloat16 by default), every MRF
+  resblock through the CUDA kernel on the card;
+* ``"griffin_lim"``, the default without them: 60 Griffin-Lim iterations
+  from the mel (``dsp.MelSTFT.mel_to_audio``) on the synthesizer's device
+  — the JAX package pins it to the CPU only because remote TPU backends
+  lack complex FFTs — each utterance over 0.95 peak scaled down to 0.95;
+* ``"melgan"``: MelGAN weights (``melgan_state`` or ``load_melgan``), in
+  float32;
+* ``"none"``: mels only.
 """
 
 from __future__ import annotations
@@ -19,31 +29,37 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from scipy.io import wavfile
 
 from ..config import Config
 from ..data import EMOTION_AROUSAL_VALENCE, PreprocessedCorpus, pick_bucket
 from ..device import resolve_device
+from ..dsp.stft import MelSTFT
 from ..interop.torch_ckpt import (
     fastspeech2_checkpoint_state,
     load_torch_state_dict,
     load_vocoder_state,
+    melgan_from_state_dict,
 )
-from ..models import FastSpeech2, Generator
+from ..models import FastSpeech2, Generator, MelGAN
 from ..text import text_to_ids
+from ..utils.wav import save_wav
 from .streaming import vocode_streaming
 
 SRC_BUCKETS = (16, 32, 64, 128, 256)
 MEL_BUCKETS = (250, 500, 1000, 2000)
+VOCODERS = ("hifigan", "griffin_lim", "melgan", "none")
+GRIFFIN_LIM_ITERS = 60
+GRIFFIN_LIM_PEAK = 0.95
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 
-
-def save_wav(path: str, audio: np.ndarray, sr: int,
-             max_wav_value: float = 32768.0) -> None:
-    """Float audio in [-1, 1] → int16 wav."""
-    data = np.clip(audio * max_wav_value, -32768, 32767).astype(np.int16)
-    wavfile.write(path, sr, data)
+def rescale_peaks(wavs: np.ndarray, peak: float = GRIFFIN_LIM_PEAK
+                  ) -> np.ndarray:
+    """Each row over ``peak`` scaled down to it: Griffin-Lim's phase
+    reconstruction has no absolute scale, and the int16 write must not
+    clip."""
+    peaks = np.abs(wavs).max(axis=1, keepdims=True)
+    scale = np.where(peaks > peak, peak / np.maximum(peaks, 1e-9), 1.0)
+    return (wavs * scale).astype(np.float32)
 
 
 @dataclass
@@ -56,9 +72,10 @@ class SynthesisResult:
 
 
 class Synthesizer:
-    """``fs2_state`` and ``vocoder_state`` are state dicts under the
-    reference's torch names (``interop.from_jax`` makes them from JAX
-    params). Runs on ``device`` ("cuda" unless the caller asks for "cpu")."""
+    """``fs2_state``, ``vocoder_state`` (HiFi-GAN) and ``melgan_state`` are
+    state dicts under the port's names (``interop.from_jax`` makes them from
+    JAX params, ``interop.torch_ckpt`` from the reference's checkpoints).
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu")."""
 
     def __init__(
         self,
@@ -69,6 +86,7 @@ class Synthesizer:
         speaker_map: dict[str, int] | None = None,
         emotion_maps: dict[str, dict[str, int]] | None = None,
         device: str | torch.device = "cuda",
+        melgan_state: dict[str, torch.Tensor] | None = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -82,6 +100,12 @@ class Synthesizer:
             gen.load_state_dict(vocoder_state, strict=True)
             dtype = getattr(torch, cfg.model.vocoder.compute_dtype)
             self.vocoder = gen.to(self.device, dtype).eval()
+        self.melgan = None
+        if melgan_state is not None:
+            self._set_melgan(melgan_state)
+        pre = cfg.preprocess
+        self.stft = MelSTFT(pre.stft, pre.mel, pre.audio.sampling_rate,
+                            self.device)
         self.speaker_map = speaker_map or {}
         self.emotion_maps = emotion_maps or {}
 
@@ -111,6 +135,17 @@ class Synthesizer:
         voc = load_vocoder_state(vocoder_ckpt) if vocoder_ckpt else None
         return cls(cfg, fs2, voc, stats, speaker_map, emotion_maps,
                    device=device)
+
+    def _set_melgan(self, state: dict[str, torch.Tensor]) -> None:
+        melgan = MelGAN(self.cfg.preprocess.mel.n_mel_channels)
+        melgan.load_state_dict(state, strict=True)
+        self.melgan = melgan.to(self.device).eval()
+
+    def load_melgan(self, ckpt_path: str) -> None:
+        """Load a melgan-neurips generator checkpoint (a torch state dict
+        of its ``mel2wav`` Sequential, weight norm folded at load)."""
+        self._set_melgan(melgan_from_state_dict(
+            load_torch_state_dict(ckpt_path)))
 
     def resolve_ids(self, speaker: str | int, emotion: str | int):
         spk = (self.speaker_map.get(str(speaker), 0)
@@ -147,10 +182,13 @@ class Synthesizer:
         hop = self.cfg.preprocess.stft.hop_length
         vocoder = vocoder or ("hifigan" if self.vocoder is not None
                               else "griffin_lim")
-        if vocoder not in ("hifigan", "none"):
-            raise NotImplementedError(f"vocoder {vocoder!r} {_NOT_PORTED}")
+        if vocoder not in VOCODERS:
+            raise ValueError(f"vocoder must be one of {VOCODERS}, got "
+                             f"{vocoder!r}")
         if vocoder == "hifigan" and self.vocoder is None:
             raise ValueError("no HiFi-GAN weights loaded")
+        if vocoder == "melgan" and self.melgan is None:
+            raise ValueError("no MelGAN weights loaded")
 
         id_lists = [text_to_ids(t, self.cfg.preprocess.symbol_table)
                     for t in texts]
@@ -180,6 +218,11 @@ class Synthesizer:
         if vocoder == "hifigan":
             dtype = next(self.vocoder.parameters()).dtype
             wavs = self.vocoder(mel.to(dtype)).float().cpu().numpy()
+        elif vocoder == "melgan":
+            wavs = self.melgan(mel.float()).cpu().numpy()
+        elif vocoder == "griffin_lim":
+            wavs = rescale_peaks(self.stft.mel_to_audio(
+                mel.float(), n_iters=GRIFFIN_LIM_ITERS).cpu().numpy())
         else:
             # Mel only (e.g. for an external vocoder).
             wavs = np.zeros((n, mel.shape[1] * hop), np.float32)

@@ -1,13 +1,26 @@
-"""FastSpeech2 training: loss, Noam schedule and optimizer, train / eval /
-synth steps, checkpoints and the loop."""
+"""Training: FastSpeech2 (loss, Noam schedule and optimizer, train / eval
+/ synth steps, checkpoints and the loop) and the HiFi-GAN vocoder's GAN
+recipe (``train.vocoder``)."""
 
 from .loop import train
 from .loss import LossReport, fastspeech2_loss
+from .sampling import SampleVocoder
 from .schedule import Optimizer, noam_schedule
 from .state import CheckpointManager, TrainState, create_train_state
 from .step import eval_step, loss_and_grads, synth_step, train_step
+from .vocoder import (
+    VocoderTrainState,
+    init_vocoder_train_state,
+    load_corpus_wavs,
+    make_vocoder_train_step,
+    make_vocoder_val_step,
+    train_vocoder,
+)
 
-__all__ = ["train", "LossReport", "fastspeech2_loss", "Optimizer",
-           "noam_schedule", "CheckpointManager", "TrainState",
+__all__ = ["train", "LossReport", "fastspeech2_loss", "SampleVocoder",
+           "Optimizer", "noam_schedule", "CheckpointManager", "TrainState",
            "create_train_state", "eval_step", "loss_and_grads",
-           "synth_step", "train_step"]
+           "synth_step", "train_step", "VocoderTrainState",
+           "init_vocoder_train_state", "load_corpus_wavs",
+           "make_vocoder_train_step", "make_vocoder_val_step",
+           "train_vocoder"]

@@ -9,8 +9,11 @@ non-finite loss writes an emergency checkpoint and raises
 ``FloatingPointError``; the whole val set's sample-weighted losses to
 ``<log_path>/val`` every ``val_step``; the first val batch synthesized
 free-running every ``synth_step``, its predicted mels and lengths saved as
-``<result_path>/train_samples/step<N>_{mel,mel_lens}.npy``; a checkpoint
-every ``save_step`` and at the end.
+``<result_path>/train_samples/step<N>_{mel,mel_lens}.npy`` and its first
+utterance, predicted and ground truth, vocoded by ``SampleVocoder``
+(HiFi-GAN from ``model.vocoder.ckpt_path``, else Griffin-Lim) into
+``step<N>_{predicted,reconstructed}.wav``; a checkpoint every
+``save_step`` and at the end.
 
 Each batch is staged ahead of the running step (``prefetch_chunks``): the
 mel targets, most of a batch's bytes, are encoded on the host
@@ -33,7 +36,9 @@ from ..config import Config
 from ..data import BucketedDataset, PreprocessedCorpus
 from ..device import resolve_device
 from ..utils.logging import TrainLogger
+from ..utils.wav import save_wav
 from .loss import LossReport
+from .sampling import SampleVocoder
 from .state import CheckpointManager, TrainState, create_train_state
 from .step import Batch, eval_step, synth_step, train_step
 
@@ -94,19 +99,29 @@ def evaluate(model, val_ds: BucketedDataset, cfg: Config,
 
 
 def save_synth_sample(model, val_ds: BucketedDataset, cfg: Config,
-                      device: torch.device, step: int) -> str:
+                      device: torch.device, step: int,
+                      sampler: SampleVocoder) -> str:
     """Synthesize the first val batch free-running, at its mel bucket, and
-    save the predicted mels and lengths; returns the directory."""
+    save the predicted mels and lengths, and the first utterance's
+    predicted and ground-truth audio through ``sampler`` (when both are
+    longer than 4 frames, as the JAX loop does); returns the directory."""
     batch = next(val_ds.epoch(0, shuffle=False))
     mel, mel_lens, _ = synth_step(model, stage_batch(batch, device),
                                   max_mel_len=batch["mels"].shape[1])
     out_dir = os.path.join(cfg.train.path.result_path or "output/result",
                            "train_samples")
     os.makedirs(out_dir, exist_ok=True)
-    np.save(os.path.join(out_dir, f"step{step}_mel.npy"),
-            mel.float().cpu().numpy())
-    np.save(os.path.join(out_dir, f"step{step}_mel_lens.npy"),
-            mel_lens.cpu().numpy())
+    mel = mel.float().cpu().numpy()
+    mel_lens = mel_lens.cpu().numpy()
+    np.save(os.path.join(out_dir, f"step{step}_mel.npy"), mel)
+    np.save(os.path.join(out_dir, f"step{step}_mel_lens.npy"), mel_lens)
+    t_pred, t_gt = int(mel_lens[0]), int(batch["mel_lens"][0])
+    if t_pred > 4 and t_gt > 4:
+        sr = cfg.preprocess.audio.sampling_rate
+        for name, m, t in (("predicted", mel[0], t_pred),
+                           ("reconstructed", batch["mels"][0], t_gt)):
+            save_wav(os.path.join(out_dir, f"step{step}_{name}.wav"),
+                     sampler.vocode(m, t), sr)
     return out_dir
 
 
@@ -139,6 +154,8 @@ def train(cfg: Config, restore_step: int | None = None,
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"training: {n_params / 1e6:.1f}M params, {len(train_ds)} "
           f"utterances, device {device}")
+    sampler = SampleVocoder(cfg, device)
+    print(f"sample vocoder: {sampler.kind}")
 
     def batches() -> Iterator[Batch]:
         epoch = 0
@@ -177,7 +194,8 @@ def train(cfg: Config, restore_step: int | None = None,
                 val_logger.log_losses(
                     step, evaluate(state.model, val_ds, cfg, device))
             if crossed(s.synth_step):
-                save_synth_sample(state.model, val_ds, cfg, device, step)
+                save_synth_sample(state.model, val_ds, cfg, device, step,
+                                  sampler)
             if crossed(s.save_step):
                 ckpt.save(step, state)
         ckpt.save(state.step, state)

@@ -6,7 +6,8 @@ bins and the postnet's BatchNorm statistics), the optimizer state (Adam
 moments, the update count that places the learning-rate schedule, the
 accumulated gradients), the step and the dropout generator's state, as
 ``<ckpt_path>/<step>.pt``. Restoring one continues the run where it
-stopped; the latest ``max_to_keep`` are kept.
+stopped; the latest ``max_to_keep`` are kept. The vocoder trainer keeps
+its own dicts through the same manager (``save_dict``, ``load``).
 """
 
 from __future__ import annotations
@@ -65,24 +66,33 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
-    def save(self, step: int, state: TrainState) -> None:
+    def save_dict(self, step: int, ckpt: dict) -> None:
+        """Write ``ckpt`` as ``<step>.pt`` (through a temporary file) and
+        drop all but the latest ``max_to_keep``."""
         tmp = self.path(step) + ".tmp"
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": step,
-                    "generator": state.generator.get_state()}, tmp)
+        torch.save(ckpt, tmp)
         os.replace(tmp, self.path(step))
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
 
-    def restore(self, state: TrainState, step: int | None = None) -> None:
-        """Load the checkpoint at ``step`` (the latest by default) into
-        ``state`` in place."""
+    def load(self, step: int | None = None) -> dict:
+        """The checkpoint dict at ``step`` (the latest by default), on the
+        CPU."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        load_checkpoint(state, torch.load(self.path(step),
-                                          map_location="cpu"))
+        return torch.load(self.path(step), map_location="cpu")
+
+    def save(self, step: int, state: TrainState) -> None:
+        self.save_dict(step, {"model": state.model.state_dict(),
+                              "optimizer": state.optimizer.state_dict(),
+                              "step": step,
+                              "generator": state.generator.get_state()})
+
+    def restore(self, state: TrainState, step: int | None = None) -> None:
+        """Load the checkpoint at ``step`` (the latest by default) into
+        ``state`` in place."""
+        load_checkpoint(state, self.load(step))
 
 
 def load_checkpoint(state: TrainState, ckpt: dict) -> None:

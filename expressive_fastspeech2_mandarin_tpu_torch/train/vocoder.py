@@ -1,0 +1,470 @@
+"""HiFi-GAN vocoder training, the GAN recipe; the JAX package's
+``train/vocoder.py`` (context mode).
+
+MPD + MSD discriminators, LSGAN adversarial losses, feature matching (×2),
+45× full-band mel L1, two AdamW(2e-4, (0.8, 0.99), weight decay 0.01)
+optimizers with the learning rate ×0.999 every 1000 updates (staircase).
+
+* **Frame-exact segment windows.** Each utterance is reflect-padded by
+  n_fft/2 once on the host; an example is a ``segment + n_fft - hop``
+  sample context window cut at a frame boundary, from which the device
+  computes ``segment/hop`` mel frames with no further padding — the rows
+  of the full-utterance mel — while ``context[n_fft/2 : n_fft/2 +
+  segment]`` is the waveform target.
+* **One generator forward a step**, in JAX's order (``:277-335`` there):
+  the generator's forward keeps its graph; the discriminators take their
+  update on the detached ŷ; the generator's losses are taken against the
+  *updated* discriminators and back-propagated into the generator alone
+  (``backward(inputs=...)``), through the graph of that one forward.
+* The generator runs its plain path (``Generator.forward(fast=False)``):
+  the JAX trainer runs ``apply_generator(fast=False)``, and the MRF
+  kernel has no backward.
+* **Losses and weight-norm statistics in float32**; with ``amp_dtype =
+  "bfloat16"`` the generator's and the discriminators' convs run in bf16
+  on bf16 casts of the float32 parameters.
+
+Deviations from the published recipe, the JAX package's own: the loss mel
+frames a segment with the Tacotron centre padding (33 frames per 8192
+samples, not 32), the convention of the generator's input mels; the first
+MSD scale has weight norm, not spectral norm. The JAX package's paired
+(GTA) mode, its lax.scan chunks (``steps_per_call``) and its retry of a
+remote TPU's transient dispatch errors are not here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from collections.abc import Callable
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import Config, MelConfig
+from ..device import resolve_device
+from ..dsp.stft import MelSTFT
+from ..models.hifigan import Generator, save_generator_npz
+from ..models.hifigan_disc import (
+    MPD,
+    MSD,
+    discriminator_loss,
+    feature_matching_loss,
+    fold_weight_norm,
+    generator_adv_loss,
+    generator_weight_norm,
+)
+from .state import CheckpointManager
+
+
+@dataclasses.dataclass
+class VocoderTrainState:
+    gen: Generator               # weight-norm parameterized
+    mpd: MPD
+    msd: MSD
+    opt_g: torch.optim.AdamW
+    opt_d: torch.optim.AdamW
+    step: int = 0
+
+
+class VocoderLossReport(NamedTuple):
+    gen_total: torch.Tensor
+    disc: torch.Tensor
+    mel_l1: torch.Tensor
+    fm: torch.Tensor
+    adv: torch.Tensor
+
+    def as_dict(self) -> dict[str, float]:
+        return {k: float(v) for k, v in self._asdict().items()}
+
+
+def _discriminator_params(state: VocoderTrainState) -> dict:
+    return {**{f"mpd.{n}": p for n, p in state.mpd.named_parameters()},
+            **{f"msd.{n}": p for n, p in state.msd.named_parameters()}}
+
+
+def vocoder_lr(cfg: Config, count: int) -> float:
+    """The learning rate of the ``count``-th update (counted from 0):
+    ``optax.exponential_decay(staircase=True)`` read before the update, as
+    optax reads it."""
+    vcfg = cfg.vocoder_train
+    return vcfg.learning_rate * vcfg.lr_decay ** (count
+                                                  // vcfg.lr_decay_steps)
+
+
+def make_vocoder_optimizers(cfg: Config, gen: Generator, mpd: MPD, msd: MSD
+                            ) -> tuple[torch.optim.AdamW, torch.optim.AdamW]:
+    """AdamW for the generator and for both discriminators together:
+    ``optax.adamw`` (eps 1e-8, no eps_root; the decay on the parameter
+    before the update, both are). The learning rate is set from
+    ``vocoder_lr`` before every update."""
+    vcfg = cfg.vocoder_train
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=vcfg.learning_rate,
+                                 betas=vcfg.adam_betas, eps=1e-8,
+                                 weight_decay=vcfg.weight_decay)
+
+    return (adamw(gen.parameters()),
+            adamw([*mpd.parameters(), *msd.parameters()]))
+
+
+def init_vocoder_train_state(cfg: Config, device: torch.device,
+                             init_generator_params: dict | None = None
+                             ) -> VocoderTrainState:
+    """A fresh GAN state from ``vocoder_train.seed``. The generator's conv
+    kernels are drawn N(0, 0.01) (the recipe's init_weights; biases keep
+    torch's default init), or taken from ``init_generator_params``, a
+    folded generator state dict (a ``generator.npz`` or a reference
+    checkpoint through ``interop.torch_ckpt.load_vocoder_state``), to
+    fine-tune; the discriminators always start fresh."""
+    vcfg = cfg.vocoder_train
+    voc = cfg.model.vocoder
+    n_mels = cfg.preprocess.mel.n_mel_channels
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(vcfg.seed)
+        if init_generator_params is None:
+            init_generator_params = Generator(voc, n_mels).state_dict()
+            for name, t in init_generator_params.items():
+                if t.ndim == 3:  # conv kernels
+                    t.normal_(0.0, 0.01)
+        gen = Generator(voc, n_mels, weight_norm=True)
+        mpd = MPD(vcfg.mpd_periods)
+        msd = MSD(vcfg.msd_scales)
+    gen.load_state_dict(generator_weight_norm(
+        {k: torch.as_tensor(v).float()
+         for k, v in init_generator_params.items()}), strict=True)
+    gen, mpd, msd = (m.to(device) for m in (gen, mpd, msd))
+    return VocoderTrainState(gen, mpd, msd,
+                             *make_vocoder_optimizers(cfg, gen, mpd, msd))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the optimizers' state by parameter name
+
+
+def _adam_state(opt: torch.optim.AdamW, named: dict) -> dict:
+    count, mu, nu = 0, {}, {}
+    for name, p in named.items():
+        st = opt.state.get(p)
+        if st:
+            count = int(st["step"])
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+    return {"count": count, "exp_avg": mu, "exp_avg_sq": nu}
+
+
+def _load_adam_state(opt: torch.optim.AdamW, named: dict, saved: dict
+                     ) -> None:
+    opt.state.clear()
+    if not saved["count"]:
+        return
+    for name, p in named.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(saved["count"])),
+            "exp_avg": saved["exp_avg"][name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": saved["exp_avg_sq"][name].to(
+                p.device, p.dtype).clone()}
+
+
+def vocoder_checkpoint(state: VocoderTrainState) -> dict:
+    """The state as a dict of tensors: the three modules' state dicts, each
+    optimizer's update count and moments by parameter name (the
+    discriminators' under ``mpd.``/``msd.``), and the step."""
+    return {"gen": state.gen.state_dict(), "mpd": state.mpd.state_dict(),
+            "msd": state.msd.state_dict(),
+            "opt_g": _adam_state(state.opt_g,
+                                 dict(state.gen.named_parameters())),
+            "opt_d": _adam_state(state.opt_d, _discriminator_params(state)),
+            "step": state.step}
+
+
+def load_vocoder_checkpoint(state: VocoderTrainState, ckpt: dict) -> None:
+    """A ``vocoder_checkpoint`` dict (or ``interop.from_jax.
+    vocoder_train_state_from_jax``'s) into ``state`` in place."""
+    state.gen.load_state_dict(ckpt["gen"], strict=True)
+    state.mpd.load_state_dict(ckpt["mpd"], strict=True)
+    state.msd.load_state_dict(ckpt["msd"], strict=True)
+    _load_adam_state(state.opt_g, dict(state.gen.named_parameters()),
+                     ckpt["opt_g"])
+    _load_adam_state(state.opt_d, _discriminator_params(state),
+                     ckpt["opt_d"])
+    state.step = int(ckpt["step"])
+
+
+# ---------------------------------------------------------------------------
+# Mels
+
+
+def context_samples(cfg: Config) -> int:
+    """Samples of one example's context window: the segment and an
+    (n_fft - hop) halo."""
+    stft = cfg.preprocess.stft
+    return (cfg.vocoder_train.segment_size
+            + stft.filter_length - stft.hop_length)
+
+
+def logmel_from_context(context: torch.Tensor, stft: MelSTFT,
+                        n_frames: int) -> torch.Tensor:
+    """(B, ctx) context windows → (B, n_frames, n_mels) log-mel with no
+    further padding: the halo carries the reflect padding, so these rows
+    are the full-utterance ``mel_energy`` rows of the window's frames."""
+    frames = context.unfold(1, stft.n_fft, stft.hop)[:, :n_frames]
+    return stft.log_mel(stft.frames_magnitude(frames))
+
+
+def vocoder_mels(cfg: Config, device: torch.device
+                 ) -> tuple[MelSTFT, MelSTFT]:
+    """(the generator-input MelSTFT, in the acoustic model's band; the
+    full-band loss MelSTFT, hifigan/config.json's fmax_for_loss null) on
+    ``device``."""
+    pre = cfg.preprocess
+    mel_in = MelSTFT(pre.stft, pre.mel, pre.audio.sampling_rate, device)
+    mel_loss = MelSTFT(
+        pre.stft, MelConfig(n_mel_channels=pre.mel.n_mel_channels,
+                            mel_fmin=0.0, mel_fmax=None),
+        pre.audio.sampling_rate, device)
+    return mel_in, mel_loss
+
+
+def loss_mel_of_wav(mel_loss: MelSTFT, wav: torch.Tensor) -> torch.Tensor:
+    """The full-band loss log-mel of a bare (B, segment) waveform, framed
+    with the centre padding (the same for y and ŷ)."""
+    return mel_loss.log_mel(mel_loss.magnitude(wav))
+
+
+def _split_context(cfg: Config, mel_in: MelSTFT, batch: torch.Tensor):
+    pre = cfg.preprocess
+    half = pre.stft.filter_length // 2
+    seg = cfg.vocoder_train.segment_size
+    mel = logmel_from_context(batch, mel_in, seg // pre.stft.hop_length)
+    return mel, batch[:, half: half + seg]
+
+
+def _amp(cfg: Config) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The cast of the convs' inputs: to bf16 under bf16 amp, else none
+    (the batch's float32, or float64 for a float64 yardstick)."""
+    if cfg.vocoder_train.amp_dtype == "bfloat16":
+        return lambda t: t.to(torch.bfloat16)
+    return lambda t: t
+
+
+def make_vocoder_val_step(cfg: Config, device: torch.device):
+    """``val_step(gen, batch) -> float``: copy-synthesis full-band mel L1
+    of the generator alone on one batch of context windows."""
+    mel_in, mel_loss = vocoder_mels(cfg, device)
+    amp = _amp(cfg)
+
+    @torch.no_grad()
+    def val_step(gen: Generator, batch: torch.Tensor) -> float:
+        mel, y = _split_context(cfg, mel_in, batch.to(device))
+        wav = gen(amp(mel), fast=False).to(y.dtype)
+        return float(torch.mean(torch.abs(loss_mel_of_wav(mel_loss, y)
+                                          - loss_mel_of_wav(mel_loss, wav))))
+
+    return val_step
+
+
+STEP_SPANS = ("generator_forward", "discriminator_update",
+              "generator_update")
+
+
+def make_vocoder_train_step(cfg: Config, device: torch.device,
+                            mark: Callable[[str], None] | None = None):
+    """``train_step(state, batch) -> VocoderLossReport``, one GAN update of
+    ``state`` in place; ``batch`` is (B, segment + n_fft - hop) float32
+    context windows (float64 windows and a float64 state give a float64
+    step, the yardstick of the float32 one). After it, each parameter's
+    ``.grad`` holds the gradient of its update: the discriminators' of
+    their loss, the generator's of its loss against the updated
+    discriminators.
+
+    ``mark``, when given, is called with each name of ``STEP_SPANS`` as
+    that span of the step has been issued (a timer records a CUDA event
+    there; nothing synchronizes)."""
+    vcfg = cfg.vocoder_train
+    mark = mark or (lambda _name: None)
+    mel_in, mel_loss = vocoder_mels(cfg, device)
+    amp = _amp(cfg)
+
+    def train_step(state: VocoderTrainState,
+                   batch: torch.Tensor) -> VocoderLossReport:
+        for opt in (state.opt_g, state.opt_d):
+            for group in opt.param_groups:
+                group["lr"] = vocoder_lr(cfg, state.step)
+        mel, y = _split_context(cfg, mel_in, batch.to(device))
+
+        # One generator forward; its graph is kept for the generator's
+        # update after the discriminators'.
+        y_g = state.gen(amp(mel), fast=False).to(y.dtype)
+        y_d = amp(y)
+        mark("generator_forward")
+
+        # The discriminators' update, real against the detached fake.
+        y_g_d = amp(y_g.detach())
+        real_p, _ = state.mpd(y_d)
+        fake_p, _ = state.mpd(y_g_d)
+        real_s, _ = state.msd(y_d)
+        fake_s, _ = state.msd(y_g_d)
+        disc = (discriminator_loss(real_p, fake_p)
+                + discriminator_loss(real_s, fake_s))
+        state.opt_d.zero_grad(set_to_none=True)
+        disc.backward()
+        state.opt_d.step()
+        mark("discriminator_update")
+
+        # The generator's losses against the updated discriminators.
+        with torch.no_grad():
+            _, real_fp = state.mpd(y_d)
+            _, real_fs = state.msd(y_d)
+            y_mel = loss_mel_of_wav(mel_loss, y)
+        fake_p, fake_fp = state.mpd(amp(y_g))
+        fake_s, fake_fs = state.msd(amp(y_g))
+        adv = generator_adv_loss(fake_p) + generator_adv_loss(fake_s)
+        fm = (feature_matching_loss(real_fp, fake_fp)
+              + feature_matching_loss(real_fs, fake_fs))
+        mel_l1 = torch.mean(torch.abs(y_mel - loss_mel_of_wav(mel_loss, y_g)))
+        total = adv + fm + vcfg.mel_loss_weight * mel_l1
+        state.opt_g.zero_grad(set_to_none=True)
+        total.backward(inputs=list(state.gen.parameters()))
+        state.opt_g.step()
+        state.step += 1
+        mark("generator_update")
+        return VocoderLossReport(total.detach(), disc.detach(),
+                                 mel_l1.detach(), fm.detach(), adv.detach())
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Host-side segment sampling
+
+
+class SegmentSampler:
+    """Random frame-aligned context windows from in-memory utterances.
+
+    Each utterance is reflect-padded by n_fft/2 once (the full-utterance
+    STFT padding), so every window gives the frames the preprocessor
+    would; an utterance shorter than a window is zero-padded at its tail
+    first."""
+
+    def __init__(self, cfg: Config, wavs: list[np.ndarray], seed: int = 0):
+        pre = cfg.preprocess
+        self.ctx = context_samples(cfg)
+        self.hop = pre.stft.hop_length
+        half = pre.stft.filter_length // 2
+        self.padded = []
+        for w in wavs:
+            w = np.asarray(w, np.float32)
+            need = self.ctx - (len(w) + 2 * half)
+            if need > 0:
+                w = np.pad(w, (0, need))
+            if len(w) < half + 1:
+                w = np.pad(w, (0, half + 1 - len(w)))
+            self.padded.append(np.pad(w, (half, half), mode="reflect"))
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, batch_size: int) -> np.ndarray:
+        out = np.empty((batch_size, self.ctx), np.float32)
+        idx = self.rng.integers(0, len(self.padded), batch_size)
+        for i, j in enumerate(idx):
+            w = self.padded[j]
+            max_f = (len(w) - self.ctx) // self.hop
+            f = int(self.rng.integers(0, max_f + 1))
+            out[i] = w[f * self.hop: f * self.hop + self.ctx]
+        return out
+
+
+def load_corpus_wavs(wav_dir: str, sampling_rate: int,
+                     limit: int | None = None) -> list[np.ndarray]:
+    """Every .wav under ``wav_dir`` (recursive, in sorted order), resampled to
+    ``sampling_rate`` and peak-normalized to 0.95 as the corpus prep
+    does."""
+    from ..utils.wav import load_wav
+
+    paths = []
+    for root, dirs, files in os.walk(wav_dir):
+        dirs.sort()  # a walk order that is the same on every filesystem
+        for f in sorted(files):
+            if f.endswith(".wav"):
+                paths.append(os.path.join(root, f))
+    if limit:
+        paths = paths[:limit]
+    if not paths:
+        raise FileNotFoundError(f"no .wav files under {wav_dir}")
+    wavs = []
+    for p in paths:
+        audio, _sr = load_wav(p, sr=sampling_rate)
+        peak = np.abs(audio).max()
+        if peak > 0:
+            audio = 0.95 * audio / peak
+        wavs.append(audio.astype(np.float32))
+    return wavs
+
+
+# Seed offset of the validation windows: a stream of its own, the same in
+# every run and resume of one configuration.
+VAL_SEED_OFFSET = 999983
+
+
+def train_vocoder(cfg: Config, wavs: list[np.ndarray], out_dir: str,
+                  total_steps: int | None = None,
+                  init_generator_params: dict | None = None,
+                  device: str | torch.device = "cuda",
+                  log=print) -> VocoderTrainState:
+    """Run the GAN loop to ``total_steps`` (``vocoder_train.total_step``
+    by default) on ``device``, the card unless the caller asks for the CPU.
+
+    Under ``out_dir``: checkpoints ``ckpt/<step>.pt`` every ``save_step``
+    and at the end (the latest is resumed, with the sampler's seed moved on
+    by the step, so a resumed run draws new windows); ``metrics.jsonl``
+    with the five losses every ``log_step`` and the copy-synthesis mel L1
+    of four fixed validation batches every ``val_step``; and the folded
+    generator as ``generator.npz`` at the end."""
+    device = resolve_device(device)
+    vcfg = cfg.vocoder_train
+    total = total_steps or vcfg.total_step
+    os.makedirs(out_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    state = init_vocoder_train_state(cfg, device, init_generator_params)
+    if ckpt.latest_step() is not None:
+        load_vocoder_checkpoint(state, ckpt.load())
+        log(f"restored vocoder step {state.step}")
+    sampler = SegmentSampler(cfg, wavs, seed=vcfg.seed + state.step)
+    step_fn = make_vocoder_train_step(cfg, device)
+    val_fn = make_vocoder_val_step(cfg, device)
+    val_sampler = SegmentSampler(cfg, wavs, seed=vcfg.seed + VAL_SEED_OFFSET)
+    val_batches = [torch.from_numpy(val_sampler.sample(vcfg.batch_size))
+                   for _ in range(4)]
+
+    def stage(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        return t
+
+    t0 = time.time()
+    with open(os.path.join(out_dir, "metrics.jsonl"), "a") as mf:
+        while state.step < total:
+            report = step_fn(state, stage(sampler.sample(vcfg.batch_size)))
+            step = state.step
+            if step % vcfg.log_step == 0:
+                rec = {"step": step, "time": time.time() - t0,
+                       **report.as_dict()}
+                mf.write(json.dumps(rec) + "\n")
+                mf.flush()
+                log(f"voc step {step}: gen {rec['gen_total']:.3f} "
+                    f"mel {rec['mel_l1']:.3f} disc {rec['disc']:.3f}")
+            if vcfg.val_step and step % vcfg.val_step == 0:
+                v = float(np.mean([val_fn(state.gen, vb)
+                                   for vb in val_batches]))
+                mf.write(json.dumps({"step": step, "time": time.time() - t0,
+                                     "val_mel_l1": round(v, 4)}) + "\n")
+                mf.flush()
+                log(f"voc val step {step}: copy-synthesis mel L1 {v:.3f}")
+            if step % vcfg.save_step == 0 or step >= total:
+                ckpt.save_dict(step, vocoder_checkpoint(state))
+    save_generator_npz(os.path.join(out_dir, "generator.npz"),
+                       fold_weight_norm(state.gen.state_dict()))
+    return state

@@ -1,1 +1,1 @@
-"""Training observability."""
+"""Training observability and WAV input/output."""

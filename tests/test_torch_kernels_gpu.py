@@ -111,13 +111,40 @@ def test_tc_kernel_repacks_after_an_in_place_update_on_card():
 @pytest.mark.gpu
 def test_kernel_rejects_unsupported_input_on_card():
     _cuda_or_skip()
-    # An odd K past 11 (no config uses one) and an even K.
-    for k in (13, 4):
+    # An even K has no 'same' padding; an odd K whose halo (K - 1) * d
+    # outgrows the float32 kernel's shared memory (K > 45 at d = 5) is
+    # refused by the launch.
+    for k, error in ((4, ValueError), (2, ValueError), (49, RuntimeError)):
         x = torch.zeros(1, 10, 48, device="cuda")
         w = [(torch.zeros(48, 48, k, device="cuda"),
               torch.zeros(48, device="cuda"))] * 6
-        with pytest.raises(ValueError):
+        with pytest.raises(error):
             mrf.mrf_resblock(x, w, k, DIL)
+
+
+# An odd K past 11 runs at the kernels' run-time tap count
+# (csrc/mrf_resblock.cu, template K = 0), within the bounds above, on the
+# kernel of its dtype.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [64, 256])
+@pytest.mark.parametrize("k", [13, 17])
+def test_odd_kernel_sizes_past_11_match_plain_on_card(dtype, C, k):
+    _cuda_or_skip()
+    torch.backends.cudnn.allow_tf32 = False
+    x, weights = _random_resblock(2, 700, C, k, seed=C + k)
+    dt = getattr(torch, dtype)
+    x, weights = x.to(dt), [(w.to(dt), b.to(dt)) for w, b in weights]
+    before = (mrf.tc_launch_count, mrf.fma_launch_count)
+    out = mrf.mrf_resblock(x, weights, k, DIL)
+    bf16 = dtype == "bfloat16"
+    assert (mrf.tc_launch_count - before[0],
+            mrf.fma_launch_count - before[1]) == ((6, 0) if bf16 else (0, 6))
+    ref = mrf.mrf_resblock_plain(x, weights, k, DIL)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    diff = (out.float() - ref.float()).abs().max().item()
+    tol = 2.0 ** -6 * ref.float().abs().max().item() if bf16 else 1e-4
+    assert diff <= tol
 
 
 # The widths the kernels are not built for run zero-padded to C = 32 and
@@ -156,6 +183,34 @@ def test_kernel_raises_when_a_gradient_is_wanted_on_card():
     with torch.no_grad():
         out = mrf.mrf_resblock(x.clone().requires_grad_(), w_grad, 3, DIL)
     assert out.grad_fn is None and out.shape == x.shape
+
+
+# The vocoder trainer's path: Generator.forward(fast=False) runs stock convs
+# and takes gradients on the card; the default fast=True still goes through
+# the kernel, which raises when a gradient is wanted.
+@pytest.mark.gpu
+def test_generator_plain_path_takes_gradients_on_card():
+    _cuda_or_skip()
+    from expressive_fastspeech2_mandarin_tpu_torch.config import VocoderConfig
+    from expressive_fastspeech2_mandarin_tpu_torch.models import Generator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    gen = Generator(VocoderConfig(upsample_initial_channel=64),
+                    weight_norm=True).cuda()
+    mel = torch.randn(2, 32, 80, device="cuda")
+    before = mrf.launch_count
+    gen(mel, fast=False).square().mean().backward()
+    assert mrf.launch_count == before
+    for name, p in gen.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    with pytest.raises(RuntimeError, match="no backward"):
+        gen(mel, fast=True)
+    with torch.no_grad():
+        fast = gen(mel, fast=True)
+        plain = gen(mel, fast=False)
+    assert mrf.launch_count == before + 6 * len(gen.resblocks)
+    assert (fast - plain).abs().max().item() <= 1e-4
 
 
 # The flash attention kernel (csrc/flash_mha.cu, TF32 tensor cores at float32

@@ -111,10 +111,38 @@ def test_pad_resblock_leaves_kernel_widths_alone():
 
 @pytest.mark.parametrize("k", [2, 13])
 def test_pad_resblock_names_the_kernel_size_limit(k):
+    """The one limit on K is that it is odd ('same' padding); an odd K past
+    11 is not padded but runs at the kernels' run-time tap count."""
     x = torch.zeros(1, 10, 32)
     w = [(torch.zeros(32, 32, k), torch.zeros(32))] * 6
-    with pytest.raises(ValueError, match="at most 11"):
-        mrf.pad_resblock(x, w, k)
+    if k % 2 == 0:
+        with pytest.raises(ValueError, match="odd K"):
+            mrf.pad_resblock(x, w, k)
+    else:
+        xp, wp, kp = mrf.pad_resblock(x, w, k)
+        assert xp is x and kp == k and mrf.padded_kernel_size(k) == k
+
+
+@pytest.mark.parametrize("k", [13, 17])
+@pytest.mark.parametrize("C", [16, 64])
+def test_odd_kernel_sizes_past_11_match_jax(C, k):
+    """An odd K past 11, as the JAX generator takes it (apply_resblock):
+    pad_resblock leaves K as it is (the CUDA kernels read it at run time)
+    and pads only C, and the resblock of its arguments equals the plain
+    resblock and JAX's."""
+    rng = np.random.default_rng(C + k)
+    rb = init_resblock(jax.random.PRNGKey(C + k), C, k, DIL)
+    x = rng.normal(size=(2, 300, C)).astype(np.float32)
+    ref = np.asarray(apply_resblock(rb, jnp.asarray(x), k, DIL))
+    weights = _torch_weights(rb)
+    xt = torch.from_numpy(x)
+    xp, wp, kp = mrf.pad_resblock(xt, weights, k)
+    assert kp == k and xp.shape[-1] == 32 * -(-C // 32)
+    out = mrf.mrf_resblock_plain(xp, wp, kp, DIL)
+    plain = mrf.mrf_resblock_plain(xt, weights, k, DIL)
+    assert torch.equal(out[..., :C], plain)
+    assert torch.count_nonzero(out[..., C:]) == 0
+    assert np.abs(out[..., :C].numpy() - ref).max() < 2e-5
 
 
 def test_plain_resblock_gradient_flows_on_cpu():

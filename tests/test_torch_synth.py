@@ -1,6 +1,12 @@
 """The synth-golden flow (tests/test_synth_golden.py) through both
 Synthesizers, with the JAX package's PRNGKey(0)/(1) weights carried across.
 
+Griffin-Lim (the default without HiFi-GAN weights) and MelGAN: the port
+against the JAX Synthesizer on the same mels, Griffin-Lim from JAX's own
+initial phase (PRNGKey(0)), after the 0.95-peak rescale; waveforms within
+1e-4 · peak (60 iterations, tests/test_torch_dsp.py) and MelGAN's within
+tests/test_melgan.py's rtol 1e-4, atol 2e-4.
+
 float32 vocoder: the port against the JAX Synthesizer — durations and
 mel_len exact, mel within 1e-4, waveform within 1e-5.
 
@@ -110,12 +116,14 @@ def test_mel_only_and_unported_vocoders(jax_weights, tmp_path):
     assert not res.wav.any()
     paths = synth.save_results([res], str(tmp_path), tag="x")
     assert os.path.basename(paths[0]) == "utt_0_x.wav"
-    with pytest.raises(NotImplementedError):
-        synth.synthesize([TEXT])  # Griffin-Lim is not ported yet
-    with pytest.raises(NotImplementedError):
-        synth.synthesize([TEXT], vocoder="melgan")
-    with pytest.raises(ValueError):
-        synth.synthesize([TEXT], vocoder="hifigan")  # no weights loaded
+    # Without HiFi-GAN weights the default is Griffin-Lim, at most 0.95
+    # peak; MelGAN and HiFi-GAN need their weights; no other vocoder.
+    (gl,) = synth.synthesize([TEXT], max_mel_len=250)
+    assert gl.wav.shape == res.wav.shape and np.abs(gl.wav).max() > 0
+    assert np.abs(gl.wav).max() <= 0.95 + 1e-6
+    for vocoder in ("melgan", "hifigan", "wavenet"):
+        with pytest.raises(ValueError):
+            synth.synthesize([TEXT], vocoder=vocoder)
 
 
 def test_resolve_ids_uses_the_arousal_valence_table(jax_weights):
@@ -130,3 +138,51 @@ def test_resolve_ids_uses_the_arousal_valence_table(jax_weights):
     assert synth.resolve_ids("spk7", "Angry") == (7, 3, 4, 2)
     assert synth.resolve_ids(2, "Sad") == (2, 1, 0, 1)
     assert synth.resolve_ids("nobody", 4) == (0, 4, 0, 0)
+
+
+def test_griffin_lim_synthesis_matches_jax(jax_weights, monkeypatch):
+    """The default without HiFi-GAN weights: 60 Griffin-Lim iterations and
+    the 0.95-peak rescale, as the JAX Synthesizer does, from its phase."""
+    params, bn_state, _, consts = jax_weights
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    texts = [TEXT, "{n i h ao}"]
+    jsynth = JaxSynthesizer(JaxConfig(), params, bn_state)
+    ref = jsynth.synthesize(texts, [0, 1], ["Neutral", "Happy"],
+                            max_mel_len=250)
+    synth = Synthesizer(Config(), fastspeech2_from_jax(
+        to_np(params), to_np(bn_state), consts), device="cpu")
+    phase = np.asarray(jax.random.uniform(
+        jax.random.PRNGKey(0), (2, 250, 513), minval=-np.pi, maxval=np.pi))
+    griffin_lim = synth.stft.griffin_lim
+    monkeypatch.setattr(synth.stft, "griffin_lim",
+                        lambda mag, n_iters, *_: griffin_lim(
+                            mag, n_iters, phase=torch.from_numpy(phase)))
+    out = synth.synthesize(texts, [0, 1], ["Neutral", "Happy"],
+                           max_mel_len=250)
+    for r, o in zip(ref, out, strict=True):
+        np.testing.assert_array_equal(o.durations, r.durations)
+        assert o.wav.shape == r.wav.shape and o.wav.size > 0
+        peak = np.abs(r.wav).max()
+        assert 0 < np.abs(o.wav).max() <= 0.95 + 1e-6
+        np.testing.assert_allclose(o.wav, r.wav, atol=1e-4 * peak)
+
+
+def test_melgan_synthesis_matches_jax(jax_weights, tmp_path):
+    """vocoder="melgan" through both Synthesizers' load_melgan on one
+    melgan-neurips checkpoint (tests/test_melgan.py's replica)."""
+    from .test_melgan import _build_torch_melgan
+
+    params, bn_state, _, consts = jax_weights
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    torch.manual_seed(4)
+    path = str(tmp_path / "melgan.pt")
+    torch.save(_build_torch_melgan().state_dict(), path)
+    jsynth = JaxSynthesizer(JaxConfig(), params, bn_state)
+    jsynth.load_melgan(path)
+    (ref,) = jsynth.synthesize([TEXT], vocoder="melgan", max_mel_len=250)
+    synth = Synthesizer(Config(), fastspeech2_from_jax(
+        to_np(params), to_np(bn_state), consts), device="cpu")
+    synth.load_melgan(path)
+    (out,) = synth.synthesize([TEXT], vocoder="melgan", max_mel_len=250)
+    assert out.wav.shape == ref.wav.shape and out.wav.size > 0
+    np.testing.assert_allclose(out.wav, ref.wav, rtol=1e-4, atol=2e-4)
