@@ -101,7 +101,23 @@ Phases:
      1e-3 · max|g|); 8b: the GAN step's time at batch 16 in float32 and
      bf16 amp (median of 10 after 3 warm-ups) with its generator-forward,
      discriminator-update and generator-update spans (CUDA events) and
-     peak memory.
+     peak memory;
+  9. feature extraction and GTA fine-tuning at full width: an ESD-layout
+     corpus written from a seed (2 speakers × 5 emotions × 10 utterances,
+     16 kHz, 2-6 s) → ``prepare_esd`` → a TextGrid per utterance from its
+     lab's pinyin phones → ``Preprocessor`` at ``Config()``'s STFT on the
+     card against the same build on the CPU (metadata, maps, durations
+     and pitch equal; log-mel 1e-4, energy 1e-5 relative), with the
+     extraction rate, the F0 pool's start-up and steady rate and the mel
+     STFT's share → ``train()`` at ``Config()`` width under "flash", 4
+     steps → ``export_gta_mels`` under "flash" (10 flash launches a batch;
+     rows equal to the ground truth's) against "xla" (phase 3b's bound),
+     its time a batch and one batch's forward → ``train_vocoder(pairs=...)``
+     at batch 16 × 8192, 10 steps (finite losses, the val record, no MRF
+     launch) and the paired step's median time → the tuned
+     ``generator.npz`` in the bf16 Synthesizer (72 MRF launches); every
+     kernel counted from 0 over the phase, each launched (the flash
+     counts read before the forward's timing runs).
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -248,12 +264,15 @@ class Smoke:
 
     def phase(self, name, fn, *args):
         print(f"== {name}", flush=True)
+        t0 = time.time()
         try:
             return fn(*args)
         except Exception:  # reported, and the run exits 1
             traceback.print_exc()
             self.failures.append(f"{name}: {traceback.format_exc(limit=1)}")
             return None
+        finally:
+            print(f"   ({time.time() - t0:.1f} s)", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1521,15 +1540,15 @@ GRIFFIN_LIM_REL_BOUND = 1e-3
 MELGAN_F32_BOUND = 1e-4
 
 
-def harmonic_signal(seconds: float, rng):
+def harmonic_signal(seconds: float, rng, sr: int = SR):
     """Five harmonics of a 120-300 Hz fundamental with 5 Hz vibrato, plus
-    noise, at 22050 Hz, peak at most 0.9."""
+    noise, at ``sr`` (22050 Hz), peak at most 0.9."""
     import numpy as np
 
-    t = np.arange(int(seconds * SR)) / SR
+    t = np.arange(int(seconds * sr)) / sr
     f0 = rng.uniform(120.0, 300.0)
     phase = 2 * np.pi * np.cumsum(
-        f0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / SR
+        f0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / sr
     sig = sum(rng.uniform(0.1, 0.4) / h * np.sin(h * phase + rng.uniform(
         0, 2 * np.pi)) for h in range(1, 6))
     sig = sig + 0.01 * rng.standard_normal(len(t))
@@ -1970,6 +1989,407 @@ def profile_gan_steps(step, state, batches, amp: str) -> float:
     return busy
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: feature extraction and GTA fine-tuning at full width.
+
+ESD_SPEAKERS = ("0001", "0002")
+ESD_EMOTIONS = ("Angry", "Happy", "Neutral", "Sad", "Surprise")
+ESD_UTTS = 10           # per speaker and emotion
+ESD_SR = 16000          # ESD's own rate; prepare_esd resamples to 22050
+ESD_TEXTS = ("今天天气真好", "我们明天见", "你好世界", "他说这个很好看",
+             "谢谢大家", "我爱你们", "我们都很好", "你说什么",
+             "他们明天来", "这个是我的")
+ESD_VAL = 10
+ESD_LEAD, ESD_TAIL = 0.3, 0.25  # seconds of silence at the edges
+PREP_TRAIN_STEPS = 4
+GTA_VOC_STEPS = 10
+
+
+def write_esd_corpus(root: str, seed: int) -> str:
+    """An ESD-layout tree: ``<spk>/<Emotion>/<spk>_<n>.wav`` (16 kHz int16,
+    2-6 s: ``harmonic_signal`` between silent edges of low noise) and the
+    tab-separated transcripts ``<spk>/<spk>.txt``."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import save_wav
+
+    rng = np.random.default_rng(seed)
+
+    def edge(seconds: float) -> np.ndarray:
+        return 1e-3 * rng.standard_normal(int(seconds * ESD_SR))
+
+    for speaker in ESD_SPEAKERS:
+        lines = []
+        for e, emotion in enumerate(ESD_EMOTIONS):
+            os.makedirs(os.path.join(root, speaker, emotion))
+            for k in range(ESD_UTTS):
+                base = f"{speaker}_{e * ESD_UTTS + k:06d}"
+                voiced = harmonic_signal(rng.uniform(2.0, 6.0) - ESD_LEAD
+                                         - ESD_TAIL, rng, ESD_SR)
+                save_wav(os.path.join(root, speaker, emotion, f"{base}.wav"),
+                         np.concatenate([edge(ESD_LEAD), voiced,
+                                         edge(ESD_TAIL)]), ESD_SR)
+                lines.append(f"{base}\t{ESD_TEXTS[int(rng.integers(10))]}"
+                             f"\t{emotion}")
+        with open(os.path.join(root, speaker, f"{speaker}.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return root
+
+
+def write_esd_textgrids(raw: str, tg_root: str) -> int:
+    """A TextGrid per prepared utterance from its lab's pinyin phones: a
+    leading ``sil`` over the silent edge, the phones evenly over the
+    voiced part, a trailing ``sp`` and a last gap with an empty mark (an
+    interior gap would become ``sp``, which the pinyin table lacks).
+    Returns how many."""
+    from expressive_fastspeech2_mandarin_tpu_torch.preprocess.textgrid import (
+        Interval,
+        TextGrid,
+        Tier,
+        write_textgrid,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.text import (
+        pinyin_sequence_to_phonemes,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import load_wav
+
+    n = 0
+    for speaker in ESD_SPEAKERS:
+        os.makedirs(os.path.join(tg_root, speaker))
+        for name in sorted(os.listdir(os.path.join(raw, speaker))):
+            if not name.endswith(".lab"):
+                continue
+            base = name[:-4]
+            with open(os.path.join(raw, speaker, name)) as f:
+                phones = pinyin_sequence_to_phonemes(f.read().split())
+            wav, sr = load_wav(os.path.join(raw, speaker, f"{base}.wav"),
+                               None)
+            end = len(wav) / sr
+            step = (end - ESD_LEAD - ESD_TAIL) / len(phones)
+            marks = [Interval(0.0, ESD_LEAD, "sil")]
+            marks += [Interval(ESD_LEAD + i * step, ESD_LEAD + (i + 1) * step,
+                               p) for i, p in enumerate(phones)]
+            marks += [Interval(end - ESD_TAIL, end - 0.05, "sp"),
+                      Interval(end - 0.05, end, "")]
+            write_textgrid(TextGrid(0.0, end, [Tier("phones", marks)]),
+                           os.path.join(tg_root, speaker,
+                                        f"{base}.TextGrid"))
+            n += 1
+    return n
+
+
+def phase_features_gta(smoke: Smoke, device, texts, emotions):
+    """Phase 9: an ESD corpus → ``prepare_esd`` → TextGrids →
+    ``Preprocessor`` on the card (against the CPU) → ``train()`` →
+    ``export_gta_mels`` (flash, against xla) → ``train_vocoder(pairs=...)``
+    → the tuned generator in the bf16 Synthesizer. Returns the flash
+    forward launches and the times."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.dsp import pitch_backend
+    from expressive_fastspeech2_mandarin_tpu_torch.interop import (
+        load_vocoder_state,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+    from expressive_fastspeech2_mandarin_tpu_torch.preprocess import (
+        Preprocessor,
+        prepare_esd,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+    from expressive_fastspeech2_mandarin_tpu_torch.train import train
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+
+    card_line = nvidia_smi_line()
+    reset_flash_counts()
+    reset_mrf_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        esd = write_esd_corpus(os.path.join(tmp, "esd"), 9)
+        raw = os.path.join(tmp, "raw")
+        prepare_esd(esd, raw, val_per_speaker_emotion=1,
+                    test_per_speaker_emotion=1)
+        tg_root = os.path.join(tmp, "TextGrid")
+        n_tg = write_esd_textgrids(raw, tg_root)
+
+        # Feature extraction on the card and on the CPU.
+        dirs, runs = {}, {}
+        for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            dirs[name] = os.path.join(tmp, f"pre_{name}")
+            shutil.copytree(tg_root, os.path.join(dirs[name], "TextGrid"))
+            pcfg = C.PreprocessConfig(
+                path=C.PathConfig(raw_path=raw,
+                                  preprocessed_path=dirs[name]),
+                val_size=ESD_VAL)
+            prep = Preprocessor(pcfg, device=dev)
+            t0 = time.perf_counter()
+            lines = prep.build_from_path()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            runs[name] = dict(prep.timings, wall=time.perf_counter() - t0,
+                              lines=lines, workers=prep.num_workers)
+        card, cpu = runs["card"], runs["cpu"]
+        for name, r in runs.items():
+            steady = r["extract_s"] - r["first_s"]
+            print(f"  Preprocessor ({name}): {len(r['lines'])} of {n_tg} "
+                  f"utterances, {r['audio_s']:.1f} audio-seconds in "
+                  f"{r['wall']:.2f} s wall = {r['audio_s'] / r['wall']:.1f} "
+                  f"audio-seconds per second; F0 pool of {r['workers']} "
+                  f"workers ({pitch_backend()} backend): start-up (until "
+                  f"the first utterance arrived) {r['first_s']:.2f} s, then "
+                  f"{steady:.2f} s = {r['audio_s'] / steady:.1f} "
+                  f"audio-seconds per second; mel STFT on the {name} "
+                  f"{r['mel_s']:.3f} s ({r['mel_s'] / r['wall']:.4f} of the "
+                  f"wall) [{card_line}]", flush=True)
+        same = {}
+        for fname in ("train.txt", "val.txt", "speakers.json",
+                      "emotions.json"):
+            with open(os.path.join(dirs["card"], fname)) as a, \
+                    open(os.path.join(dirs["cpu"], fname)) as b:
+                same[fname] = a.read() == b.read()
+        smoke.check(all(same.values()) and len(card["lines"]) == n_tg,
+                    f"card and CPU builds: metadata and maps equal {same}; "
+                    f"{len(card['lines'])} of {n_tg} utterances kept")
+        stats = {}
+        for name in dirs:
+            with open(os.path.join(dirs[name], "stats.json")) as f:
+                stats[name] = json.load(f)
+        e_card, e_cpu = stats["card"]["energy"], stats["cpu"]["energy"]
+
+        def energy(values, st):  # de-normalized by the run's own stats
+            return np.asarray(values, np.float64) * st[3] + st[2]
+
+        # min, max (de-normalized) and mean relative to themselves; the std
+        # relative to the mean: an error of ε·e in every energy e moves the
+        # std by up to ε·max e, however small the std is.
+        st_rel = max([abs(a - b) / abs(b) for a, b in zip(
+            list(energy(e_card[:2], e_card)) + e_card[2:3],
+            list(energy(e_cpu[:2], e_cpu)) + e_cpu[2:3])]
+            + [abs(e_card[3] - e_cpu[3]) / abs(e_cpu[2])])
+        worst = {"mel": 0.0, "energy": 0.0}
+        exact = True
+        names = sorted(os.listdir(os.path.join(dirs["cpu"], "mel")))
+        for name in names:
+            arrays = {}
+            for kind in ("duration", "pitch", "mel", "energy"):
+                f = name.replace("-mel-", f"-{kind}-")
+                arrays[kind] = [np.load(os.path.join(dirs[d], kind, f))
+                                for d in ("card", "cpu")]
+            for kind in ("duration", "pitch"):
+                a, b = arrays[kind]
+                exact &= a.dtype == b.dtype and np.array_equal(a, b)
+            a, b = arrays["mel"]
+            worst["mel"] = max(worst["mel"], float(np.abs(a - b).max())
+                               if a.shape == b.shape else math.inf)
+            a, b = (energy(v, st) for v, st in zip(arrays["energy"],
+                                                   (e_card, e_cpu)))
+            worst["energy"] = max(worst["energy"],
+                                  float((np.abs(a - b) / np.abs(b)).max()))
+        smoke.check(exact and stats["card"]["pitch"] == stats["cpu"]["pitch"]
+                    and worst["mel"] <= DSP_MEL_ATOL
+                    and worst["energy"] <= DSP_ENERGY_RTOL
+                    and st_rel <= DSP_ENERGY_RTOL,
+                    f"card vs CPU over {len(names)} utterances: durations "
+                    f"and pitch equal {exact}, pitch stats equal; log-mel "
+                    f"max|diff| {worst['mel']:.3e} (bound {DSP_MEL_ATOL:.0e}"
+                    f"), energy max rel diff {worst['energy']:.3e} and its "
+                    f"stats {st_rel:.3e} (bound {DSP_ENERGY_RTOL:.0e})")
+        # FastSpeech2 on the card's corpus, then the GTA export.
+        cfg = C.Config(
+            preprocess=C.PreprocessConfig(path=C.PathConfig(
+                raw_path=raw, preprocessed_path=dirs["card"])),
+            model=C.ModelConfig(transformer=C.TransformerConfig(
+                attention_impl="flash")),
+            train=C.TrainConfig(
+                path=C.PathConfig(ckpt_path=os.path.join(tmp, "ckpt"),
+                                  log_path=os.path.join(tmp, "log"),
+                                  result_path=os.path.join(tmp, "result")),
+                step=C.StepConfig(total_step=PREP_TRAIN_STEPS, log_step=1,
+                                  save_step=PREP_TRAIN_STEPS)))
+        t0 = time.perf_counter()
+        state = train(cfg, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(tmp, "log/train/metrics.jsonl")) as f:
+            losses = [json.loads(line)["total_loss"] for line in f]
+        smoke.check(state.step == PREP_TRAIN_STEPS
+                    and len(losses) == PREP_TRAIN_STEPS
+                    and all(math.isfinite(x) for x in losses),
+                    f"train() on the extracted corpus, Config() width, "
+                    f"flash: {PREP_TRAIN_STEPS} steps in {seconds:.1f} s, "
+                    f"losses {[round(x, 4) for x in losses]}")
+        del state
+        corpus = PreprocessedCorpus(dirs["card"])
+        n_batches = sum(math.ceil(len(BucketedDataset(
+            corpus, f, tv.GTA_BATCH, C.BucketConfig())) / tv.GTA_BATCH)
+            for f in ("train.txt", "val.txt"))
+        n_blocks = (cfg.model.transformer.encoder_layer
+                    + cfg.model.transformer.decoder_layer)
+        gta = {}
+        for impl in ("flash", "xla"):
+            icfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, transformer=dataclasses.replace(
+                    cfg.model.transformer, attention_impl=impl)))
+            gta[impl] = os.path.join(tmp, f"gta_{impl}")
+            before = fa.launch_count
+            t0 = time.perf_counter()
+            n = tv.export_gta_mels(icfg, os.path.join(tmp, "ckpt"),
+                                   gta[impl], device=device,
+                                   log=lambda *_: None)
+            ms = 1e3 * (time.perf_counter() - t0) / n_batches
+            launches = fa.launch_count - before
+            print(f"  export_gta_mels ({impl}): {n} mels in {n_batches} "
+                  f"batches of {tv.GTA_BATCH}, {ms:.2f} ms a batch (host "
+                  f"clock; each batch's mels copied to the host) "
+                  f"[{card_line}]", flush=True)
+            if impl == "flash":
+                gta_ms, gta_launches = ms, launches
+                smoke.check(n == len(card["lines"])
+                            and launches == n_blocks * n_batches,
+                            f"GTA export under flash: {n} mels, flash "
+                            f"launches {launches} (expected {n_blocks} a "
+                            f"batch × {n_batches})")
+        # The main path's launches end here: the timing below is not one.
+        counted = {"flash_mha": fa.launch_count,
+                   "flash_mha_bwd_dq": fa.bwd_dq_launch_count,
+                   "flash_mha_bwd_dkv": fa.bwd_dkv_launch_count}
+        # One batch's forward alone (CUDA events, 5 runs), against the
+        # export's time a batch.
+        from expressive_fastspeech2_mandarin_tpu_torch.models import (
+            FastSpeech2,
+        )
+        from expressive_fastspeech2_mandarin_tpu_torch.train import (
+            CheckpointManager,
+        )
+        from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+            stage_batch,
+        )
+
+        model = FastSpeech2(cfg.model, cfg.preprocess, corpus.stats)
+        model.load_state_dict(CheckpointManager(os.path.join(
+            tmp, "ckpt")).load()["model"])
+        model.to(device).eval()
+        batch, _ = next(BucketedDataset(
+            corpus, "train.txt", tv.GTA_BATCH,
+            C.BucketConfig()).epoch_with_examples(shuffle=False))
+        b = stage_batch(batch, device)
+        with torch.inference_mode():
+            fwd_ms = cuda_time_ms(lambda: model(
+                b["speakers"], b["emotions"], b["arousals"], b["valences"],
+                b["texts"], b["src_lens"], max_mel_len=batch["mels"].shape[1],
+                mel_lens=b["mel_lens"], p_targets=b["pitches"],
+                e_targets=b["energies"], d_targets=b["durations"]), 5)
+        print(f"  teacher-forced forward of one batch, (S, T) bucket "
+              f"{tuple(batch['texts'].shape[1:])} × "
+              f"{batch['mels'].shape[1]}, flash: {fwd_ms:.2f} ms (CUDA "
+              f"events, 5 runs) of the export's {gta_ms:.2f} ms a batch "
+              f"[{card_line}]", flush=True)
+        del model, b
+        rows_ok, worst_gta = True, 0.0
+        for name in sorted(os.listdir(gta["flash"])):
+            a = np.load(os.path.join(gta["flash"], name))
+            b = np.load(os.path.join(gta["xla"], name))
+            gt = np.load(os.path.join(dirs["card"], "mel", name))
+            rows_ok &= a.shape == b.shape == gt.shape
+            if a.shape == b.shape:
+                worst_gta = max(worst_gta, float(np.abs(a - b).max())
+                                / max(1.0, float(np.abs(b).max())))
+        smoke.check(rows_ok and worst_gta <= F32_BOUND,
+                    f"GTA mels: rows equal the ground truth's {rows_ok}; "
+                    f"flash vs xla max|diff| / max(1, peak) {worst_gta:.3e} "
+                    f"(bound {F32_BOUND:.0e}, phase 3b's)")
+
+        # Paired GAN fine-tuning on the GTA mels, HiFi-GAN V1 width.
+        vcfg = dataclasses.replace(cfg, vocoder_train=dataclasses.replace(
+            C.VocoderTrainConfig(), batch_size=VOC_TIMED_BATCH, log_step=1,
+            save_step=GTA_VOC_STEPS, val_step=GTA_VOC_STEPS))
+        pairs = tv.load_paired_corpus(vcfg, gta["flash"])
+        out = os.path.join(tmp, "voc")
+        mrf_before = mrf_counts()
+        t0 = time.perf_counter()
+        vstate = tv.train_vocoder(vcfg, None, out, total_steps=GTA_VOC_STEPS,
+                                  pairs=pairs, device=device,
+                                  log=lambda *_: None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps = [r for r in records if "mel_l1" in r]
+        vals = [r for r in records if "val_mel_l1" in r]
+        smoke.check(vstate.step == GTA_VOC_STEPS
+                    and [r["step"] for r in steps] == list(range(
+                        1, GTA_VOC_STEPS + 1))
+                    and all(math.isfinite(r[k]) for r in steps
+                            for k in ("gen_total", "disc", "mel_l1", "fm",
+                                      "adv"))
+                    and [r["step"] for r in vals] == [GTA_VOC_STEPS]
+                    and math.isfinite(vals[0]["val_mel_l1"])
+                    and mrf_counts() == mrf_before,
+                    f"train_vocoder(pairs=...) on {len(pairs)} GTA pairs: "
+                    f"{GTA_VOC_STEPS} steps at batch {VOC_TIMED_BATCH} × "
+                    f"{vcfg.vocoder_train.segment_size} in {seconds:.1f} s; "
+                    f"mel L1 {[round(r['mel_l1'], 4) for r in steps]}; val "
+                    f"{vals}; MRF launches {mrf_counts()[0] - mrf_before[0]}"
+                    f" (the plain generator)")
+
+        # The paired step's time, median of 10 after 3 warm-ups.
+        step = tv.make_vocoder_train_step(vcfg, device)
+        sampler = tv.PairedSegmentSampler(vcfg, pairs, seed=5)
+        batches = [{k: torch.from_numpy(v).to(device) for k, v in
+                    sampler.sample(VOC_TIMED_BATCH).items()}
+                   for _ in range(13)]
+        for b in batches[:3]:
+            step(vstate, b)
+        torch.cuda.synchronize()
+        times = []
+        for b in batches[3:]:
+            t0 = time.perf_counter()
+            step(vstate, b)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        times.sort()
+        paired_ms = (times[4] + times[5]) / 2
+        print(f"  paired GAN step, batch {VOC_TIMED_BATCH} × "
+              f"{vcfg.vocoder_train.segment_size}, float32: median "
+              f"{paired_ms:.3f} ms, min {times[0]:.3f}, max {times[-1]:.3f}"
+              f" (host clock, synchronized, 10 steps after 3 warm-ups) "
+              f"[{card_line}]", flush=True)
+        del vstate, batches, step
+
+        # The tuned generator, bf16, through the Synthesizer.
+        scfg = C.Config(preprocess=cfg.preprocess)
+        fs2, _ = seeded_states(scfg)
+        synth = Synthesizer(scfg, fs2, load_vocoder_state(
+            os.path.join(out, "generator.npz")), emotion_maps=EMOTION_MAPS,
+            device=device)
+        per_call = 2 * len(DILATIONS) * len(synth.vocoder.resblocks)
+        tc0, fma0 = mrf_counts()
+        results = synth.synthesize(texts, list(range(len(texts))), emotions)
+        tc, fma = mrf_counts()
+        smoke.check((tc - tc0, fma - fma0) == (per_call, 0)
+                    and all(np.isfinite(r.wav).all() and r.wav.size > 0
+                            for r in results),
+                    f"GTA-tuned generator.npz in the Synthesizer (bf16): MRF "
+                    f"launches tensor-core {tc - tc0}, CUDA-core "
+                    f"{fma - fma0} (expected {per_call}, 0); waveforms "
+                    f"finite")
+    counted["mrf_resblock"] = mrf_counts()[0]
+    smoke.check(all(n > 0 for n in counted.values()),
+                f"kernel launches over phase 9: {counted}")
+    return {"launches": counted, "gta_launches": gta_launches,
+            "extract_rate": card["audio_s"] / card["wall"],
+            "gta_ms": gta_ms, "gta_forward_ms": fwd_ms,
+            "paired_ms": paired_ms}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").exists():
         print(f"chip_smoke: the package {PKG} is not beside this script",
@@ -2021,11 +2441,14 @@ def main() -> int:
                                EMOTIONS)
     voc_times = smoke.phase("8b. times: GAN step", phase_vocoder_times,
                             device)
+    features = smoke.phase("9. feature extraction and GTA fine-tuning at "
+                           "full width", phase_features_gta, smoke, device,
+                           TEXTS, EMOTIONS)
     print(f"== done in {time.time() - t_start:.1f} s")
     if (smoke.failures or None in (worst, worst_flash, worst_long,
                                    flash_launches, totals, flash_row,
                                    worst_bwd, train_launches, bwd_rows,
-                                   dsp, voc_launches, voc_times)):
+                                   dsp, voc_launches, voc_times, features)):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
               file=sys.stderr)
         return 1
@@ -2051,7 +2474,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/flash_mha.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "flash_mha.py:53",
-        "launches": train_launches[0],
+        "launches": train_launches[0] + features["launches"]["flash_mha"],
         "max_abs_err": worst_flash,
         **flash_row,
     }, {

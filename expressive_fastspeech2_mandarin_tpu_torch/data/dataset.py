@@ -140,3 +140,12 @@ class BucketedDataset:
               ) -> Iterator[dict[str, np.ndarray]]:
         for batch in self._batches(epoch, shuffle):
             yield self._collate(batch)
+
+    def epoch_with_examples(self, epoch: int = 0, shuffle: bool = True
+                            ) -> Iterator[tuple[dict[str, np.ndarray],
+                                                list[Example]]]:
+        """As ``epoch``, with each batch's row-aligned examples (a filled
+        tail repeats its first): the basenames a per-utterance export
+        needs (JAX ``data/dataset.py:202-207``)."""
+        for batch in self._batches(epoch, shuffle):
+            yield self._collate(batch), batch

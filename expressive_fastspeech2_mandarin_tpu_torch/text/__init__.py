@@ -21,6 +21,7 @@ __all__ = [
     "symbols",
     "clean_text",
     "phonemes_to_ids",
+    "ids_to_phonemes",
     "chinese_text_to_phonemes",
     "chinese_text_to_ids",
     "text_to_ids",
@@ -50,6 +51,16 @@ def phonemes_to_ids(phonemes: list[str], table: str = "pinyin",
         else:
             raise KeyError(f"unknown phoneme: {ph!r}")
     return ids
+
+
+def ids_to_phonemes(ids: list[int], table: str = "pinyin") -> list[str]:
+    """IDs → symbols of the pinyin table, or of the IPA table for any other
+    ``table``; IDs outside the table are dropped (the JAX package's
+    ``text/__init__.py:71-75``)."""
+    id_to_sym = (
+        symbols.ID_TO_PINYIN if table == "pinyin" else symbols.ID_TO_IPA
+    )
+    return [id_to_sym[i] for i in ids if i in id_to_sym]
 
 
 def chinese_text_to_phonemes(text: str) -> list[str]:

@@ -1,6 +1,7 @@
 """Training: FastSpeech2 (loss, Noam schedule and optimizer, train / eval
 / synth steps, checkpoints and the loop) and the HiFi-GAN vocoder's GAN
-recipe (``train.vocoder``)."""
+recipe (``train.vocoder``) with its paired mode on GTA mels
+(``export_gta_mels``)."""
 
 from .loop import train
 from .loss import LossReport, fastspeech2_loss
@@ -9,9 +10,12 @@ from .schedule import Optimizer, noam_schedule
 from .state import CheckpointManager, TrainState, create_train_state
 from .step import eval_step, loss_and_grads, synth_step, train_step
 from .vocoder import (
+    PairedSegmentSampler,
     VocoderTrainState,
+    export_gta_mels,
     init_vocoder_train_state,
     load_corpus_wavs,
+    load_paired_corpus,
     make_vocoder_train_step,
     make_vocoder_val_step,
     train_vocoder,
@@ -23,4 +27,5 @@ __all__ = ["train", "LossReport", "fastspeech2_loss", "SampleVocoder",
            "synth_step", "train_step", "VocoderTrainState",
            "init_vocoder_train_state", "load_corpus_wavs",
            "make_vocoder_train_step", "make_vocoder_val_step",
-           "train_vocoder"]
+           "train_vocoder", "PairedSegmentSampler", "load_paired_corpus",
+           "export_gta_mels"]

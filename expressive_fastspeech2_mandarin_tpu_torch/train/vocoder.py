@@ -1,16 +1,24 @@
 """HiFi-GAN vocoder training, the GAN recipe; the JAX package's
-``train/vocoder.py`` (context mode).
+``train/vocoder.py``, context and paired (GTA) modes.
 
 MPD + MSD discriminators, LSGAN adversarial losses, feature matching (×2),
 45× full-band mel L1, two AdamW(2e-4, (0.8, 0.99), weight decay 0.01)
 optimizers with the learning rate ×0.999 every 1000 updates (staircase).
 
-* **Frame-exact segment windows.** Each utterance is reflect-padded by
-  n_fft/2 once on the host; an example is a ``segment + n_fft - hop``
-  sample context window cut at a frame boundary, from which the device
-  computes ``segment/hop`` mel frames with no further padding — the rows
-  of the full-utterance mel — while ``context[n_fft/2 : n_fft/2 +
-  segment]`` is the waveform target.
+* **Frame-exact segment windows** (context mode, from waveforms). Each
+  utterance is reflect-padded by n_fft/2 once on the host; an example is a
+  ``segment + n_fft - hop`` sample context window cut at a frame
+  boundary, from which the device computes ``segment/hop`` mel frames
+  with no further padding — the rows of the full-utterance mel — while
+  ``context[n_fft/2 : n_fft/2 + segment]`` is the waveform target.
+* **Paired mode** (the GTA fine-tuning recipe, JAX ``:513-660``): an
+  example is ``segment/hop`` rows of a mel from disk and the
+  ``segment`` samples they frame. ``export_gta_mels`` writes FastSpeech2's
+  teacher-forced mels from a checkpoint of the port's trainer,
+  ``load_paired_corpus`` pairs them with the wavs trimmed as the feature
+  extractor trimmed them (mel row k at sample k·hop), and
+  ``train_vocoder(pairs=...)`` fine-tunes the generator on the mels it
+  will be given at synthesis.
 * **One generator forward a step**, in JAX's order (``:277-335`` there):
   the generator's forward keeps its graph; the discriminators take their
   update on the detached ŷ; the generator's losses are taken against the
@@ -26,9 +34,9 @@ optimizers with the learning rate ×0.999 every 1000 updates (staircase).
 Deviations from the published recipe, the JAX package's own: the loss mel
 frames a segment with the Tacotron centre padding (33 frames per 8192
 samples, not 32), the convention of the generator's input mels; the first
-MSD scale has weight norm, not spectral norm. The JAX package's paired
-(GTA) mode, its lax.scan chunks (``steps_per_call``) and its retry of a
-remote TPU's transient dispatch errors are not here.
+MSD scale has weight norm, not spectral norm. The JAX package's lax.scan
+chunks (``steps_per_call``) and its retry of a remote TPU's transient
+dispatch errors are not here.
 """
 
 from __future__ import annotations
@@ -43,9 +51,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import Config, MelConfig
+from ..config import BucketConfig, Config, MelConfig
+from ..data import BucketedDataset, PreprocessedCorpus
 from ..device import resolve_device
 from ..dsp.stft import MelSTFT
+from ..models import FastSpeech2
 from ..models.hifigan import Generator, save_generator_npz
 from ..models.hifigan_disc import (
     MPD,
@@ -56,6 +66,10 @@ from ..models.hifigan_disc import (
     generator_adv_loss,
     generator_weight_norm,
 )
+from ..preprocess.preprocessor import get_alignment
+from ..preprocess.textgrid import read_textgrid
+from ..utils.wav import load_wav
+from .loop import stage_batch
 from .state import CheckpointManager
 
 
@@ -234,7 +248,17 @@ def loss_mel_of_wav(mel_loss: MelSTFT, wav: torch.Tensor) -> torch.Tensor:
     return mel_loss.log_mel(mel_loss.magnitude(wav))
 
 
-def _split_context(cfg: Config, mel_in: MelSTFT, batch: torch.Tensor):
+Batch = torch.Tensor | dict[str, torch.Tensor]
+
+
+def _mel_and_target(cfg: Config, mel_in: MelSTFT, batch: Batch,
+                    device: torch.device):
+    """(generator-input mel, waveform target) of a batch on ``device``: a
+    paired batch's ``mel`` and ``wav``, or a context batch's mel rows and
+    segment."""
+    if isinstance(batch, dict):
+        return batch["mel"].to(device), batch["wav"].to(device)
+    batch = batch.to(device)
     pre = cfg.preprocess
     half = pre.stft.filter_length // 2
     seg = cfg.vocoder_train.segment_size
@@ -252,13 +276,14 @@ def _amp(cfg: Config) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def make_vocoder_val_step(cfg: Config, device: torch.device):
     """``val_step(gen, batch) -> float``: copy-synthesis full-band mel L1
-    of the generator alone on one batch of context windows."""
+    of the generator alone on one batch, of context windows or, paired,
+    of ``{"mel", "wav"}``."""
     mel_in, mel_loss = vocoder_mels(cfg, device)
     amp = _amp(cfg)
 
     @torch.no_grad()
-    def val_step(gen: Generator, batch: torch.Tensor) -> float:
-        mel, y = _split_context(cfg, mel_in, batch.to(device))
+    def val_step(gen: Generator, batch: Batch) -> float:
+        mel, y = _mel_and_target(cfg, mel_in, batch, device)
         wav = gen(amp(mel), fast=False).to(y.dtype)
         return float(torch.mean(torch.abs(loss_mel_of_wav(mel_loss, y)
                                           - loss_mel_of_wav(mel_loss, wav))))
@@ -275,10 +300,11 @@ def make_vocoder_train_step(cfg: Config, device: torch.device,
     """``train_step(state, batch) -> VocoderLossReport``, one GAN update of
     ``state`` in place; ``batch`` is (B, segment + n_fft - hop) float32
     context windows (float64 windows and a float64 state give a float64
-    step, the yardstick of the float32 one). After it, each parameter's
-    ``.grad`` holds the gradient of its update: the discriminators' of
-    their loss, the generator's of its loss against the updated
-    discriminators.
+    step, the yardstick of the float32 one) or, in paired mode, ``{"mel":
+    (B, segment/hop, n_mels), "wav": (B, segment)}``, the mel taken as it
+    is. After it, each parameter's ``.grad`` holds the gradient of its
+    update: the discriminators' of their loss, the generator's of its loss
+    against the updated discriminators.
 
     ``mark``, when given, is called with each name of ``STEP_SPANS`` as
     that span of the step has been issued (a timer records a CUDA event
@@ -289,11 +315,11 @@ def make_vocoder_train_step(cfg: Config, device: torch.device,
     amp = _amp(cfg)
 
     def train_step(state: VocoderTrainState,
-                   batch: torch.Tensor) -> VocoderLossReport:
+                   batch: Batch) -> VocoderLossReport:
         for opt in (state.opt_g, state.opt_d):
             for group in opt.param_groups:
                 group["lr"] = vocoder_lr(cfg, state.step)
-        mel, y = _split_context(cfg, mel_in, batch.to(device))
+        mel, y = _mel_and_target(cfg, mel_in, batch, device)
 
         # One generator forward; its graph is kept for the generator's
         # update after the discriminators'.
@@ -381,8 +407,6 @@ def load_corpus_wavs(wav_dir: str, sampling_rate: int,
     """Every .wav under ``wav_dir`` (recursive, in sorted order), resampled to
     ``sampling_rate`` and peak-normalized to 0.95 as the corpus prep
     does."""
-    from ..utils.wav import load_wav
-
     paths = []
     for root, dirs, files in os.walk(wav_dir):
         dirs.sort()  # a walk order that is the same on every filesystem
@@ -408,13 +432,16 @@ def load_corpus_wavs(wav_dir: str, sampling_rate: int,
 VAL_SEED_OFFSET = 999983
 
 
-def train_vocoder(cfg: Config, wavs: list[np.ndarray], out_dir: str,
+def train_vocoder(cfg: Config, wavs: list[np.ndarray] | None, out_dir: str,
                   total_steps: int | None = None,
                   init_generator_params: dict | None = None,
+                  pairs: list | None = None,
                   device: str | torch.device = "cuda",
                   log=print) -> VocoderTrainState:
     """Run the GAN loop to ``total_steps`` (``vocoder_train.total_step``
-    by default) on ``device``, the card unless the caller asks for the CPU.
+    by default) on ``device``, the card unless the caller asks for the CPU:
+    in context mode on ``wavs``, or in paired mode on ``pairs`` (from
+    ``load_paired_corpus``) when they are given.
 
     Under ``out_dir``: checkpoints ``ckpt/<step>.pt`` every ``save_step``
     and at the end (the latest is resumed, with the sampler's seed moved on
@@ -431,18 +458,26 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray], out_dir: str,
     if ckpt.latest_step() is not None:
         load_vocoder_checkpoint(state, ckpt.load())
         log(f"restored vocoder step {state.step}")
-    sampler = SegmentSampler(cfg, wavs, seed=vcfg.seed + state.step)
-    step_fn = make_vocoder_train_step(cfg, device)
-    val_fn = make_vocoder_val_step(cfg, device)
-    val_sampler = SegmentSampler(cfg, wavs, seed=vcfg.seed + VAL_SEED_OFFSET)
-    val_batches = [torch.from_numpy(val_sampler.sample(vcfg.batch_size))
-                   for _ in range(4)]
 
-    def stage(a: np.ndarray) -> torch.Tensor:
+    def make_sampler(seed: int):
+        if pairs is not None:
+            return PairedSegmentSampler(cfg, pairs, seed=seed)
+        return SegmentSampler(cfg, wavs, seed=seed)
+
+    def stage(a):
+        if isinstance(a, dict):
+            return {k: stage(v) for k, v in a.items()}
         t = torch.from_numpy(a)
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         return t
+
+    sampler = make_sampler(vcfg.seed + state.step)
+    step_fn = make_vocoder_train_step(cfg, device)
+    val_fn = make_vocoder_val_step(cfg, device)
+    val_sampler = make_sampler(vcfg.seed + VAL_SEED_OFFSET)
+    val_batches = [stage(val_sampler.sample(vcfg.batch_size))
+                   for _ in range(4)]
 
     t0 = time.time()
     with open(os.path.join(out_dir, "metrics.jsonl"), "a") as mf:
@@ -468,3 +503,141 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray], out_dir: str,
     save_generator_npz(os.path.join(out_dir, "generator.npz"),
                        fold_weight_norm(state.gen.state_dict()))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Paired (GTA) mode: the vocoder fine-tuned on the acoustic model's
+# teacher-forced mels paired with the real waveforms (JAX :513-660).
+
+LOG_MEL_PAD = float(np.log(1e-5))  # silence in log-clamp mel space
+
+
+class PairedSegmentSampler:
+    """Random frame-aligned (mel rows, waveform segment) pairs, the same
+    ``np.random.default_rng`` draws as the JAX package's.
+
+    ``pairs`` holds (mel (F, n_mels), wav (T,)) per utterance, mel row k
+    framing the window centred at sample k·hop of ``wav``. An utterance
+    shorter than a segment is padded with log-clamp silence
+    (``LOG_MEL_PAD``) and zeros."""
+
+    def __init__(self, cfg: Config, pairs, seed: int = 0):
+        self.hop = cfg.preprocess.stft.hop_length
+        self.seg = cfg.vocoder_train.segment_size
+        self.n_frames = self.seg // self.hop
+        self.n_mels = cfg.preprocess.mel.n_mel_channels
+        self.pairs = []
+        for mel, wav in pairs:
+            mel = np.asarray(mel, np.float32)
+            wav = np.asarray(wav, np.float32)
+            if mel.shape[0] < self.n_frames:
+                mel = np.pad(mel, ((0, self.n_frames - mel.shape[0]), (0, 0)),
+                             constant_values=LOG_MEL_PAD)
+            if len(wav) < self.seg:
+                wav = np.pad(wav, (0, self.seg - len(wav)))
+            self.pairs.append((mel, wav))
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, batch_size: int) -> dict[str, np.ndarray]:
+        mels = np.empty((batch_size, self.n_frames, self.n_mels), np.float32)
+        wavs = np.empty((batch_size, self.seg), np.float32)
+        idx = self.rng.integers(0, len(self.pairs), batch_size)
+        for i, j in enumerate(idx):
+            mel, wav = self.pairs[j]
+            f_max = min(mel.shape[0] - self.n_frames,
+                        (len(wav) - self.seg) // self.hop)
+            f = int(self.rng.integers(0, max(f_max, 0) + 1))
+            mels[i] = mel[f: f + self.n_frames]
+            wavs[i] = wav[f * self.hop: f * self.hop + self.seg]
+        return {"mel": mels, "wav": wavs}
+
+
+def load_paired_corpus(cfg: Config, mel_dir: str | None = None,
+                       filenames=("train.txt",)) -> list:
+    """(mel, trimmed wav) pairs of the corpus utterances listed in
+    ``filenames``: the mels of ``mel_dir`` (a GTA export; an utterance
+    without one is left out), else the corpus' ground-truth mels. Each wav
+    is trimmed by its TextGrid as the feature extractor trimmed it, so mel
+    row k stays at sample k·hop; raises ``FileNotFoundError`` when no pair
+    is found."""
+    pre = cfg.preprocess
+    corpus = PreprocessedCorpus(pre.path.preprocessed_path)
+    in_dir = os.path.join(pre.path.raw_path, pre.path.sub_dir_name)
+    sr, hop = pre.audio.sampling_rate, pre.stft.hop_length
+    pairs = []
+    for filename in filenames:
+        for utt in corpus.metadata(filename):
+            if mel_dir:
+                mel_path = os.path.join(
+                    mel_dir, f"{utt.speaker}-mel-{utt.basename}.npy")
+                if not os.path.exists(mel_path):
+                    continue
+                mel = np.load(mel_path)
+            else:
+                mel = corpus.mel(utt)
+            tg_path = os.path.join(pre.path.preprocessed_path, "TextGrid",
+                                   utt.speaker, f"{utt.basename}.TextGrid")
+            wav_path = os.path.join(in_dir, utt.speaker,
+                                    f"{utt.basename}.wav")
+            if not (os.path.exists(tg_path) and os.path.exists(wav_path)):
+                continue
+            align = get_alignment(
+                read_textgrid(tg_path).get_tier_by_name("phones"), sr, hop)
+            wav, _ = load_wav(wav_path, sr)
+            wav = wav[int(sr * align.start): int(sr * align.end)]
+            pairs.append((mel, wav.astype(np.float32)))
+    if not pairs:
+        raise FileNotFoundError("no (mel, wav) pairs found — check "
+                                "preprocessed_path/TextGrid and raw_path")
+    return pairs
+
+
+GTA_BATCH = 8
+
+
+def export_gta_mels(cfg: Config, ckpt_dir: str, out_dir: str,
+                    filenames=("train.txt", "val.txt"),
+                    device: str | torch.device = "cuda", log=print) -> int:
+    """Teacher-forced (ground-truth-aligned) postnet mels of every corpus
+    utterance from the latest FastSpeech2 checkpoint of the port's trainer
+    under ``ckpt_dir``, written as ``<out_dir>/<speaker>-mel-<basename>
+    .npy`` with as many rows as the ground-truth mel; returns how many.
+    The forward runs on ``device`` (the card unless the caller asks for the
+    CPU) without dropout, under ``cfg.model.transformer.attention_impl``,
+    with the corpus' durations, pitch and energy as targets, in batches of
+    8 at the default buckets; a padded tail's repeated rows are written
+    once."""
+    device = resolve_device(device)
+    corpus = PreprocessedCorpus(cfg.preprocess.path.preprocessed_path)
+    model = FastSpeech2(cfg.model, cfg.preprocess, corpus.stats)
+    ckpt = CheckpointManager(ckpt_dir).load()
+    model.load_state_dict(ckpt["model"], strict=True)
+    model.to(device).eval()
+    log(f"GTA export from step {int(ckpt['step'])} checkpoint")
+
+    os.makedirs(out_dir, exist_ok=True)
+    seen: set[str] = set()
+    for filename in filenames:
+        ds = BucketedDataset(
+            corpus, filename, batch_size=GTA_BATCH, buckets=BucketConfig(),
+            max_seq_len=cfg.model.max_seq_len,
+            symbol_table=cfg.preprocess.symbol_table)
+        for batch, examples in ds.epoch_with_examples(shuffle=False):
+            b = stage_batch(batch, device, "float32")
+            with torch.inference_mode():
+                out = model(b["speakers"], b["emotions"], b["arousals"],
+                            b["valences"], b["texts"], b["src_lens"],
+                            max_mel_len=batch["mels"].shape[1],
+                            mel_lens=b["mel_lens"], p_targets=b["pitches"],
+                            e_targets=b["energies"],
+                            d_targets=b["durations"])
+            mels = out.postnet_mel.float().cpu().numpy()
+            for i, e in enumerate(examples):
+                name = f"{e.utt.speaker}-mel-{e.utt.basename}.npy"
+                if name in seen:
+                    continue
+                seen.add(name)
+                np.save(os.path.join(out_dir, name),
+                        mels[i, :int(batch["mel_lens"][i])])
+    log(f"GTA export: {len(seen)} mels -> {out_dir}")
+    return len(seen)

@@ -1,5 +1,6 @@
 """The CUDA kernels (MRF resblock, flash attention) against their plain
-versions on the card.
+versions on the card, and the paths of feature extraction and the GTA
+export there against the CPU and the math path.
 
 Marked ``gpu``; each test skips without a CUDA device. This file imports
 no JAX, so on a machine without it run it with the root conftest off:
@@ -7,12 +8,27 @@ no JAX, so on a machine without it run it with the root conftest off:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import json
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
+from expressive_fastspeech2_mandarin_tpu_torch import config as tcfg
 from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
 from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
+from expressive_fastspeech2_mandarin_tpu_torch.preprocess import Preprocessor
+from expressive_fastspeech2_mandarin_tpu_torch.train import (
+    CheckpointManager,
+    create_train_state,
+)
+from expressive_fastspeech2_mandarin_tpu_torch.train.vocoder import (
+    export_gta_mels,
+)
+
+from .port_corpus import preprocess_config, write_pipeline_corpus
 
 DIL = (1, 3, 5)
 
@@ -334,3 +350,90 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
     assert (lse[:2] - ref[:2]).abs().max().item() <= 1e-5 * ref[:2].abs().max()
     torch.testing.assert_close(out, fa.flash_mha(q, k, v, mask, 128 ** -0.5),
                                rtol=0, atol=0)
+
+
+def _preprocess(root, tg_root, raw, name, device):
+    pre = root / name
+    shutil.copytree(tg_root, pre / "TextGrid")
+    Preprocessor(preprocess_config(tcfg, raw, pre), num_workers=2,
+                 device=device).build_from_path()
+    return pre
+
+
+def _read(d, name):
+    with open(os.path.join(d, name)) as f:
+        return f.read()
+
+
+@pytest.mark.gpu
+def test_preprocessor_on_card_matches_cpu(tmp_path):
+    """The mel STFT on the card (cuFFT) against the CPU: the metadata,
+    durations and pitch equal (F0 is host numpy in both); log-mel within
+    1e-4, energy 1e-5 relative, de-normalized with each run's stats (the
+    stats' mean 1e-5 relative, their std within 1e-5 of the mean)."""
+    _cuda_or_skip()
+    raw, tg_root = write_pipeline_corpus(tmp_path)
+    card = _preprocess(tmp_path, tg_root, raw, "card", "cuda")
+    cpu = _preprocess(tmp_path, tg_root, raw, "cpu", "cpu")
+    for name in ("train.txt", "val.txt", "speakers.json", "emotions.json"):
+        assert _read(card, name) == _read(cpu, name)
+    st_card = json.loads(_read(card, "stats.json"))
+    st_cpu = json.loads(_read(cpu, "stats.json"))
+    assert st_card["pitch"] == st_cpu["pitch"]
+    # The std relative to the mean: an error of 1e-5·e in every energy e
+    # moves the std by up to 1e-5·max e, however small the std is.
+    mean, std = st_cpu["energy"][2:]
+    np.testing.assert_allclose(st_card["energy"][2], mean, rtol=1e-5)
+    assert abs(st_card["energy"][3] - std) <= 1e-5 * mean
+    names = sorted(os.listdir(cpu / "mel"))
+    assert len(names) == 13
+    for name in names:
+        for kind in ("duration", "pitch", "mel", "energy"):
+            file = name.replace("-mel-", f"-{kind}-")
+            a, b = np.load(card / kind / file), np.load(cpu / kind / file)
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if kind in ("duration", "pitch"):
+                np.testing.assert_array_equal(a, b)
+            elif kind == "mel":
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+            else:
+                e = st_card["energy"], st_cpu["energy"]
+                np.testing.assert_allclose(a * e[0][3] + e[0][2],
+                                           b * e[1][3] + e[1][2], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gta_export_flash_matches_xla_on_card(tmp_path):
+    """export_gta_mels under attention_impl "flash" (head dim 128: the
+    kernel, one launch per block and batch) against "xla" on the card,
+    within 1e-4 · max(1, peak), chip_smoke phase 3b's flash-against-math
+    mel bound."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw, tg_root = write_pipeline_corpus(tmp_path)
+    pre = _preprocess(tmp_path, tg_root, raw, "pre", "cpu")
+    stats = json.loads(_read(pre, "stats.json"))
+    outs = {}
+    for impl in ("xla", "flash"):
+        model = tcfg.ModelConfig(
+            transformer=tcfg.TransformerConfig(
+                encoder_layer=1, decoder_layer=1, attention_impl=impl),
+            n_speakers=2, n_emotions=2, n_arousals=2, n_valences=2)
+        cfg = tcfg.Config(preprocess=preprocess_config(tcfg, raw, pre),
+                          model=model)
+        if impl == "xla":
+            state = create_train_state(cfg, stats, torch.device("cpu"))
+            CheckpointManager(str(tmp_path / "ckpt")).save(0, state)
+        before = fa.launch_count
+        outs[impl] = str(tmp_path / impl)
+        assert export_gta_mels(cfg, str(tmp_path / "ckpt"), outs[impl],
+                               device="cuda", log=lambda *_: None) == 13
+        launches = fa.launch_count - before
+        assert launches == (0 if impl == "xla" else 2 * 3)  # 2 + 1 batches
+    for name in sorted(os.listdir(outs["xla"])):
+        ref = np.load(os.path.join(outs["xla"], name))
+        out = np.load(os.path.join(outs["flash"], name))
+        assert out.shape == ref.shape
+        bound = 1e-4 * max(1.0, float(np.abs(ref).max()))
+        assert float(np.abs(out - ref).max()) <= bound, name
