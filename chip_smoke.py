@@ -2005,10 +2005,11 @@ PREP_TRAIN_STEPS = 4
 GTA_VOC_STEPS = 10
 
 
-def write_esd_corpus(root: str, seed: int) -> str:
+def write_esd_corpus(root: str, seed: int,
+                     seconds: tuple[float, float] = (2.0, 6.0)) -> str:
     """An ESD-layout tree: ``<spk>/<Emotion>/<spk>_<n>.wav`` (16 kHz int16,
-    2-6 s: ``harmonic_signal`` between silent edges of low noise) and the
-    tab-separated transcripts ``<spk>/<spk>.txt``."""
+    ``seconds`` long: ``harmonic_signal`` between silent edges of low
+    noise) and the tab-separated transcripts ``<spk>/<spk>.txt``."""
     import numpy as np
 
     from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import save_wav
@@ -2024,7 +2025,7 @@ def write_esd_corpus(root: str, seed: int) -> str:
             os.makedirs(os.path.join(root, speaker, emotion))
             for k in range(ESD_UTTS):
                 base = f"{speaker}_{e * ESD_UTTS + k:06d}"
-                voiced = harmonic_signal(rng.uniform(2.0, 6.0) - ESD_LEAD
+                voiced = harmonic_signal(rng.uniform(*seconds) - ESD_LEAD
                                          - ESD_TAIL, rng, ESD_SR)
                 save_wav(os.path.join(root, speaker, emotion, f"{base}.wav"),
                          np.concatenate([edge(ESD_LEAD), voiced,
@@ -2390,6 +2391,348 @@ def phase_features_gta(smoke: Smoke, device, texts, emotions):
             "paired_ms": paired_ms}
 
 
+# Phase 10: the Quick start through the port's command lines.
+CONFIG_DIR = ROOT / "configs" / "ESD-Chinese-Singing-MFA"
+E2E_SECONDS = (2.0, 5.0)  # every batch of 16 in the 500-frame mel bucket
+E2E_TRAIN_STEPS = 20
+E2E_VOC_STEPS = 10
+B16_CADENCE = dict(log_step=5, save_step=15)  # inside chunks of 10
+E2E_TEXT = "今天天气真好"
+
+
+def _yaml_set(text: str, key: str, value) -> str:
+    """A shipped YAML file's text with the first ``key:`` line's value
+    replaced (a quoted string for a path)."""
+    import re
+
+    value = f'"{value}"' if isinstance(value, (str, Path)) else value
+    out, n = re.subn(rf"^(\s*){key}:.*$", rf"\g<1>{key}: {value}", text,
+                     count=1, flags=re.M)
+    if n != 1:
+        raise KeyError(key)
+    return out
+
+
+def e2e_configs(root: Path, esd: str, name: str = "") -> dict[str, str]:
+    """The shipped ESD triplet and train_b16.yaml with their paths moved
+    under ``root``, ``attention_impl: "flash"``, a val split of ESD_VAL
+    utterances, the vocoder's log/val/save cadences within 10 steps and
+    B16_CADENCE; the recipes (widths, batches, optimizer, steps_per_call)
+    are the shipped ones."""
+    root.mkdir(parents=True, exist_ok=True)
+    pre = (CONFIG_DIR / "preprocess.yaml").read_text()
+    lexicon = ROOT / "lexicon" / "mandarin_pinyin.dict"
+    for key, value in (("corpus_path", esd), ("raw_path", root / "raw"),
+                       ("preprocessed_path", root / "pre"),
+                       ("lexicon_path", lexicon), ("val_size", ESD_VAL)):
+        pre = _yaml_set(pre, key, value)
+    model = (CONFIG_DIR / "model.yaml").read_text().replace(
+        "transformer:\n", 'transformer:\n  attention_impl: "flash"\n', 1)
+    out = {}
+    for fname, text in (("preprocess", pre), ("model", model)):
+        out[fname] = str(root / f"{fname}{name}.yaml")
+        Path(out[fname]).write_text(text)
+    for fname, sub, extra in (
+            ("train", "", "\nvocoder_train:\n  log_step: 1\n  save_step: "
+             f"{E2E_VOC_STEPS}\n  val_step: {E2E_VOC_STEPS}\n"),
+            ("train_b16", "b16", "")):
+        text = (CONFIG_DIR / f"{fname}.yaml").read_text()
+        for key in ("ckpt_path", "log_path", "result_path"):
+            text = _yaml_set(text, key, root / sub / key.split("_")[0])
+        if sub:
+            for key, value in B16_CADENCE.items():
+                text = _yaml_set(text, key, value)
+        out[fname] = str(root / f"{fname}{name}.yaml")
+        Path(out[fname]).write_text(text + extra)
+    return out
+
+
+def run_cli(module: str, argv: list) -> tuple[str, float]:
+    """``<PKG>.cli.<module>.main(argv)`` in this process (so the launch
+    counters count); returns its standard output, also echoed, and its
+    wall seconds."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    main = importlib.import_module(f"{PKG}.cli.{module}").main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main([str(a) for a in argv])
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    lines = text.strip().splitlines()
+    shown = lines if len(lines) <= 6 else lines[:3] + ["..."] + lines[-2:]
+    for line in shown:
+        print(f"    | {line[:160]}")
+    return text, seconds
+
+
+def _json_of(text: str) -> dict:
+    return json.loads(text[text.index("{"):])
+
+
+def _metrics(path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_entry_points(smoke: Smoke, device):
+    """Phase 10: the README's Quick start through the port's CLIs, called
+    in-process by ``main(argv)`` on the card, from an ESD-layout corpus
+    written from a seed: preprocess esd → align (the aligner built from
+    native/aligner) → validate textgrids → preprocess features → validate
+    data → train (train.yaml, 20 steps) → train (train_b16.yaml:
+    steps_per_call 10) → evaluate → train-vocoder (context, then --gta) →
+    validate vocoder → synthesize (single, streamed, batch, grid) →
+    validate synth and checkpoint → pipeline --skip-train on a fresh
+    directory; and one ``python -m ...cli.synthesize`` from a cold start.
+    Returns every kernel's launches over the phase and the times."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch import align
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import chunks
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import load_wav
+
+    card_line = nvidia_smi_line()
+    dev = ["--device", str(device)]
+    times: dict[str, float] = {}
+    reset_flash_counts()
+    reset_mrf_counts()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        esd = write_esd_corpus(str(tmp / "esd"), 10, E2E_SECONDS)
+        y = e2e_configs(tmp, esd)
+        cfg = ["-p", y["preprocess"], "-m", y["model"], "-t", y["train"]]
+        b16 = ["-p", y["preprocess"], "-m", y["model"], "-t",
+               y["train_b16"]]
+        n_utts = len(ESD_SPEAKERS) * len(ESD_EMOTIONS) * ESD_UTTS
+
+        def step(name, module, argv):
+            text, times[name] = run_cli(module, argv)
+            print(f"  [{name}] {times[name]:.2f} s wall [{card_line}]",
+                  flush=True)
+            return text
+
+        step("preprocess esd", "preprocess", [
+            "esd", "--esd-root", esd, "--raw-path", tmp / "raw"])
+        t0 = time.perf_counter()
+        binary = align.ensure_built()
+        times["aligner build"] = time.perf_counter() - t0
+        print(f"  aligner built from native/aligner with g++ in "
+              f"{times['aligner build']:.2f} s -> "
+              f"{os.path.relpath(binary, ROOT)}", flush=True)
+        text = step("align", "align", ["--corpus", tmp / "raw", "--out",
+                                       tmp / "pre" / "TextGrid"])
+        smoke.check(f"aligned {n_utts} utterances (0 skipped)" in text,
+                    f"align: {n_utts} utterances aligned in "
+                    f"{times['align']:.2f} s (the build "
+                    f"{times['aligner build']:.2f} s)")
+        tg = _json_of(step("validate textgrids", "validate", [
+            "textgrids", "--textgrid-dir", tmp / "pre" / "TextGrid",
+            "--report", tmp / "tg_report.json"]))
+        smoke.check(tg["files_validated"] == n_utts and not tg["errors"]
+                    and tg["files_with_words_tier"] == n_utts,
+                    f"validate textgrids: {tg['files_validated']} files, "
+                    f"{tg['phone_type_count']} phone types, coverage "
+                    f"{tg['avg_coverage']:.3f}")
+        text = step("preprocess features", "preprocess",
+                    ["features", *cfg, *dev])
+        kept = int(text.split("wrote ")[1].split()[0])
+        data = _json_of(step("validate data", "validate", [
+            "data", "--preprocessed-path", tmp / "pre"]))
+        # The one kind of problem both packages share (ROADMAP queue 3):
+        # an interior pause the aligner marks "sp", which the pinyin
+        # table lacks, leaves one duration more than known phones.
+        with_sp = [line.split("|")[0] for f in ("train.txt", "val.txt")
+                   for line in (tmp / "pre" / f).read_text().splitlines()
+                   if " sp" in line.split("|")[2]]
+        smoke.check(kept == n_utts and data["utterances_checked"] == n_utts
+                    and data["problem_count"] == len(with_sp)
+                    and all(p.split(":")[0] in with_sp
+                            for p in data["problems"])
+                    and set(data["unknown_phones"]) <= {"sp"},
+                    f"features: {kept} of {n_utts} utterances; validate "
+                    f"data: {data['utterances_checked']} checked, "
+                    f"problems {data['problems']} (the utterances with an "
+                    f"interior sp: {with_sp})")
+
+        before = flash_counts()
+        step("train", "train", [*cfg, "--total_steps", E2E_TRAIN_STEPS,
+                                *dev])
+        launches = [a - b for a, b in zip(flash_counts(), before)]
+        n_blocks = 4 + 6
+        smoke.check(sorted(os.listdir(tmp / "ckpt")) == [
+            f"{E2E_TRAIN_STEPS}.pt"] and launches == [
+            n_blocks * E2E_TRAIN_STEPS] * 3,
+            f"train (train.yaml, flash): checkpoint {os.listdir(tmp / 'ckpt')}"
+            f", flash launches forward/dQ/dK-dV {launches} (expected "
+            f"{n_blocks * E2E_TRAIN_STEPS} each)")
+
+        # train_b16.yaml: the expected chunks, from the same batches.
+        tcfg = C.load_config(y["preprocess"], y["model"], y["train_b16"])
+        ds = BucketedDataset(
+            PreprocessedCorpus(str(tmp / "pre")), "train.txt",
+            tcfg.train.optimizer.batch_size, tcfg.train.buckets,
+            tcfg.model.max_seq_len, drop_last=True, seed=tcfg.train.seed)
+
+        def stream():
+            epoch = 0
+            while True:
+                yield from ds.epoch(epoch)
+                epoch += 1
+
+        ends, done, sizes = [], 0, []
+        spc = tcfg.train.steps_per_call
+        for group in chunks(stream(), spc):
+            n = min(len(group), E2E_TRAIN_STEPS - done)
+            done += n
+            sizes.append(n)
+            ends.append(done)
+            if done >= E2E_TRAIN_STEPS:
+                break
+
+        def crossings(every):
+            return [e for p, e in zip([0] + ends, ends)
+                    if e // every > p // every]
+
+        step("train b16", "train", [*b16, "--total_steps", E2E_TRAIN_STEPS,
+                                    *dev])
+        logged = [r["step"] for r in _metrics(tmp / "b16" / "log" / "train"
+                                              / "metrics.jsonl")]
+        saved = sorted(int(f[:-3]) for f in os.listdir(tmp / "b16" / "ckpt"))
+        want_saved = sorted(set(crossings(B16_CADENCE["save_step"])
+                                + [E2E_TRAIN_STEPS]))
+        smoke.check(spc == 10 and max(sizes) == spc
+                    and logged == crossings(B16_CADENCE["log_step"])
+                    and saved == want_saved,
+                    f"train (train_b16.yaml, steps_per_call {spc}): groups "
+                    f"{sizes}; logged at {logged}, saved at {saved} "
+                    f"(log_step {B16_CADENCE['log_step']} and save_step "
+                    f"{B16_CADENCE['save_step']} read at chunk ends: "
+                    f"{crossings(B16_CADENCE['log_step'])}, {want_saved})")
+
+        text = step("evaluate", "evaluate", [*cfg, *dev])
+        smoke.check(f"Validation at step {E2E_TRAIN_STEPS}:" in text
+                    and "nan" not in text,
+                    "evaluate: " + text.strip().splitlines()[-1])
+
+        for name, extra in (
+                ("train-vocoder", ["--out", tmp / "voc"]),
+                ("train-vocoder --gta", [
+                    "--out", tmp / "voc_gta", "--gta", tmp / "ckpt",
+                    "--init_ckpt", tmp / "voc" / "generator.npz"])):
+            out_dir = extra[1]
+            step(name, "train_vocoder", [*cfg, *extra, "--total_steps",
+                                         E2E_VOC_STEPS, *dev])
+            records = _metrics(out_dir / "metrics.jsonl")
+            steps = [r for r in records if "mel_l1" in r]
+            smoke.check([r["step"] for r in steps] == list(
+                range(1, E2E_VOC_STEPS + 1)) and all(
+                math.isfinite(r["mel_l1"]) for r in steps)
+                and (out_dir / "generator.npz").exists(),
+                f"{name}: {len(steps)} steps, mel L1 "
+                f"{[round(r['mel_l1'], 3) for r in steps]}")
+        npz = tmp / "voc_gta" / "generator.npz"
+        v = _json_of(step("validate vocoder", "validate", [
+            "vocoder", *cfg, "--vocoder-ckpt", npz, "--wav-dir",
+            tmp / "raw", *dev]))
+        quality = {k: v[f"{k}_hifigan_mean"] for k in
+                   ("mel_l1", "mcd", "f0_rmse", "vuv_error")}
+        smoke.check(len(v["files"]) == 8 and all(
+            x is not None and math.isfinite(x) for x in (
+                quality["mel_l1"], quality["mcd"], quality["vuv_error"])),
+            f"validate vocoder (copy synthesis, 8 utterances, bf16): "
+            f"{quality} [{card_line}]")
+
+        res = tmp / "result"
+        vocoder = ["--vocoder_ckpt", npz]
+        one = ["--mode", "single", "--text", E2E_TEXT, "--speaker_id",
+               "0001", "--emotion", "Happy", *vocoder]
+        step("synthesize single", "synthesize", [*cfg, *one, *dev])
+        text = step("synthesize streamed", "synthesize", [
+            *cfg, *one, "--stream_chunk_frames", 100, "--output_name",
+            "streamed", *dev])
+        step("synthesize batch", "synthesize", [
+            *cfg, "--mode", "batch", "--source", tmp / "pre" / "val.txt",
+            *vocoder, "--out_dir", tmp / "batch", *dev])
+        step("synthesize grid", "synthesize", [
+            *cfg, "--mode", "grid", "--text", E2E_TEXT, *vocoder,
+            "--out_dir", tmp / "grid", *dev])
+        single, sr = load_wav(str(res / "synthesis_0001_Happy.wav"), None)
+        streamed, _ = load_wav(str(res / "streamed.wav"), None)
+        n_batch = len(list((tmp / "batch").glob("*.wav")))
+        n_grid = len(list((tmp / "grid").glob("grid_*.wav")))
+        smoke.check(sr == 22050 and single.size > 0
+                    and streamed.size == single.size
+                    and n_batch == ESD_VAL
+                    and n_grid == len(ESD_SPEAKERS) * len(ESD_EMOTIONS),
+                    f"synthesize: single {single.size / sr:.2f} s, streamed "
+                    f"in {text.count('chunk ')} chunks, batch {n_batch} "
+                    f"wavs, grid {n_grid} wavs")
+        health = _json_of(step("validate synth", "validate", [
+            "synth", "--result-dir", res]))
+        ck = _json_of(step("validate checkpoint", "validate",
+                           ["checkpoint", *cfg]))
+        smoke.check(health["n_files"] == 2 and ck["ok"]
+                    and ck["step"] == E2E_TRAIN_STEPS,
+                    f"validate synth: {health['n_files']} files, "
+                    f"{health['warnings']} warnings; validate checkpoint: "
+                    f"{ck}")
+        counted = {"flash_mha": flash_counts()[0],
+                   "flash_mha_bwd_dq": flash_counts()[1],
+                   "flash_mha_bwd_dkv": flash_counts()[2],
+                   "mrf_resblock": mrf_counts()[0]}
+
+        y2 = e2e_configs(tmp / "fresh", esd, "_fresh")
+        text = step("pipeline --skip-train", "pipeline", [
+            "-p", y2["preprocess"], "-m", y2["model"], "-t", y2["train"],
+            "--skip-train", *dev])
+        pre2 = tmp / "fresh" / "pre"
+        smoke.check("[4/4] training: skipped" in text
+                    and (pre2 / "train.txt").exists()
+                    and len(list(pre2.glob("TextGrid/*/*.TextGrid")))
+                    == n_utts,
+                    f"pipeline --skip-train on a fresh directory: corpus "
+                    f"prep, alignment, features in "
+                    f"{times['pipeline --skip-train']:.2f} s")
+
+        # A cold start: a new process from its launch to the wav on disk.
+        cold = tmp / "cold"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli.synthesize", *cfg, *one,
+             "--out_dir", cold, *dev], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            capture_output=True, text=True, timeout=600)
+        times["cold synthesize"] = time.perf_counter() - t0
+        wav = cold / "synthesis_0001_Happy.wav"
+        smoke.check(proc.returncode == 0 and wav.exists(),
+                    f"python -m {PKG}.cli.synthesize from a cold start: "
+                    f"{times['cold synthesize']:.2f} s to the wav "
+                    f"[{card_line}]" + (f"\n{proc.stderr[-2000:]}"
+                                        if proc.returncode else ""))
+        if proc.returncode == 0:
+            a, _ = load_wav(str(wav), None)
+            smoke.check(np.array_equal(a.shape, single.shape),
+                        "cold-start wav as long as the in-process one")
+    smoke.check(all(n > 0 for n in counted.values()),
+                f"kernel launches over phase 10's CLIs: {counted}")
+    print("  phase 10 wall times: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in times.items()) + f" [{card_line}]")
+    return {"launches": counted, "times": times, "quality": quality}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").exists():
         print(f"chip_smoke: the package {PKG} is not beside this script",
@@ -2444,11 +2787,14 @@ def main() -> int:
     features = smoke.phase("9. feature extraction and GTA fine-tuning at "
                            "full width", phase_features_gta, smoke, device,
                            TEXTS, EMOTIONS)
+    entry = smoke.phase("10. entry points: the Quick start through the "
+                        "CLIs", phase_entry_points, smoke, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if (smoke.failures or None in (worst, worst_flash, worst_long,
                                    flash_launches, totals, flash_row,
                                    worst_bwd, train_launches, bwd_rows,
-                                   dsp, voc_launches, voc_times, features)):
+                                   dsp, voc_launches, voc_times, features,
+                                   entry)):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
               file=sys.stderr)
         return 1
@@ -2460,7 +2806,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/mrf_resblock.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "mrf_resblock.py:185",
-        "launches": launches,
+        "launches": launches + entry["launches"]["mrf_resblock"],
         "max_abs_err": max(worst, worst_long),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -2474,7 +2820,8 @@ def main() -> int:
         "source": f"{PKG}/csrc/flash_mha.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "flash_mha.py:53",
-        "launches": train_launches[0] + features["launches"]["flash_mha"],
+        "launches": (train_launches[0] + features["launches"]["flash_mha"]
+                     + entry["launches"]["flash_mha"]),
         "max_abs_err": worst_flash,
         **flash_row,
     }, {
@@ -2482,7 +2829,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_mha_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-        "launches": train_launches[1],
+        "launches": train_launches[1] + entry["launches"]["flash_mha_bwd_dq"],
         "max_abs_err": worst_bwd[0],
         **bwd_rows["dq"],
     }, {
@@ -2490,7 +2837,8 @@ def main() -> int:
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_mha_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-        "launches": train_launches[2],
+        "launches": (train_launches[2]
+                     + entry["launches"]["flash_mha_bwd_dkv"]),
         "max_abs_err": worst_bwd[1],
         **bwd_rows["dkv"],
     }]

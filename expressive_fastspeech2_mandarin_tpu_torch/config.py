@@ -6,14 +6,26 @@ variance features under ``PreprocessConfig``; transformer, variance and
 vocoder sizes under ``ModelConfig``; optimizer, cadence and buckets under
 ``TrainConfig``; the GAN recipe under ``VocoderTrainConfig`` — with the
 same field names and defaults, so a configuration reads the same in both
-packages. Training values that only mean something on a TPU (scan chunks,
-a model-parallel mesh, XLA matmul precision, the JAX profiler, the packed
-generator) raise ``ValueError``. There is no YAML loader yet.
+packages. Training values that only mean something on a TPU (a
+model-parallel mesh, XLA matmul precision, the JAX profiler, the packed
+generator, the vocoder's scan chunks) raise ``ValueError``.
+
+``load_config(p, m, t)`` reads the reference's three YAML files (``-p/-m/
+-t``) through ``utils.yaml_reader``, which resolves their scalars as
+PyYAML's ``safe_load`` does, and sizes the speaker and emotion tables
+from ``speakers.json``/``emotions.json`` of the preprocessed corpus when
+they are there; the JAX package's ``config.py:311-513``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
+from typing import Any
+
+from .utils import yaml_reader
 
 
 @dataclass(frozen=True)
@@ -206,8 +218,10 @@ class TrainConfig:
     # "bfloat16": forward and backward on a bf16 copy of the float32
     # master parameters; "float32" keeps full precision.
     amp_dtype: str = "float32"
-    # Optimizer steps per host dispatch (a lax.scan chunk on the TPU); the
-    # port takes only 1.
+    # Optimizer steps grouped into a chunk of consecutive same-bucket
+    # batches (a lax.scan on the TPU; eager steps here): the log, val,
+    # synth and save cadences are checked at chunk ends, and a chunk's
+    # logged losses are its steps' mean.
     steps_per_call: int = 1
     # Mel-target staging for the host → device copy: "int16" (per-utterance
     # affine quantization), "bfloat16" or "float32".
@@ -220,8 +234,6 @@ class TrainConfig:
 
     def __post_init__(self):
         tpu_only = [
-            (self.steps_per_call > 1, f"steps_per_call={self.steps_per_call}"
-             " (lax.scan chunks of optimizer steps)"),
             (self.mesh.model_parallel_size > 1,
              f"mesh.model_parallel_size={self.mesh.model_parallel_size} "
              "(a model-parallel TPU mesh)"),
@@ -236,6 +248,9 @@ class TrainConfig:
             if bad:
                 raise ValueError(f"{what} is a TPU setting the PyTorch port "
                                  f"does not take; leave it at its default")
+        if self.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got "
+                             f"{self.steps_per_call}")
         if self.amp_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"amp_dtype must be float32 or bfloat16, got "
                              f"{self.amp_dtype!r}")
@@ -270,8 +285,8 @@ class VocoderTrainConfig:
     # The JAX package's packed generator (TPU lane packing); the port takes
     # only False.
     packed_generator: bool = False
-    # Optimizer steps per host dispatch (a lax.scan chunk on the TPU); the
-    # port takes only 1.
+    # GAN steps per host dispatch (a lax.scan chunk on the TPU); the port
+    # takes only 1 (ROADMAP queue 1).
     steps_per_call: int = 1
     total_step: int = 400000
     log_step: int = 100
@@ -280,10 +295,10 @@ class VocoderTrainConfig:
 
     def __post_init__(self):
         tpu_only = [
-            (self.packed_generator, "packed_generator=True (the TPU's "
-             "lane-packed generator layout)"),
-            (self.steps_per_call > 1, f"steps_per_call={self.steps_per_call}"
-             " (lax.scan chunks of optimizer steps)"),
+            (self.packed_generator, "vocoder_train.packed_generator=True "
+             "(the TPU's lane-packed generator layout)"),
+            (self.steps_per_call > 1, "vocoder_train.steps_per_call="
+             f"{self.steps_per_call} (lax.scan chunks of GAN steps)"),
         ]
         for bad, what in tpu_only:
             if bad:
@@ -301,3 +316,207 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     vocoder_train: VocoderTrainConfig = field(
         default_factory=VocoderTrainConfig)
+
+
+# ---------------------------------------------------------------------------
+# The reference's YAML files
+
+
+def _get(d: dict, *keys, default=None):
+    for k in keys:
+        if not isinstance(d, dict) or k not in d:
+            return default
+        d = d[k]
+    return d
+
+
+def preprocess_config_from_dict(d: dict[str, Any]) -> PreprocessConfig:
+    p = d.get("preprocessing", {})
+    return PreprocessConfig(
+        dataset=d.get("dataset", "ESD-Chinese-Singing-MFA"),
+        path=PathConfig(
+            corpus_path=_get(d, "path", "corpus_path", default=""),
+            lexicon_path=_get(d, "path", "lexicon_path", default=""),
+            raw_path=_get(d, "path", "raw_path", default=""),
+            preprocessed_path=_get(d, "path", "preprocessed_path", default=""),
+            sub_dir_name=_get(d, "path", "sub_dir_name", default=""),
+            fixed_text_path=_get(d, "path", "fixed_text_path", default=""),
+        ),
+        val_size=_get(p, "val_size", default=512),
+        text_cleaners=tuple(_get(p, "text", "text_cleaners",
+                                 default=["basic_cleaners"])),
+        language=_get(p, "text", "language", default="zh"),
+        symbol_table=_get(p, "text", "symbol_table", default="pinyin"),
+        audio=AudioConfig(
+            sampling_rate=_get(p, "audio", "sampling_rate", default=22050),
+            max_wav_value=_get(p, "audio", "max_wav_value", default=32768.0),
+        ),
+        stft=STFTConfig(
+            filter_length=_get(p, "stft", "filter_length", default=1024),
+            hop_length=_get(p, "stft", "hop_length", default=256),
+            win_length=_get(p, "stft", "win_length", default=1024),
+        ),
+        mel=MelConfig(
+            n_mel_channels=_get(p, "mel", "n_mel_channels", default=80),
+            mel_fmin=float(_get(p, "mel", "mel_fmin", default=0)),
+            mel_fmax=float(_get(p, "mel", "mel_fmax", default=8000)),
+        ),
+        pitch=VarianceFeatureConfig(
+            feature=_get(p, "pitch", "feature", default="phoneme_level"),
+            normalization=_get(p, "pitch", "normalization", default=True),
+        ),
+        energy=VarianceFeatureConfig(
+            feature=_get(p, "energy", "feature", default="phoneme_level"),
+            normalization=_get(p, "energy", "normalization", default=True),
+        ),
+    )
+
+
+def model_config_from_dict(d: dict[str, Any], **overrides) -> ModelConfig:
+    t = d.get("transformer", {})
+    vp = d.get("variance_predictor", {})
+    ve = d.get("variance_embedding", {})
+    vo = d.get("vocoder", {})
+    kwargs: dict[str, Any] = dict(
+        transformer=TransformerConfig(
+            encoder_layer=t.get("encoder_layer", 4),
+            encoder_head=t.get("encoder_head", 2),
+            encoder_hidden=t.get("encoder_hidden", 256),
+            decoder_layer=t.get("decoder_layer", 6),
+            decoder_head=t.get("decoder_head", 2),
+            decoder_hidden=t.get("decoder_hidden", 256),
+            conv_filter_size=t.get("conv_filter_size", 1024),
+            conv_kernel_size=tuple(t.get("conv_kernel_size", (9, 1))),
+            encoder_dropout=t.get("encoder_dropout", 0.2),
+            decoder_dropout=t.get("decoder_dropout", 0.2),
+            attention_impl=t.get("attention_impl", "auto"),
+        ),
+        variance_predictor=VariancePredictorConfig(
+            filter_size=vp.get("filter_size", 256),
+            kernel_size=vp.get("kernel_size", 3),
+            dropout=vp.get("dropout", 0.5),
+        ),
+        variance_embedding=VarianceEmbeddingConfig(
+            pitch_quantization=ve.get("pitch_quantization", "linear"),
+            energy_quantization=ve.get("energy_quantization", "linear"),
+            n_bins=ve.get("n_bins", 256),
+        ),
+        multi_speaker=d.get("multi_speaker", True),
+        multi_emotion=d.get("multi_emotion", True),
+        max_seq_len=d.get("max_seq_len", 2000),
+        replicate_energy_control_bug=d.get(
+            "replicate_energy_control_bug", True),
+        padding_inert=d.get("padding_inert", True),
+        vocoder=VocoderConfig(
+            model=vo.get("model", "HiFi-GAN"),
+            speaker=vo.get("speaker", "universal"),
+            ckpt_path=vo.get("ckpt_path", ""),
+        ),
+    )
+    kwargs.update(overrides)
+    return ModelConfig(**kwargs)
+
+
+def train_config_from_dict(d: dict[str, Any], **overrides) -> TrainConfig:
+    o = d.get("optimizer", {})
+    s = d.get("step", {})
+    kwargs: dict[str, Any] = dict(
+        path=PathConfig(
+            ckpt_path=_get(d, "path", "ckpt_path", default=""),
+            log_path=_get(d, "path", "log_path", default=""),
+            result_path=_get(d, "path", "result_path", default=""),
+        ),
+        optimizer=OptimizerConfig(
+            batch_size=o.get("batch_size", 4),
+            betas=tuple(o.get("betas", (0.9, 0.98))),
+            eps=float(o.get("eps", 1e-9)),
+            weight_decay=float(o.get("weight_decay", 0.0)),
+            grad_clip_thresh=float(o.get("grad_clip_thresh", 1.0)),
+            grad_acc_step=o.get("grad_acc_step", 1),
+            warm_up_step=o.get("warm_up_step", 4000),
+            anneal_steps=tuple(o.get("anneal_steps",
+                                     (300000, 400000, 500000))),
+            anneal_rate=float(o.get("anneal_rate", 0.3)),
+            lr_scale=float(o.get("lr_scale", 1.0)),
+        ),
+        step=StepConfig(
+            total_step=s.get("total_step", 900000),
+            log_step=s.get("log_step", 100),
+            synth_step=s.get("synth_step", 1000),
+            val_step=s.get("val_step", 1000),
+            save_step=s.get("save_step", 100000),
+        ),
+        steps_per_call=d.get("steps_per_call", 1),
+        matmul_precision=d.get("matmul_precision", "default"),
+        transfer_dtype=d.get("transfer_dtype", "int16"),
+        amp_dtype=d.get("amp_dtype", "float32"),
+        prefetch_chunks=d.get("prefetch_chunks", 2),
+    )
+    kwargs.update(overrides)
+    return TrainConfig(**kwargs)
+
+
+def vocoder_train_config_from_dict(d: dict[str, Any],
+                                   **overrides) -> VocoderTrainConfig:
+    """The optional ``vocoder_train:`` section of train.yaml, with the
+    reference's hifigan/config.json names where it has one (batch_size,
+    learning_rate, adam_b1/b2, lr_decay, segment_size)."""
+    kwargs: dict[str, Any] = dict(
+        batch_size=d.get("batch_size", 16),
+        segment_size=d.get("segment_size", 8192),
+        learning_rate=float(d.get("learning_rate", 2e-4)),
+        adam_betas=(float(d.get("adam_b1", 0.8)),
+                    float(d.get("adam_b2", 0.99))),
+        weight_decay=float(d.get("weight_decay", 0.01)),
+        lr_decay=float(d.get("lr_decay", 0.999)),
+        lr_decay_steps=d.get("lr_decay_steps", 1000),
+        mel_loss_weight=float(d.get("mel_loss_weight", 45.0)),
+        mpd_periods=tuple(d.get("mpd_periods", (2, 3, 5, 7, 11))),
+        msd_scales=d.get("msd_scales", 3),
+        seed=d.get("seed", 1234),
+        amp_dtype=d.get("amp_dtype", "float32"),
+        packed_generator=d.get("packed_generator", False),
+        steps_per_call=d.get("steps_per_call", 1),
+        total_step=d.get("total_step", 400000),
+        log_step=d.get("log_step", 100),
+        save_step=d.get("save_step", 10000),
+        val_step=d.get("val_step", 5000),
+    )
+    kwargs.update(overrides)
+    return VocoderTrainConfig(**kwargs)
+
+
+def load_config(preprocess_yaml: str, model_yaml: str, train_yaml: str,
+                **model_overrides) -> Config:
+    """The reference's configuration triplet from its three YAML files."""
+    p = yaml_reader.load(preprocess_yaml) or {}
+    m = yaml_reader.load(model_yaml) or {}
+    t = yaml_reader.load(train_yaml) or {}
+    pc = preprocess_config_from_dict(p)
+    # The speaker and emotion tables are sized from the preprocessed
+    # corpus' maps when they exist (reference: model/fastspeech2.py:30-67).
+    overrides = dict(model_overrides)
+    meta = pc.path.preprocessed_path
+    if meta and os.path.isdir(meta):
+        spk = os.path.join(meta, "speakers.json")
+        emo = os.path.join(meta, "emotions.json")
+        if os.path.exists(spk) and "n_speakers" not in overrides:
+            with open(spk) as f:
+                overrides["n_speakers"] = len(json.load(f))
+        if os.path.exists(emo) and "n_emotions" not in overrides:
+            with open(emo) as f:
+                raw = json.load(f)
+            overrides["n_emotions"] = len(raw["emotion_dict"])
+            overrides["n_arousals"] = len(raw["arousal_dict"])
+            overrides["n_valences"] = len(raw["valence_dict"])
+    return Config(
+        preprocess=pc,
+        model=model_config_from_dict(m, **overrides),
+        train=train_config_from_dict(t),
+        vocoder_train=vocoder_train_config_from_dict(
+            t.get("vocoder_train") or {}),
+    )
+
+
+def config_to_dict(cfg: Config) -> dict[str, Any]:
+    return dataclasses.asdict(cfg)

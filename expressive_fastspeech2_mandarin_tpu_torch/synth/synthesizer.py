@@ -71,6 +71,16 @@ class SynthesisResult:
     sampling_rate: int
 
 
+def _corpus_maps(cfg: Config, preprocessed_path: str | None):
+    """(stats, speaker map, emotion maps) of the preprocessed corpus, or
+    Nones when its directory does not exist."""
+    path = preprocessed_path or cfg.preprocess.path.preprocessed_path
+    if not (path and os.path.isdir(path)):
+        return None, None, None
+    corpus = PreprocessedCorpus(path)
+    return corpus.stats, corpus.speaker_map, corpus.emotion_maps
+
+
 class Synthesizer:
     """``fs2_state``, ``vocoder_state`` (HiFi-GAN) and ``melgan_state`` are
     state dicts under the port's names (``interop.from_jax`` makes them from
@@ -123,15 +133,34 @@ class Synthesizer:
         (``{"generator": state_dict}``, weight norm folded) or a native
         ``generator.npz``; speaker and emotion maps and stats from the
         preprocessed directory when it exists."""
-        stats = speaker_map = emotion_maps = None
-        path = preprocessed_path or cfg.preprocess.path.preprocessed_path
-        if path and os.path.isdir(path):
-            corpus = PreprocessedCorpus(path)
-            stats = corpus.stats
-            speaker_map = corpus.speaker_map
-            emotion_maps = corpus.emotion_maps
+        stats, speaker_map, emotion_maps = _corpus_maps(cfg,
+                                                        preprocessed_path)
         fs2 = fastspeech2_checkpoint_state(
             load_torch_state_dict(model_ckpt, key="model"), cfg.model, stats)
+        voc = load_vocoder_state(vocoder_ckpt) if vocoder_ckpt else None
+        return cls(cfg, fs2, voc, stats, speaker_map, emotion_maps,
+                   device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        cfg: Config,
+        ckpt_dir: str,
+        vocoder_ckpt: str | None = None,
+        preprocessed_path: str | None = None,
+        step: int | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "Synthesizer":
+        """A checkpoint of the port's own trainer (``<ckpt_dir>/<step>.pt``
+        of ``train.CheckpointManager``, the latest unless ``step`` is
+        given; the JAX package's ``from_orbax``) and a HiFi-GAN generator
+        as ``from_torch_checkpoint`` takes it; maps and stats from the
+        preprocessed directory when it exists."""
+        from ..train.state import CheckpointManager
+
+        stats, speaker_map, emotion_maps = _corpus_maps(cfg,
+                                                        preprocessed_path)
+        fs2 = CheckpointManager(ckpt_dir).load(step)["model"]
         voc = load_vocoder_state(vocoder_ckpt) if vocoder_ckpt else None
         return cls(cfg, fs2, voc, stats, speaker_map, emotion_maps,
                    device=device)

@@ -15,7 +15,14 @@ utterance, predicted and ground truth, vocoded by ``SampleVocoder``
 ``step<N>_{predicted,reconstructed}.wav``; a checkpoint every
 ``save_step`` and at the end.
 
-Each batch is staged ahead of the running step (``prefetch_chunks``): the
+With ``steps_per_call`` > 1, consecutive batches of one bucket run as
+chunks of that many steps (``chunks``), as the JAX package's scanned
+steps do: each step stays one eager step, the cadences are checked when a
+chunk ends (a crossing, since a chunk may step past a multiple), a chunk
+logs its steps' mean losses, and the last group is cut so the run stops
+at ``total_steps``.
+
+Each group is staged ahead of the running one (``prefetch_chunks``): the
 mel targets, most of a batch's bytes, are encoded on the host
 (``transfer_dtype``: int16 per-utterance affine quantization, bf16 or
 float32) and every array is copied host → device from pinned memory with
@@ -27,7 +34,7 @@ from __future__ import annotations
 import math
 import os
 from collections import deque
-from collections.abc import Iterator
+from collections.abc import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -82,6 +89,41 @@ def stage_batch(batch: dict[str, np.ndarray], device: torch.device,
             t = t.pin_memory().to(device, non_blocking=True)
         staged[key] = t
     return staged
+
+
+def chunks(batches: Iterable[dict], spc: int) -> Iterator[list[dict]]:
+    """Consecutive batches of one (source, mel) bucket grouped in chunks of
+    ``spc``; a bucket change lets the pending batches through one by one
+    (the JAX package's ``_chunks``, ``train/loop.py:166-188``)."""
+    pending: list[dict] = []
+
+    def key(b: dict):
+        return (b["texts"].shape, b["mels"].shape)
+
+    for b in batches:
+        if spc == 1:
+            yield [b]
+            continue
+        if pending and key(pending[0]) != key(b):
+            while pending:
+                yield pending[:1]
+                pending = pending[1:]
+        pending.append(b)
+        if len(pending) == spc:
+            yield pending
+            pending = []
+    while pending:
+        yield pending[:1]
+        pending = pending[1:]
+
+
+def chunk_report(reports: list[LossReport], spc: int) -> LossReport:
+    """The report a group logs: a whole chunk's mean, as the JAX package's
+    scanned step returns it; a group of one (a bucket change or the
+    trimmed end) its own."""
+    if spc > 1 and len(reports) == spc:
+        return LossReport(*(torch.stack(xs).mean() for xs in zip(*reports)))
+    return reports[-1]
 
 
 def evaluate(model, val_ds: BucketedDataset, cfg: Config,
@@ -157,32 +199,51 @@ def train(cfg: Config, restore_step: int | None = None,
     sampler = SampleVocoder(cfg, device)
     print(f"sample vocoder: {sampler.kind}")
 
-    def batches() -> Iterator[Batch]:
+    def batches() -> Iterator[dict[str, np.ndarray]]:
         epoch = 0
         while True:
-            for batch in train_ds.epoch(epoch):
-                yield stage_batch(batch, device, tc.transfer_dtype)
+            yield from train_ds.epoch(epoch)
             epoch += 1
+
+    def staged_groups() -> Iterator[list[Batch]]:
+        """Groups of staged batches, trimmed so the run stops at
+        ``total``."""
+        budget = total - state.step
+        for group in chunks(batches(), tc.steps_per_call):
+            if budget <= 0:
+                return
+            group = group[:budget]
+            budget -= len(group)
+            yield [stage_batch(b, device, tc.transfer_dtype) for b in group]
 
     log_dir = tc.path.log_path or "output/log"
     logger = TrainLogger(os.path.join(log_dir, "train"))
     val_logger = TrainLogger(os.path.join(log_dir, "val"))
     try:
-        stream = batches()
-        staged: deque[Batch] = deque()
-        while state.step < total:
+        stream = staged_groups()
+        staged: deque[list[Batch]] = deque()
+        while True:
             while len(staged) <= max(0, tc.prefetch_chunks):
-                staged.append(next(stream))
+                group = next(stream, None)
+                if group is None:
+                    break
+                staged.append(group)
+            if not staged:
+                break
+            group = staged.popleft()
             prev = state.step
-            report = train_step(state, staged.popleft(), cfg)
+            reports = [train_step(state, b, cfg) for b in group]
+            for _ in group:
+                logger.tick()
             step = state.step
-            logger.tick()
 
             def crossed(every: int) -> bool:
+                # A chunk may step past an exact multiple.
                 return step // every > prev // every
 
             if crossed(s.log_step):
-                losses = _report_dict(report)
+                losses = _report_dict(chunk_report(
+                    reports, tc.steps_per_call))
                 losses["steps_per_sec"] = logger.steps_per_sec
                 logger.log_losses(step, losses)
                 if not math.isfinite(losses["total_loss"]):

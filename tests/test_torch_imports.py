@@ -1,11 +1,15 @@
-"""The PyTorch port imports neither JAX nor the JAX package, and the
-feature extractor's pool workers never touch CUDA."""
+"""The PyTorch port imports neither JAX nor the JAX package, nor names its
+dotted module path in a string (a subprocess's ``-m`` target, say); the
+feature extractor's pool workers never touch CUDA; every port command line
+offers each option of its JAX counterpart."""
 
 import os
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "expressive_fastspeech2_mandarin_tpu_torch"
@@ -44,6 +48,82 @@ def test_port_sources_name_no_jax_module():
                 f"{path.relative_to(ROOT)} imports {name}")
 
 
+_JAX_DOTTED = re.compile(r"expressive_fastspeech2_mandarin_tpu\.[\w.]*")
+
+
+def test_port_sources_name_no_jax_module_path_in_strings():
+    """``expressive_fastspeech2_mandarin_tpu.`` (the JAX package's dotted
+    path; the port's own is ``..._tpu_torch.``) appears nowhere in the
+    port's sources or chip_smoke.py, in code, strings or comments."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = [(str(p.relative_to(ROOT)), m)
+             for p in files for m in _JAX_DOTTED.findall(p.read_text())]
+    assert not found, found
+    assert _JAX_DOTTED.search("expressive_fastspeech2_mandarin_tpu.cli.x")
+    assert not _JAX_DOTTED.search("expressive_fastspeech2_mandarin_tpu_torch"
+                                  ".cli.preprocess")
+
+
+CLIS = {"align": [[]], "evaluate": [[]], "ipa": [["harvest"], ["reencode"]],
+        "pipeline": [[]], "preprocess": [["features"], ["esd"], ["resample"]],
+        "synthesize": [[]], "train": [[]], "train_vocoder": [[]],
+        "validate": [["textgrids"], ["data"], ["checkpoint"], ["vocoder"],
+                     ["synth"]]}
+
+# Runs each JAX CLI's main() on --help in one process (they exit before
+# they import jax) and prints {"<cli> <sub>": help text}.
+_JAX_HELPS = """
+import contextlib, importlib, io, json, sys
+clis = json.loads(sys.argv[1])
+out = {}
+for name, subs in clis.items():
+    mod = importlib.import_module(
+        "expressive_fastspeech2_mandarin_tpu.cli." + name)
+    for sub in subs:
+        sys.argv = [name, *sub, "--help"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                mod.main()
+            except SystemExit:
+                pass
+        out[" ".join([name, *sub])] = buf.getvalue()
+print(json.dumps(out))
+"""
+_OPTION = re.compile(r"(?<![\w-])(--?[A-Za-z][\w-]*)")
+
+
+def _options(help_text: str) -> set[str]:
+    return set(_OPTION.findall(help_text.split("options:", 1)[-1]))
+
+
+def test_every_port_cli_offers_the_jax_clis_options():
+    import contextlib
+    import importlib
+    import io
+    import json
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _JAX_HELPS,
+                          json.dumps(CLIS)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    jax_helps = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(jax_helps) == sum(len(v) for v in CLIS.values())
+    for name, subs in CLIS.items():
+        mod = importlib.import_module(
+            f"expressive_fastspeech2_mandarin_tpu_torch.cli.{name}")
+        for sub in subs:
+            key = " ".join([name, *sub])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+                mod.main([*sub, "--help"])
+            ref = _options(jax_helps[key])
+            assert len(ref) >= 2, key
+            missing = ref - _options(buf.getvalue())
+            assert not missing, (key, missing)
+
+
 def test_walk_covers_every_slice_module():
     """The import check above walks these modules of every slice."""
     import pkgutil
@@ -61,7 +141,11 @@ def test_walk_covers_every_slice_module():
                 "models.melgan", "models.hifigan_disc", "models.layers",
                 "train.vocoder", "train.sampling", "dsp.pitch",
                 "preprocess.textgrid", "preprocess.preprocessor",
-                "preprocess.esd", "preprocess.ipa_harvest"):
+                "preprocess.esd", "preprocess.ipa_harvest",
+                "utils.yaml_reader", "dsp.quality", "align", "cli.common",
+                "cli.align", "cli.evaluate", "cli.ipa", "cli.pipeline",
+                "cli.preprocess", "cli.synthesize", "cli.train",
+                "cli.train_vocoder", "cli.validate"):
         assert f"{port.__name__}.{mod}" in names, mod
 
 

@@ -1,8 +1,10 @@
 """The port's training entry point, ``train(cfg, total_steps=...)``, on the
 CPU over a synthetic preprocessed corpus (tests/corpus_util.py): losses,
 checkpoints and resume, the sample-synthesis cadence and its audio, the NaN
-abort, the TPU-only settings, and the bucketed batches against the JAX
-package's; ``SampleVocoder`` (Griffin-Lim, and HiFi-GAN from a
+abort, the TPU-only settings (``steps_per_call`` > 1 is not one since it
+runs chunks: tests/test_torch_train_chunks.py), the bucketed batches
+against the JAX package's, ``Synthesizer.from_checkpoint`` on ``train()``'s
+checkpoints; ``SampleVocoder`` (Griffin-Lim, and HiFi-GAN from a
 ``generator.npz``) against the JAX package's, in float32: Griffin-Lim from
 JAX's phase within 1e-5 · peak (20 iterations, tests/test_torch_dsp.py),
 HiFi-GAN within 5e-4 (tests/test_torch_hifigan.py)."""
@@ -117,7 +119,7 @@ def test_nan_loss_writes_emergency_checkpoint_and_raises(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("steps_per_call", 4), ("matmul_precision", "highest"),
+    ("matmul_precision", "highest"),
     ("profile_start_step", 10),
     ("mesh", tcfg.MeshConfig(model_parallel_size=2))])
 def test_tpu_only_train_settings_raise(field, value):
@@ -223,3 +225,56 @@ def test_sample_vocoder_hifigan_from_generator_npz_matches_jax(tmp_path):
     out = sampler.vocode(mel, 37)
     assert out.shape == ref.shape == (37 * 256,)
     assert np.abs(out - ref).max() < 5e-4
+
+
+def test_synthesizer_from_checkpoint_equals_the_state_dict(tmp_path):
+    """``Synthesizer.from_checkpoint`` on ``train()``'s checkpoints (the
+    latest, and one by ``step``) synthesizes exactly what a Synthesizer
+    built from the same state dict does, HiFi-GAN from a ``generator.npz``
+    either way."""
+    from expressive_fastspeech2_mandarin_tpu_torch.interop import (
+        load_vocoder_state,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.models import Generator
+    from expressive_fastspeech2_mandarin_tpu_torch.models.hifigan import (
+        save_generator_npz,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=16)
+    cfg = _cfg(corpus, str(tmp_path / "out"),
+               step=tcfg.StepConfig(total_step=4, log_step=100,
+                                    synth_step=100, val_step=100,
+                                    save_step=2))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, vocoder=tcfg.VocoderConfig(upsample_initial_channel=32,
+                                              compute_dtype="float32")))
+    state = train(cfg, device="cpu")
+    torch.manual_seed(3)
+    npz = str(tmp_path / "generator.npz")
+    save_generator_npz(npz, Generator(cfg.model.vocoder).state_dict())
+    ckpt_dir = cfg.train.path.ckpt_path
+    corp = PreprocessedCorpus(corpus)
+    texts = ["{b a n zh ong}", "{i a n}"]
+
+    def run(synth):
+        return synth.synthesize(texts, ["0001", "0002"], ["Happy", "Sad"],
+                                max_mel_len=64)
+
+    loaded = run(Synthesizer.from_checkpoint(cfg, ckpt_dir, npz,
+                                             device="cpu"))
+    ref = run(Synthesizer(cfg, state.model.state_dict(),
+                          load_vocoder_state(npz), corp.stats,
+                          corp.speaker_map, corp.emotion_maps, device="cpu"))
+    for a, b in zip(loaded, ref, strict=True):
+        assert a.mel.shape[0] > 0
+        np.testing.assert_array_equal(a.durations, b.durations)
+        np.testing.assert_array_equal(a.mel, b.mel)
+        np.testing.assert_array_equal(a.wav, b.wav)
+    at_two = Synthesizer.from_checkpoint(cfg, ckpt_dir, npz, step=2,
+                                         device="cpu")
+    sd = at_two.model.state_dict()
+    saved = CheckpointManager(ckpt_dir).load(2)["model"]
+    assert all(torch.equal(sd[k], saved[k]) for k in saved)
+    assert not all(torch.equal(sd[k], v) for k, v in
+                   state.model.state_dict().items())
