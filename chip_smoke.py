@@ -118,6 +118,28 @@ Phases:
      ``generator.npz`` in the bf16 Synthesizer (72 MRF launches); every
      kernel counted from 0 over the phase, each launched (the flash
      counts read before the forward's timing runs).
+  2e. the flash kernels in bf16 (forward with the float32 log-sum-exp, dQ
+     with Δ, dK/dV) against their plain versions on the same bf16 inputs,
+     which round where the TPU kernel rounds in bf16, at (4, 2, T, 128)
+     for T = 20, 300, 1000 (both masks that are not prefixes), 2300, 4096
+     and (1, 2, 8192, 128): out within 2^-7 · max|ref|, dq, dk, dv within
+     2^-6, the LSE within 1e-5, rows of length 0 exactly 0, one launch of
+     each bf16 kernel and none of the float32 ones, a rerun bit-identical;
+     and a layout witness whose every product is exact (two-hot P, small
+     integers), which must come out exact;
+  11. efs2-torch-train on the shipped train_tuned.yaml (batch 32, bf16
+     amp, steps_per_call 10) with the ESD preprocess.yaml and model.yaml,
+     ``attention_impl: "flash"``, phase 5's corpus, its paths and
+     cadences moved inside the run: 20 steps in two chunks of 10, each
+     train step 10 launches of each bf16 kernel and none of the float32
+     kernels, the val and synth steps (float32, as the JAX package's) 10
+     float32 forward launches each and nothing else; the chunk-mean loss
+     falls;
+  11b. times: the bf16 kernels against their bounds (bf16 rate), plain
+     versions and SDPA in bf16 with the bool mask (forward at T = 2300 and
+     4096, backward at 1000 and 4096); the train step under amp bf16
+     "flash", amp bf16 "auto" and float32 "flash" at the bucket
+     (128, 1000), B = 4 and 32, median of 10 after 3 warm-ups, in turns.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -285,7 +307,9 @@ def nvidia_smi_line() -> str:
 
 # The tensor-core kernels, which must compile without spills.
 TC_KERNELS = ("mrf_conv_tc_kernel", "flash_mha_fwd_kernel",
-              "flash_mha_bwd_dq_kernel", "flash_mha_bwd_dkv_kernel")
+              "flash_mha_bwd_dq_kernel", "flash_mha_bwd_dkv_kernel",
+              "flash_mha_fwd_bf16_kernel", "flash_mha_bwd_dq_bf16_kernel",
+              "flash_mha_bwd_dkv_bf16_kernel")
 
 
 def phase_environment(smoke: Smoke):
@@ -328,6 +352,17 @@ def phase_environment(smoke: Smoke):
           f"flash_mha_bwd_dkv_kernel: {bwd.flash_mha_bwd_dkv_smem_bytes()} "
           f"bytes a block, {bwd.flash_mha_bwd_block_rows()} keys, "
           f"{bwd.flash_mha_bwd_stream_tile()}-query tiles")
+    flash16 = build.load("flash_mha_bf16")
+    bwd16 = build.load("flash_mha_bwd_bf16")
+    print(f"  flash_mha_fwd_bf16_kernel: "
+          f"{flash16.flash_mha_fwd_bf16_smem_bytes()} bytes a block, "
+          f"{flash16.flash_mha_fwd_bf16_key_tile()}-key tiles; "
+          f"flash_mha_bwd_dq_bf16_kernel: "
+          f"{bwd16.flash_mha_bwd_dq_bf16_smem_bytes()} bytes, "
+          f"flash_mha_bwd_dkv_bf16_kernel: "
+          f"{bwd16.flash_mha_bwd_dkv_bf16_smem_bytes()} bytes a block, "
+          f"{bwd16.flash_mha_bwd_bf16_block_rows()} resident rows, "
+          f"{bwd16.flash_mha_bwd_bf16_stream_tile()}-row streamed tiles")
     smoke.check(bool(libs), "CUDA sources built")
     for k in TC_KERNELS:
         smoke.check(entries[k] > 0 and clean[k] == entries[k],
@@ -1356,12 +1391,15 @@ def phase_training(smoke: Smoke, device):
 
 
 def synthetic_train_batch(b: int, s: int, t: int, seed: int):
-    """A (B, S, T)-bucket training batch of numpy arrays."""
+    """A (B, S, T)-bucket training batch of numpy arrays; the rows' lengths
+    repeat in fours (the bucket's, 7/8, 3/4 and 1/2 of it)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    src_lens = np.array([s, s - s // 8, s - s // 4, s // 2][:b], np.int32)
-    mel_lens = np.array([t, t - t // 10, t - t // 4, t // 2][:b], np.int32)
+    src_lens = np.array([[s, s - s // 8, s - s // 4, s // 2][i % 4]
+                         for i in range(b)], np.int32)
+    mel_lens = np.array([[t, t - t // 10, t - t // 4, t // 2][i % 4]
+                         for i in range(b)], np.int32)
     durations = np.zeros((b, s), np.int32)
     for i in range(b):
         durations[i, :src_lens[i]] = rng.multinomial(
@@ -1425,6 +1463,44 @@ def flash_bwd_bounds_ms(mask, kernel: str) -> dict:
             "live_tiles": live, "tiles": b * n_tiles, "tile": tile}
 
 
+def time_train_steps(configs: dict, batch, device) -> dict:
+    """Each configuration's train step on ``batch``: 3 warm-ups, then 10
+    rounds with the configurations in turns, each step synchronized. Per
+    configuration: the step times in ms, the peak memory in MiB, and the
+    last step's flash launches (bf16 forward, dQ, dK/dV; float32 forward,
+    dQ, dK/dV) and loss."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        train_step,
+    )
+
+    runs = {}
+    for key, cfg in configs.items():
+        state = create_train_state(cfg, None, device)
+        for _ in range(3):
+            train_step(state, batch, cfg)
+        runs[key] = {"cfg": cfg, "state": state, "ms": [], "peak": 0.0}
+    for _ in range(10):
+        for run in runs.values():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_flash_counts()
+            reset_bf16_counts()
+            t0 = time.perf_counter()
+            report = train_step(run["state"], batch, run["cfg"])
+            torch.cuda.synchronize()
+            run["ms"].append(1e3 * (time.perf_counter() - t0))
+            run["peak"] = max(run["peak"],
+                              torch.cuda.max_memory_allocated() / 2**20)
+            run["counts"] = bf16_counts() + flash_counts()
+            run["loss"] = float(report.total)
+    for run in runs.values():
+        del run["state"]
+    return runs
+
+
 def phase_train_times(device):
     """Train-step times under "flash" and "auto" at the bucket (128, 1000),
     and the backward kernels at (4, 2, T, 128); returns the kernels' rows
@@ -1434,10 +1510,6 @@ def phase_train_times(device):
 
     from expressive_fastspeech2_mandarin_tpu_torch import config as C
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
-    from expressive_fastspeech2_mandarin_tpu_torch.train import (
-        create_train_state,
-        train_step,
-    )
     from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
         stage_batch,
     )
@@ -1445,29 +1517,11 @@ def phase_train_times(device):
     card = nvidia_smi_line()
     b, s, t = TRAIN_TIMED
     batch = stage_batch(synthetic_train_batch(b, s, t, seed=5), device)
-    runs = {}
-    for impl in ("flash", "auto"):
-        cfg = C.Config(model=C.ModelConfig(
-            transformer=C.TransformerConfig(attention_impl=impl)))
-        state = create_train_state(cfg, None, device)
-        for _ in range(3):
-            train_step(state, batch, cfg)
-        runs[impl] = {"cfg": cfg, "state": state, "ms": [], "peak": 0.0}
-    # Ten rounds, the two paths in turns; peak memory per path.
-    for _ in range(10):
-        for run in runs.values():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_flash_counts()
-            t0 = time.perf_counter()
-            report = train_step(run["state"], batch, run["cfg"])
-            torch.cuda.synchronize()
-            run["ms"].append(1e3 * (time.perf_counter() - t0))
-            run["peak"] = max(run["peak"],
-                              torch.cuda.max_memory_allocated() / 2**20)
-            run["counts"], run["loss"] = flash_counts(), float(report.total)
+    runs = time_train_steps({impl: C.Config(model=C.ModelConfig(
+        transformer=C.TransformerConfig(attention_impl=impl)))
+        for impl in ("flash", "auto")}, batch, device)
     for impl, run in runs.items():
-        reps, counts, loss = sorted(run["ms"]), run["counts"], run["loss"]
+        reps, counts, loss = sorted(run["ms"]), run["counts"][3:], run["loss"]
         print(f"  train step {impl!r}, B={b}, bucket (S, T) = ({s}, {t}): "
               f"median {(reps[4] + reps[5]) / 2:.3f} ms, min {reps[0]:.3f},"
               f" max {reps[-1]:.3f} over 10 steps after 3 warm-ups, in turns"
@@ -2733,6 +2787,436 @@ def phase_entry_points(smoke: Smoke, device):
     return {"launches": counted, "times": times, "quality": quality}
 
 
+# ---------------------------------------------------------------------------
+# Phases 2e, 11 and 11b: the flash kernels in bf16 and bf16 amp training
+# under "flash".
+
+# The bf16 kernels against their plain versions (which round where the TPU
+# kernel rounds in bf16): the float32 kernels' cases, the mask with wholly
+# padded 64-key blocks in the middle of rows too.
+FLASH_BF16_CASES = ((4, 20, prefixes(20, 1, 0, 13)),
+                    (4, 300, prefixes(300, 37, 0, 211)),
+                    (4, 1000, FLASH_HOLES), (4, 1000, FLASH_BLOCK_HOLES),
+                    (4, 2300, prefixes(2300, 63, 0, 2049)),
+                    (4, 4096, prefixes(4096, 1, 0, 3001)),
+                    (1, 8192, prefixes(8100)))
+# Kernel and plain version round the same float32 values to bf16 at the
+# same points, but sum in another order (online, tile by tile, against
+# cuBLAS), which can flip a bf16 rounding of P or dS and of the stored
+# output: out within 2^-7 · max|ref|, dq, dk, dv within 2^-6 · max|ref|.
+FLASH_BF16_OUT_REL = 2.0 ** -7
+FLASH_BF16_GRAD_REL = 2.0 ** -6
+# Keys per tile in which the bounds count live keys: the float32 kernels'
+# 32 (the bf16 kernels skip in 64-key tiles; a tile of 32 with no valid
+# key is work no kernel needs).
+BOUND_KEY_TILE = 32
+
+# Phase 11: train_tuned.yaml (batch 32, bf16 amp, steps_per_call 10) under
+# "flash" through efs2-torch-train, on phase 5's corpus, 20 steps in two
+# chunks; its cadences brought inside the run.
+TUNED_STEPS = 20
+TUNED_CADENCE = dict(log_step=10, val_step=10, synth_step=10, save_step=20)
+# Phase 11b: the train step at phase 6's bucket, at B = 4 and the recipe's
+# B = 32, under three configurations in turns.
+TUNED_TIMED = ((4, 128, 1000), (32, 128, 1000))
+TUNED_RUNS = (("bfloat16", "flash"), ("bfloat16", "auto"),
+              ("float32", "flash"))
+
+
+def bf16_counts() -> tuple[int, int, int]:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    return (fa.bf16_launch_count, fa.bf16_bwd_dq_launch_count,
+            fa.bf16_bwd_dkv_launch_count)
+
+
+def reset_bf16_counts() -> None:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    fa.bf16_launch_count = fa.bf16_bwd_dq_launch_count = 0
+    fa.bf16_bwd_dkv_launch_count = 0
+
+
+def layout_witness(t: int = 192, lens=(192, 100), seed: int = 3):
+    """bf16 inputs whose every product is exact (tests/
+    test_torch_kernels_gpu.py holds the same witness): keys k_j = 64 e_j
+    (j < 128) and -64 e_(j-128); query row i scores 1024 against exactly two
+    valid keys (q_i = 16 (e_a + e_b)) and 0 or -1024 against the rest, so
+    with sm_scale 1 its P is 1/2 at those two and exp(-1024) = 0 elsewhere;
+    v and dO in {-1, 0, 1}. A wrong swizzle, descriptor or transpose bit
+    moves a product by far more than round-off. Returns float64 q, k, v,
+    dO and the mask, on the CPU."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b, h, d = len(lens), 2, 128
+    k = np.zeros((b, h, t, d))
+    for j in range(t):
+        k[:, :, j, j % 128] = 64.0 if j < 128 else -64.0
+    q = np.zeros((b, h, t, d))
+    for i, n in enumerate(lens):
+        for hh in range(h):
+            for r in range(t):
+                a, c = rng.choice(min(n, 128), size=2, replace=False)
+                q[i, hh, r, a] = q[i, hh, r, c] = 16.0
+    v, dout = (rng.choice([-1.0, 0.0, 1.0], size=(b, h, t, d),
+                          p=[0.25, 0.5, 0.25]) for _ in range(2))
+    mask = np.arange(t)[None, :] >= np.asarray(lens)[:, None]
+    return [torch.from_numpy(x) for x in (q, k, v, dout, mask)]
+
+
+def phase_flash_bf16_vs_plain(smoke: Smoke):
+    """The bf16 forward, dQ and dK/dV kernels against their plain versions
+    on the same bf16 inputs, the layout witness exactly; returns the worst
+    max|diff| of out, dq and (dk, dv)."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    gen = torch.Generator().manual_seed(10)
+    scale = 128 ** -0.5
+    worst = [0.0, 0.0, 0.0]
+    for b, t, rows in FLASH_BF16_CASES:
+        q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                         for x in flash_inputs(b, t, rows, gen))
+        dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
+        reset_flash_counts()
+        reset_bf16_counts()
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
+        launched = (bf16_counts(), flash_counts())
+        ref = fa.flash_mha_plain(q, k, v, mask, scale)
+        refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
+        line = []
+        ok = launched == ((1, 1, 1), (0, 0, 0))
+        for i, (name, x, r, rel) in enumerate(zip(
+                ("out", "dq", "dk", "dv"), (out, *grads), (ref, *refs),
+                (FLASH_BF16_OUT_REL,) + (FLASH_BF16_GRAD_REL,) * 3)):
+            diff = (x.float() - r.float()).abs().max().item()  # syncs
+            bound = rel * r.float().abs().max().item()
+            ok &= (x.dtype == torch.bfloat16 and math.isfinite(diff)
+                   and diff <= bound)
+            worst[min(i, 2)] = max(worst[min(i, 2)], diff)
+            line.append(f"{name} {diff:.3e} (bound {bound:.3e})")
+        lse_ref = fa.flash_mha_lse_plain(q, k, mask, scale)
+        finite = torch.isfinite(lse_ref)
+        lse_diff = (lse - lse_ref)[finite].abs().max().item()
+        ok &= (lse_diff <= LSE_REL_BOUND * lse_ref[finite].abs().max().item()
+               and torch.equal(torch.isposinf(lse), ~finite))
+        for i in range(b):
+            if bool(mask[i].all()):  # no valid key: exactly 0
+                ok &= all(torch.count_nonzero(x[i]).item() == 0
+                          for x in (out, *grads))
+        again = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        again_grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse,
+                                             scale)
+        same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
+                and all(torch.equal(a, g)
+                        for a, g in zip(again_grads, grads)))
+        smoke.check(ok and same,
+                    f"bf16 B={b} T={t:5d} rows={rows}: max|diff| "
+                    f"{', '.join(line)}; lse {lse_diff:.3e}; launches "
+                    f"(bf16, float32) {launched}; rows of length 0 exactly "
+                    f"0; a rerun bit-identical: {same}")
+        del q, k, v, mask, dout, out, lse, grads, ref, refs, again
+    q, k, v, dout, mask = layout_witness()
+    out64 = fa.flash_mha_plain(q, k, v, mask, 1.0)
+    grads64 = fa.flash_mha_bwd_plain(q, k, v, mask, out64, dout, 1.0)
+    exact_in_bf16 = all(torch.equal(x, x.bfloat16().double())
+                        for x in (out64, *grads64))
+    args = [x.to("cuda", torch.bfloat16) for x in (q, k, v, dout)]
+    out, lse = fa._flash_mha_cuda(*args[:3], mask.to("cuda"), 1.0, True)
+    grads = fa._flash_mha_bwd_cuda(*args[:3], mask.to("cuda"), out, args[3],
+                                   lse, 1.0)
+    wrong = [int((x.double().cpu() != r).sum()) for x, r in
+             zip((out, *grads), (out64, *grads64))]
+    nonzero = [int(torch.count_nonzero(x)) for x in (out64, *grads64)]
+    smoke.check(exact_in_bf16 and wrong == [0, 0, 0, 0],
+                f"layout witness (2, 2, 192, 128), two-hot P: out, dq, dk, "
+                f"dv exact (elements off: {wrong}; nonzero in the "
+                f"reference: {nonzero})")
+    return worst
+
+
+def flash_bf16_bounds_ms(mask, kernel: str) -> dict:
+    """Least times for a bf16 flash kernel at H = 2, D = 128 on a (B, T)
+    key mask, each the larger of operations at the bf16 tensor-core rate
+    (989 TF/s) and bytes at the memory rate, counting the keys of the
+    BOUND_KEY_TILE-key tiles with a valid key: "fwd", 4·H·D flops per
+    query row and key, q, k, v read and out written in bf16; "dq", 6·H·D
+    (S, dP, dq), q, k, v, out, dO read and dq written, lse read and Δ
+    written in float32; "dkv", 8·H·D (S, dP, dk, dv), q, k, v, dO read and
+    dk, dv written, lse and Δ read; "both" (the whole backward) 10·H·D,
+    q, k, v, out, dO read and dq, dk, dv written, lse read."""
+    import torch
+
+    b, t = mask.shape
+    tile = BOUND_KEY_TILE
+    n_tiles = math.ceil(t / tile)
+    valid = torch.zeros(b, n_tiles * tile, dtype=torch.bool,
+                        device=mask.device)
+    valid[:, :t] = ~mask
+    live = int(valid.view(b, n_tiles, tile).any(-1).sum())
+    per = {"fwd": 4, "dq": 6, "dkv": 8, "both": 10}[kernel]
+    tensors = {"fwd": 4, "dq": 6, "dkv": 7, "both": 8}[kernel]
+    stats = {"fwd": 1, "dq": 2, "dkv": 2, "both": 1}[kernel]
+
+    def bound(keys):
+        flops = per * 2 * t * keys * 128
+        n_bytes = 2 * 2 * 128 * tensors * b * t + 4 * 2 * stats * b * t \
+            + b * t
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes", flops)
+
+    live_ms, by, flops = bound(tile * live)
+    return {"live": live_ms, "bound_by": by, "dense": bound(b * t)[0],
+            "live_tiles": live, "tiles": b * n_tiles, "tile": tile,
+            "flops_live": flops}
+
+
+def tuned_configs(root: Path, corpus: str) -> dict[str, str]:
+    """The shipped ESD preprocess.yaml and model.yaml and train_tuned.yaml
+    with the corpus at ``corpus``, ``attention_impl: "flash"``, the train
+    paths under ``root`` and TUNED_CADENCE; the recipe (batch 32, bf16 amp,
+    the optimizer, steps_per_call 10) is the shipped one."""
+    root.mkdir(parents=True, exist_ok=True)
+    pre = _yaml_set((CONFIG_DIR / "preprocess.yaml").read_text(),
+                    "preprocessed_path", corpus)
+    model = (CONFIG_DIR / "model.yaml").read_text().replace(
+        "transformer:\n", 'transformer:\n  attention_impl: "flash"\n', 1)
+    train = (CONFIG_DIR / "train_tuned.yaml").read_text()
+    for key in ("ckpt_path", "log_path", "result_path"):
+        train = _yaml_set(train, key, root / key.split("_")[0])
+    for key, value in TUNED_CADENCE.items():
+        train = _yaml_set(train, key, value)
+    out = {}
+    for name, text in (("preprocess", pre), ("model", model),
+                       ("train", train)):
+        out[name] = str(root / f"{name}.yaml")
+        Path(out[name]).write_text(text)
+    return out
+
+
+def phase_tuned_training(smoke: Smoke, device):
+    """Phase 11: efs2-torch-train on train_tuned.yaml under "flash", 20
+    steps in two chunks of 10 on phase 5's corpus. Every train step must
+    launch each bf16 kernel once per FFT block (10) and no float32 kernel;
+    the val and synth steps run the float32 model, so the float32 forward
+    only (10 a forward) and no bf16 kernel. Returns the launches over the
+    run."""
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
+
+    card = nvidia_smi_line()
+    calls: dict[str, list] = {"train_step": [], "eval_step": [],
+                              "synth_step": []}
+    losses: list[float] = []  # each train step's total loss
+    originals = {name: getattr(loop, name) for name in calls}
+
+    def counted(name):
+        fn = originals[name]
+
+        def wrapper(*args, **kwargs):
+            before = bf16_counts() + flash_counts()
+            out = fn(*args, **kwargs)
+            calls[name].append(tuple(
+                a - b for a, b in zip(bf16_counts() + flash_counts(),
+                                      before)))
+            if name == "train_step":
+                losses.append(float(out.total))
+            return out
+
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        corpus = write_training_corpus(str(tmp / "corpus"), 0)
+        y = tuned_configs(tmp, corpus)
+        cfg = C.load_config(y["preprocess"], y["model"], y["train"])
+        t = cfg.model.transformer
+        n_blocks = t.encoder_layer + t.decoder_layer
+        reset_flash_counts()
+        reset_bf16_counts()
+        for name in calls:
+            setattr(loop, name, counted(name))
+        try:
+            _, seconds = run_cli("train", [
+                "-p", y["preprocess"], "-m", y["model"], "-t", y["train"],
+                "--total_steps", TUNED_STEPS, "--device", str(device)])
+        finally:
+            for name, fn in originals.items():
+                setattr(loop, name, fn)
+        launches = bf16_counts() + flash_counts()
+        log = _metrics(tmp / "log" / "train" / "metrics.jsonl")
+        means = [r["total_loss"] for r in log]
+        first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
+        inference = calls["eval_step"] + calls["synth_step"]
+        train_ok = all(c == (n_blocks,) * 3 + (0, 0, 0)
+                       for c in calls["train_step"])
+        eval_ok = all(c == (0, 0, 0, n_blocks, 0, 0) for c in inference)
+        smoke.check(
+            cfg.train.amp_dtype == "bfloat16" and t.attention_impl == "flash"
+            and cfg.train.steps_per_call == 10
+            and cfg.train.optimizer.batch_size == 32
+            and len(calls["train_step"]) == TUNED_STEPS and train_ok
+            and calls["eval_step"] and calls["synth_step"] and eval_ok,
+            f"efs2-torch-train, train_tuned.yaml (batch "
+            f"{cfg.train.optimizer.batch_size}, amp {cfg.train.amp_dtype}, "
+            f"steps_per_call {cfg.train.steps_per_call}) under "
+            f"{t.attention_impl!r}: {len(calls['train_step'])} train steps "
+            f"in {seconds:.2f} s, each launching (bf16 forward, dQ, dK/dV; "
+            f"float32 forward, dQ, dK/dV) {sorted(set(calls['train_step']))}"
+            f" (expected {(n_blocks,) * 3 + (0, 0, 0)}); "
+            f"{len(calls['eval_step'])} val and {len(calls['synth_step'])} "
+            f"synth steps, each {sorted(set(inference))}"
+            f" (expected {(0, 0, 0, n_blocks, 0, 0)}); over the run "
+            f"{launches} [{card}]")
+        smoke.check([r["step"] for r in log] == [10, 20]
+                    and all(math.isfinite(x) for x in losses + means)
+                    and last < first
+                    and sorted(os.listdir(tmp / "ckpt")) == ["20.pt"],
+                    f"total loss, mean of the first and the last 5 steps: "
+                    f"{first:.4f} -> {last:.4f} (falling); logged chunk "
+                    f"means at steps {[r['step'] for r in log]}: {means}; "
+                    f"checkpoints {sorted(os.listdir(tmp / 'ckpt'))}")
+    return {"bf16": launches[:3], "float32": launches[3:],
+            "seconds": seconds}
+
+
+def phase_bf16_times(device):
+    """Phase 11b: the bf16 kernels against their bounds, their plain
+    versions and SDPA in bf16 with the bool mask (forward at the
+    long-form shapes, backward at the training bucket's T = 1000 and at
+    4096), and the train step under amp bf16 "flash", amp bf16 "auto" and
+    float32 "flash" at the bucket (128, 1000), B = 4 and 32, in turns.
+    Returns the kernels' rows (forward at T = 4096, backward at 1000)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+
+    card = nvidia_smi_line()
+    gen = torch.Generator().manual_seed(11)
+    scale = 128 ** -0.5
+    iters = 20
+    rows = {}
+
+    def sdpa_backend(fn):
+        """The SDPA backend whose forced time is the default's."""
+        default = cuda_time_ms(fn, iters)
+        forced = {}
+        for name, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                              ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                              ("math", SDPBackend.MATH)):
+            try:
+                with sdpa_kernel(backend):
+                    forced[name] = cuda_time_ms(fn, iters)
+            except RuntimeError:  # the backend refuses these inputs
+                continue
+        ran = min(forced, key=lambda n: abs(forced[n] - default))
+        return default, ran, forced
+
+    for b, t, case_rows in FLASH_CASES:
+        if t not in FLASH_TIMED:
+            continue
+        q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                         for x in flash_inputs(b, t, case_rows, gen))
+        keep = ~mask[:, None, None, :]
+        ms = cuda_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale), iters)
+        plain = cuda_time_ms(lambda: fa.flash_mha_plain(q, k, v, mask,
+                                                        scale), iters)
+        lib, ran, forced = sdpa_backend(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                   scale=scale))
+        bd = flash_bf16_bounds_ms(mask, "fwd")
+        rows[("fwd", t)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "bound_ms": bd["live"], "bound_by": bd["bound_by"]}
+        print(f"  flash_mha bf16 ({b}, 2, {t}, 128), valid keys {case_rows}:"
+              f" kernel {ms:.4f} ms ({bd['flops_live'] / ms / 1e9:.1f} TF/s"
+              f" over the {bd['live_tiles']} of {bd['tiles']} live "
+              f"{bd['tile']}-key tiles); bound (bf16 rate) {bd['live']:.4f} "
+              f"ms live, {bd['dense']:.4f} dense ({bd['bound_by']}); plain "
+              f"{plain:.4f} ms; SDPA bf16 {lib:.4f} ms (the {ran} backend; "
+              f"forced {', '.join(f'{n} {x:.4f}' for n, x in forced.items())})"
+              f" [{card}]", flush=True)
+        del q, k, v, mask, keep
+
+    for t in FLASH_BWD_TIMED:
+        lens = (t, 3 * t // 4, t // 2, t // 4)
+        q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                         for x in flash_inputs(4, t, prefixes(*lens), gen))
+        dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        _, delta = fa._flash_mha_bwd_dq_cuda(q, k, v, mask, out, dout, lse,
+                                             scale)
+        dq_ms = cuda_time_ms(lambda: fa._flash_mha_bwd_dq_cuda(
+            q, k, v, mask, out, dout, lse, scale), iters)
+        dkv_ms = cuda_time_ms(lambda: fa._flash_mha_bwd_dkv_cuda(
+            q, k, v, mask, dout, lse, delta, scale), iters)
+        plain = cuda_time_ms(lambda: fa.flash_mha_bwd_plain(
+            q, k, v, mask, out, dout, scale), iters)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=~mask[:, None, None, :], scale=scale)
+        lib = cuda_time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dout, retain_graph=True), iters)
+        bd = {name: flash_bf16_bounds_ms(mask, name)
+              for name in ("dq", "dkv", "both")}
+        for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            rows[(name, t)] = {"ms": ms, "plain_ms": plain,
+                               "bound_ms": bd[name]["live"],
+                               "bound_by": bd[name]["bound_by"],
+                               "library_ms": lib}
+        flops = 14 * 2 * t * BOUND_KEY_TILE * bd["both"]["live_tiles"] * 128
+        print(f"  flash_mha backward bf16 (4, 2, {t}, 128), key lengths "
+              f"{lens}: dQ kernel {dq_ms:.4f} ms (bound "
+              f"{bd['dq']['live']:.4f} live, {bd['dq']['dense']:.4f} dense),"
+              f" dK/dV kernel {dkv_ms:.4f} ms (bound {bd['dkv']['live']:.4f}"
+              f" live, {bd['dkv']['dense']:.4f} dense), together "
+              f"{dq_ms + dkv_ms:.4f} ms = {flops / (dq_ms + dkv_ms) / 1e9:.1f}"
+              f" TF/s over the live tiles; whole-backward bound "
+              f"{bd['both']['live']:.4f} ms; plain backward {plain:.4f} ms; "
+              f"SDPA bf16 backward {lib:.4f} ms [{card}]", flush=True)
+        del q, k, v, mask, dout, out, lse, delta, qs, ks, vs, o
+
+    steps = {}
+    for b, s, t in TUNED_TIMED:
+        batch = stage_batch(synthetic_train_batch(b, s, t, seed=5), device)
+        runs = time_train_steps({(amp, impl): C.Config(
+            model=C.ModelConfig(
+                transformer=C.TransformerConfig(attention_impl=impl)),
+            train=C.TrainConfig(amp_dtype=amp)) for amp, impl in TUNED_RUNS},
+            batch, device)
+        for (amp, impl), run in runs.items():
+            reps = sorted(run["ms"])
+            steps[(b, amp, impl)] = (reps[4] + reps[5]) / 2
+            print(f"  train step amp {amp} {impl!r}, B={b}, bucket (S, T) = "
+                  f"({s}, {t}): median {steps[(b, amp, impl)]:.3f} ms, min "
+                  f"{reps[0]:.3f}, max {reps[-1]:.3f} over 10 steps after 3 "
+                  f"warm-ups, in turns with the other two; last loss "
+                  f"{run['loss']:.4f}; launches per step (bf16 forward, dQ,"
+                  f" dK/dV; float32 forward, dQ, dK/dV) {run['counts']}; "
+                  f"max_memory_allocated {run['peak']:.1f} MiB [{card}]",
+                  flush=True)
+        del runs, batch
+    for b, _, _ in TUNED_TIMED:
+        bf16_flash = steps[(b, "bfloat16", "flash")]
+        print(f"  B={b}: amp bf16 'flash' / float32 'flash' = "
+              f"{bf16_flash / steps[(b, 'float32', 'flash')]:.3f}, amp bf16 "
+              f"'flash' / amp bf16 'auto' = "
+              f"{bf16_flash / steps[(b, 'bfloat16', 'auto')]:.3f}")
+    return {"fwd": rows[("fwd", max(FLASH_TIMED))],
+            "dq": rows[("dq", min(FLASH_BWD_TIMED))],
+            "dkv": rows[("dkv", min(FLASH_BWD_TIMED))]}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").exists():
         print(f"chip_smoke: the package {PKG} is not beside this script",
@@ -2760,6 +3244,8 @@ def main() -> int:
                              phase_long_kernel_vs_plain, smoke, device)
     worst_bwd = smoke.phase("2d. flash_mha backward kernels vs plain on "
                             "the card", phase_flash_bwd_vs_plain, smoke)
+    worst_bf16 = smoke.phase("2e. flash_mha bf16 kernels vs plain on the "
+                             "card", phase_flash_bf16_vs_plain, smoke)
     main_run = smoke.phase("3. main path: Synthesizer.synthesize",
                            phase_main_path, smoke, device, TEXTS, EMOTIONS)
     flash_launches = totals = flash_row = None
@@ -2789,12 +3275,17 @@ def main() -> int:
                            TEXTS, EMOTIONS)
     entry = smoke.phase("10. entry points: the Quick start through the "
                         "CLIs", phase_entry_points, smoke, device)
+    tuned = smoke.phase("11. efs2-torch-train on train_tuned.yaml (bf16 "
+                        "amp) under attention_impl='flash'",
+                        phase_tuned_training, smoke, device)
+    bf16_rows = smoke.phase("11b. times: bf16 flash kernels and the amp "
+                            "bf16 train step", phase_bf16_times, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if (smoke.failures or None in (worst, worst_flash, worst_long,
                                    flash_launches, totals, flash_row,
                                    worst_bwd, train_launches, bwd_rows,
                                    dsp, voc_launches, voc_times, features,
-                                   entry)):
+                                   entry, worst_bf16, tuned, bf16_rows)):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
               file=sys.stderr)
         return 1
@@ -2821,7 +3312,7 @@ def main() -> int:
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "flash_mha.py:53",
         "launches": (train_launches[0] + features["launches"]["flash_mha"]
-                     + entry["launches"]["flash_mha"]),
+                     + entry["launches"]["flash_mha"] + tuned["float32"][0]),
         "max_abs_err": worst_flash,
         **flash_row,
     }, {
@@ -2841,6 +3332,30 @@ def main() -> int:
                      + entry["launches"]["flash_mha_bwd_dkv"]),
         "max_abs_err": worst_bwd[1],
         **bwd_rows["dkv"],
+    }, {
+        "name": "flash_mha_bf16",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_bf16.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:589",
+        "launches": tuned["bf16"][0],
+        "max_abs_err": worst_bf16[0],
+        **bf16_rows["fwd"],
+    }, {
+        "name": "flash_mha_bwd_dq_bf16",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_bwd_bf16.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        "launches": tuned["bf16"][1],
+        "max_abs_err": worst_bf16[1],
+        **bf16_rows["dq"],
+    }, {
+        "name": "flash_mha_bwd_dkv_bf16",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_bwd_bf16.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        "launches": tuned["bf16"][2],
+        "max_abs_err": worst_bf16[2],
+        **bf16_rows["dkv"],
     }]
     print(f"card: {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) plumbing that does not depend on the operand type: shared
 // addresses, mbarriers, bulk and TMA copies, named barriers, the wgmma
 // fence/commit/wait, the 128-byte swizzle and its descriptors, and float32
-// tensor maps. Included by csrc/mrf_resblock.cu (bf16 wgmma) and, through
-// csrc/tf32_wgmma.cuh, by csrc/flash_mha.cu and csrc/flash_mha_bwd.cu (TF32
-// wgmma).
+// and bf16 tensor maps. Included by csrc/mrf_resblock.cu (bf16 wgmma) and,
+// through csrc/tf32_wgmma.cuh, by csrc/flash_mha.cu and csrc/flash_mha_bwd.cu
+// (TF32 wgmma) and, through csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu
+// and csrc/flash_mha_bwd_bf16.cu (bf16 wgmma).
 //
 // The 128-byte swizzle, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it: a tile
 // is rows of 128 bytes; within each 1024-byte-aligned atom of 8 rows, the
@@ -161,12 +162,10 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 }
 
 // ---------------------------------------------------------------------------
-// Host: a tensor map over a (outer, rows, inner) float32 array, contiguous,
-// boxes of (1, box_rows, 32) landing 128-byte swizzled; rows past `rows` read
-// as zero. cuTensorMapEncodeTiled is looked up in libcuda.so.1, which the
-// CUDA runtime has loaded, so the library links against nothing but the
-// runtime. Returns 0, or a nonzero code: 900 if libcuda has no such
-// function, else 1000 + the CUresult.
+// Host: tensor maps. cuTensorMapEncodeTiled is looked up in libcuda.so.1,
+// which the CUDA runtime has loaded, so the library links against nothing
+// but the runtime. Each returns 0, or a nonzero code: 900 if libcuda has no
+// such function, else 1000 + the CUresult.
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -185,21 +184,41 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-inline int make_tensor_map_f32(CUtensorMap* map, const void* base,
-                               uint64_t outer, uint64_t rows, uint64_t inner,
-                               uint32_t box_rows) {
+// A tensor map over a (outer, rows, inner) array of `elem_bytes`-byte
+// elements, contiguous, boxes of (1, box_rows, 128 bytes of the inner
+// dimension) landing 128-byte swizzled; rows past `rows` read as zero.
+inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                           uint32_t elem_bytes, const void* base,
+                           uint64_t outer, uint64_t rows, uint64_t inner,
+                           uint32_t box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return 900;
   const cuuint64_t dims[3] = {inner, rows, outer};
-  const cuuint64_t strides[2] = {inner * 4, rows * inner * 4};
-  const cuuint32_t box[3] = {32, box_rows, 1};
+  const cuuint64_t strides[2] = {inner * elem_bytes,
+                                 rows * inner * elem_bytes};
+  const cuuint32_t box[3] = {128 / elem_bytes, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// float32: boxes of 32 columns.
+inline int make_tensor_map_f32(CUtensorMap* map, const void* base,
+                               uint64_t outer, uint64_t rows, uint64_t inner,
+                               uint32_t box_rows) {
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, outer,
+                         rows, inner, box_rows);
+}
+
+// bf16: boxes of 64 columns.
+inline int make_tensor_map_bf16(CUtensorMap* map, const void* base,
+                                uint64_t outer, uint64_t rows, uint64_t inner,
+                                uint32_t box_rows) {
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                         outer, rows, inner, box_rows);
 }
 
 }  // namespace sm90

@@ -16,18 +16,26 @@ gradient, with P the probabilities and dO the output's gradient::
     dS = P ∘ (dO vᵀ − Δ)
     dq = dS k · sm_scale,  dk = dSᵀ q · sm_scale,  dv = Pᵀ dO
 
-On CUDA tensors ``flash_mha`` launches ``csrc/flash_mha.cu`` (counted in
-``launch_count``); when a gradient is wanted it goes through ``FlashMHA``,
-whose forward also stores each row's log-sum-exp and whose backward
-launches the dQ kernel (which also writes Δ) and then the dK/dV kernel of
-``csrc/flash_mha_bwd.cu`` (counted in ``bwd_dq_launch_count`` and
-``bwd_dkv_launch_count``). The kernels take float32, D = 128, contiguous
-tensors and a bool mask on the same device, or raise. On CPU tensors the
-plain versions run: ``flash_mha_plain`` forward, ``flash_mha_bwd_plain``
-backward. Nothing else selects between the two. The kernels mask keys only,
-so they equal the plain versions at every query row; the TPU kernel agrees
-with both at the valid rows (its segment IDs let padded queries attend to
-padded keys, and the FFT block zeroes those rows and their gradients).
+On CUDA tensors ``flash_mha`` launches the forward kernel of the inputs'
+dtype: ``csrc/flash_mha.cu`` for float32 (counted in ``launch_count``),
+``csrc/flash_mha_bf16.cu`` for bfloat16 (``bf16_launch_count``). When a
+gradient is wanted it goes through ``FlashMHA``, whose forward also stores
+each row's float32 log-sum-exp and whose backward launches the dQ kernel
+(which also writes Δ in float32) and then the dK/dV kernel of the same
+dtype: ``csrc/flash_mha_bwd.cu`` (``bwd_dq_launch_count``,
+``bwd_dkv_launch_count``) or ``csrc/flash_mha_bwd_bf16.cu``
+(``bf16_bwd_dq_launch_count``, ``bf16_bwd_dkv_launch_count``). The kernels
+take float32 or bfloat16 (every tensor in one dtype), D = 128, contiguous
+tensors and a bool mask on the same device, or raise. The bf16 kernels
+round where the TPU kernel rounds in bf16: P to bf16 before P·V, Pᵀ and
+dS·sm_scale to bf16 before their products, the outputs stored in bf16,
+everything else float32. On CPU tensors the plain versions run:
+``flash_mha_plain`` forward, ``flash_mha_bwd_plain`` backward, with the
+same rounding points for bf16 inputs. Nothing else selects between kernel
+and plain version. The kernels mask keys only, so they equal the plain
+versions at every query row; the TPU kernel agrees with both at the valid
+rows (its segment IDs let padded queries attend to padded keys, and the
+FFT block zeroes those rows and their gradients).
 """
 
 from __future__ import annotations
@@ -42,21 +50,26 @@ HEAD_DIM = 128
 MIN_SEQ_LEN = 2048
 
 # Kernel launches on CUDA tensors: the forward, the dQ kernel (with Δ) and
-# the dK/dV kernel.
+# the dK/dV kernel, float32 and bfloat16.
 launch_count = 0
 bwd_dq_launch_count = 0
 bwd_dkv_launch_count = 0
+bf16_launch_count = 0
+bf16_bwd_dq_launch_count = 0
+bf16_bwd_dkv_launch_count = 0
 
-# flash_mha_fwd_f32(q, k, v, mask, out, lse, B, H, T, scale, stream)
+# flash_mha_fwd_{f32,bf16}(q, k, v, mask, out, lse, B, H, T, scale, stream)
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
-# flash_mha_bwd_dq_f32(q, k, v, mask, out, dout, lse, delta, dq, B, H, T,
-#                      scale, stream) and
-# flash_mha_bwd_dkv_f32(q, k, v, mask, dout, lse, delta, dk, dv, B, H, T,
-#                       scale, stream)
+# flash_mha_bwd_dq_{f32,bf16}(q, k, v, mask, out, dout, lse, delta, dq, B,
+#                             H, T, scale, stream) and
+# flash_mha_bwd_dkv_{f32,bf16}(q, k, v, mask, dout, lse, delta, dk, dv, B,
+#                              H, T, scale, stream)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
 _libs: dict[str, ctypes.CDLL] = {}
+# The kernels' dtypes, and the suffix of their C entries.
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def supported(device: torch.device, seq_len: int, head_dim: int) -> bool:
@@ -87,13 +100,15 @@ def _probabilities(q, k, key_padding_mask, sm_scale, dt):
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: torch.Tensor,
                     sm_scale: float) -> torch.Tensor:
-    """Plain PyTorch attention on (B, H, T, D), the forward kernel's
+    """Plain PyTorch attention on (B, H, T, D), the forward kernels'
     reference: float32 scores (float64 for float64 inputs), ``-inf`` at
     padded keys, the probabilities cast to v's dtype before the second
-    product."""
+    product (bf16 for bf16 inputs, as the TPU kernel rounds P), the output
+    in the inputs' dtype."""
     dt = torch.promote_types(q.dtype, torch.float32)
     attn = _probabilities(q, k, key_padding_mask, sm_scale, dt)
-    return torch.matmul(attn.to(v.dtype).to(dt), v.to(dt))
+    out = torch.matmul(attn.to(v.dtype).to(dt), v.to(dt))
+    return out.to(q.dtype)
 
 
 def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,17 +118,27 @@ def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_mha_plain`` by the explicit formulas, the
     backward kernels' reference, in float32 (float64 for float64 inputs);
     ``out`` is the forward's output. Rows with no valid key, and padded
-    keys, get exactly 0."""
+    keys, get exactly 0. For bf16 inputs it rounds where the TPU kernel
+    does (``flash_attention.py:900, :912-918, :1240-1261``): Pᵀ and
+    dS·sm_scale to bf16 before their products, dq, dk, dv stored in bf16;
+    P, dP, Δ and dS stay float32."""
     dt = torch.promote_types(q.dtype, torch.float32)
+    low = q.dtype if q.dtype == torch.bfloat16 else None
     q, k, v, out, dout = (x.to(dt) for x in (q, k, v, out, dout))
     p = _probabilities(q, k, key_padding_mask, sm_scale, dt)
-    dv = torch.matmul(p.transpose(-1, -2), dout)
     dp = torch.matmul(dout, v.transpose(-1, -2))
     delta = (dout * out).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
-    dq = torch.matmul(ds, k) * sm_scale
-    dk = torch.matmul(ds.transpose(-1, -2), q) * sm_scale
-    return dq, dk, dv
+    if low is None:
+        dv = torch.matmul(p.transpose(-1, -2), dout)
+        dq = torch.matmul(ds, k) * sm_scale
+        dk = torch.matmul(ds.transpose(-1, -2), q) * sm_scale
+        return dq, dk, dv
+    p, ds = (x.to(low).to(dt) for x in (p, ds * sm_scale))
+    dv = torch.matmul(p.transpose(-1, -2), dout)
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    return dq.to(low), dk.to(low), dv.to(low)
 
 
 def flash_mha_lse_plain(q: torch.Tensor, k: torch.Tensor,
@@ -152,9 +177,13 @@ def _check(q, k, v, key_padding_mask, *more):
     b, h, t, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash_mha kernels take D = {HEAD_DIM}, got {d}")
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"flash_mha kernels take float32 or bfloat16, got "
+                        f"{q.dtype}")
     for x in (q, k, v, *more):
-        if x.dtype != torch.float32:
-            raise TypeError(f"flash_mha kernels take float32, got {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash_mha kernels take one dtype for q, k, v, "
+                            f"out and dout, got {q.dtype} and {x.dtype}")
         if x.shape != q.shape or x.device != q.device:
             raise ValueError("q, k, v, out and dout must share one shape "
                              "and device")
@@ -180,33 +209,46 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _flash_mha_cuda(q, k, v, key_padding_mask, sm_scale, with_lse):
-    """The forward kernel: (out, lse), lse (B, H, T) float32 or None."""
+    """The forward kernel of q's dtype: (out, lse), lse (B, H, T) float32 or
+    None."""
     b, h, t = _check(q, k, v, key_padding_mask)
     out = torch.empty_like(q)
-    lse = q.new_empty((b, h, t)) if with_lse else None
+    lse = q.new_empty((b, h, t), dtype=torch.float32) if with_lse else None
     if out.numel() == 0:
         return out, lse
-    lib = _library("flash_mha", {"flash_mha_fwd_f32": _FWD_ARGTYPES})
+    suffix = _SUFFIX[q.dtype]
+    name = "flash_mha" if suffix == "f32" else "flash_mha_bf16"
+    fn = f"flash_mha_fwd_{suffix}"
+    lib = _library(name, {fn: _FWD_ARGTYPES})
     with torch.cuda.device(q.device):
-        err = lib.flash_mha_fwd_f32(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, h, t, float(sm_scale),
             _stream(q))
-    _raise_on(err, "flash_mha forward")
-    global launch_count
-    launch_count += 1
+    _raise_on(err, f"flash_mha forward ({suffix})")
+    global launch_count, bf16_launch_count
+    if suffix == "f32":
+        launch_count += 1
+    else:
+        bf16_launch_count += 1
     return out, lse
 
 
-def _bwd_library() -> ctypes.CDLL:
-    return _library("flash_mha_bwd", {"flash_mha_bwd_dq_f32": _BWD_ARGTYPES,
-                                      "flash_mha_bwd_dkv_f32": _BWD_ARGTYPES})
+def _bwd_entry(dtype: torch.dtype, kernel: str):
+    """The C entry of backward kernel ``kernel`` ("dq" or "dkv") for
+    ``dtype``."""
+    suffix = _SUFFIX[dtype]
+    name = "flash_mha_bwd" if suffix == "f32" else "flash_mha_bwd_bf16"
+    lib = _library(name, {f"flash_mha_bwd_{k}_{suffix}": _BWD_ARGTYPES
+                          for k in ("dq", "dkv")})
+    return getattr(lib, f"flash_mha_bwd_{kernel}_{suffix}")
 
 
 def _flash_mha_bwd_dq_cuda(q, k, v, key_padding_mask, out, dout, lse,
                            sm_scale):
-    """The dQ kernel: (dq, delta), delta = rowsum(dout ∘ out) (B, H, T)."""
+    """The dQ kernel of q's dtype: (dq, delta), delta = rowsum(dout ∘ out)
+    (B, H, T) float32."""
     b, h, t = _check(q, k, v, key_padding_mask, out, dout)
     if lse.shape != (b, h, t) or lse.dtype != torch.float32:
         raise ValueError("lse must be (B, H, T) float32")
@@ -214,20 +256,24 @@ def _flash_mha_bwd_dq_cuda(q, k, v, key_padding_mask, out, dout, lse,
     if dq.numel() == 0:
         return dq, delta
     with torch.cuda.device(q.device):
-        err = _bwd_library().flash_mha_bwd_dq_f32(
+        err = _bwd_entry(q.dtype, "dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, t,
             float(sm_scale), _stream(q))
-    _raise_on(err, "flash_mha backward dQ")
-    global bwd_dq_launch_count
-    bwd_dq_launch_count += 1
+    _raise_on(err, f"flash_mha backward dQ ({_SUFFIX[q.dtype]})")
+    global bwd_dq_launch_count, bf16_bwd_dq_launch_count
+    if q.dtype == torch.float32:
+        bwd_dq_launch_count += 1
+    else:
+        bf16_bwd_dq_launch_count += 1
     return dq, delta
 
 
 def _flash_mha_bwd_dkv_cuda(q, k, v, key_padding_mask, dout, lse, delta,
                             sm_scale):
-    """The dK/dV kernel, after the dQ kernel wrote ``delta``: (dk, dv)."""
+    """The dK/dV kernel of q's dtype, after the dQ kernel wrote ``delta``:
+    (dk, dv)."""
     b, h, t = _check(q, k, v, key_padding_mask, dout)
     for x in (lse, delta):
         if x.shape != (b, h, t) or x.dtype != torch.float32:
@@ -236,14 +282,17 @@ def _flash_mha_bwd_dkv_cuda(q, k, v, key_padding_mask, dout, lse, delta,
     if dk.numel() == 0:
         return dk, dv
     with torch.cuda.device(q.device):
-        err = _bwd_library().flash_mha_bwd_dkv_f32(
+        err = _bwd_entry(q.dtype, "dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t,
             float(sm_scale), _stream(q))
-    _raise_on(err, "flash_mha backward dK/dV")
-    global bwd_dkv_launch_count
-    bwd_dkv_launch_count += 1
+    _raise_on(err, f"flash_mha backward dK/dV ({_SUFFIX[q.dtype]})")
+    global bwd_dkv_launch_count, bf16_bwd_dkv_launch_count
+    if q.dtype == torch.float32:
+        bwd_dkv_launch_count += 1
+    else:
+        bf16_bwd_dkv_launch_count += 1
     return dk, dv
 
 
@@ -263,8 +312,9 @@ def _device_type(q: torch.Tensor) -> str:
 
 
 class FlashMHA(torch.autograd.Function):
-    """Differentiable ``flash_mha``: kernels on CUDA tensors, the plain
-    versions on CPU tensors."""
+    """Differentiable ``flash_mha``: the kernels of the inputs' dtype on
+    CUDA tensors (the forward's float32 log-sum-exp carried to the
+    backward), the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask, sm_scale):

@@ -6,8 +6,11 @@ state's generator, the postnet's BatchNorm on batch statistics) → loss →
 gradients → clip, Adam, Noam update, in place. With ``amp_dtype =
 "bfloat16"`` the forward and backward run on a bf16 copy of the float32
 master parameters; the gradient flows back through the cast, so it reaches
-the masters in float32, and the loss stays float32. The flash kernels take
-float32 only, so bf16 with ``attention_impl="flash"`` raises ``TypeError``.
+the masters in float32, and the loss stays float32. Under
+``attention_impl="flash"`` (or ``"auto"`` past 2048 frames) the bf16
+forward and backward run the bf16 flash kernels, as the JAX package's bf16
+step runs the TPU kernel on bf16 q, k, v; evaluation and synthesis run the
+float32 model, so the float32 forward kernel.
 
 A batch is a dict of tensors on the model's device: speakers, emotions,
 arousals, valences (B,), texts (B, S), src_lens (B,), mels (B, T, 80) —
@@ -61,23 +64,13 @@ def _loss(model: FastSpeech2, batch: Batch, cfg: Config, *,
         energy_feature_level=cfg.preprocess.energy.feature)
 
 
-def check_amp(cfg: Config) -> torch.dtype:
-    """The forward's parameter dtype; bf16 with the flash kernels raises."""
-    amp = getattr(torch, cfg.train.amp_dtype)
-    if amp != torch.float32 and cfg.model.transformer.attention_impl == "flash":
-        raise TypeError("attention_impl='flash' runs the float32 flash "
-                        "kernels; it cannot train with amp_dtype="
-                        f"{cfg.train.amp_dtype!r}")
-    return amp
-
-
 def loss_and_grads(model: FastSpeech2, batch: Batch, cfg: Config,
                    generator: torch.Generator
                    ) -> tuple[LossReport, list[torch.Tensor]]:
     """The training-mode loss and the float32 gradient of every parameter,
     in ``model.named_parameters()`` order. BatchNorm's running statistics
     are updated in place."""
-    amp = check_amp(cfg)
+    amp = getattr(torch, cfg.train.amp_dtype)
     named = dict(model.named_parameters())
     params = None
     if amp != torch.float32:

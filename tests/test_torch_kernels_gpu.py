@@ -294,6 +294,14 @@ def test_flash_kernel_rejects_unsupported_input_on_card():
     q, k, v, mask = _flash_inputs(100, _prefixes(100), seed=0)
     with pytest.raises(TypeError):
         fa.flash_mha(q.double(), k.double(), v.double(), mask, 1.0)
+    with pytest.raises(TypeError):
+        fa.flash_mha(q.half(), k.half(), v.half(), mask, 1.0)
+    with pytest.raises(TypeError):  # one dtype for every tensor
+        fa.flash_mha(q.bfloat16(), k, v.bfloat16(), mask, 1.0)
+    before = fa.bf16_launch_count  # bf16 is the other dtype the kernels take
+    out = fa.flash_mha(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, 1.0)
+    assert out.dtype == torch.bfloat16
+    assert fa.bf16_launch_count == before + 1
     q64, k64, v64, mask64 = _flash_inputs(100, _prefixes(100), seed=0, d=64)
     with pytest.raises(ValueError):
         fa.flash_mha(q64, k64, v64, mask64, 1.0)
@@ -307,9 +315,9 @@ def test_flash_kernel_rejects_unsupported_input_on_card():
 # order than cuBLAS); a rerun is bit-identical (no atomics).
 
 
-def _flash_grads(q, k, v, mask, dout):
+def _flash_grads(q, k, v, mask, dout, scale=128 ** -0.5):
     q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
-    out = fa.flash_mha(q, k, v, mask, 128 ** -0.5)
+    out = fa.flash_mha(q, k, v, mask, scale)
     out.backward(dout)
     return out.detach(), q.grad, k.grad, v.grad
 
@@ -350,6 +358,141 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
     assert (lse[:2] - ref[:2]).abs().max().item() <= 1e-5 * ref[:2].abs().max()
     torch.testing.assert_close(out, fa.flash_mha(q, k, v, mask, 128 ** -0.5),
                                rtol=0, atol=0)
+
+
+# The bf16 flash kernels (csrc/flash_mha_bf16.cu, csrc/flash_mha_bwd_bf16.cu)
+# against their plain versions on the same bf16 inputs, which round where the
+# TPU kernel rounds in bf16 (P before P·V; Pᵀ and dS·sm_scale before their
+# products; the outputs): out within 2^-7 · max|ref| and the float32 LSE
+# within 1e-5 · max|ref| of logsumexp; dq, dk, dv within 2^-6 · max|ref|
+# (float32 sums in another order flip bf16 roundings of P and dS). A rerun
+# is bit-identical (no atomics), and the float32 kernels are not launched.
+
+BF16_OUT_REL = 2.0 ** -7
+BF16_GRAD_REL = 2.0 ** -6
+
+
+def _bf16_counts():
+    return (fa.bf16_launch_count, fa.bf16_bwd_dq_launch_count,
+            fa.bf16_bwd_dkv_launch_count, fa.launch_count,
+            fa.bwd_dq_launch_count, fa.bwd_dkv_launch_count)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max().item()
+            / max(b.float().abs().max().item(), 1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rows", [
+    (20, _prefixes(20, 1, 0, 13)),
+    (300, _prefixes(300, 37, 0, 299)),
+    # Not a prefix: wholly padded 64-key tiles at the start and in the
+    # middle of rows, a row with one valid key (the last), a row with none.
+    (1000, [[(0, 100), (300, 1000)], [(64, 128), (640, 700)], [(999, 1000)],
+            []]),
+    (2300, _prefixes(2300, 63, 0, 2049))])
+def test_bf16_flash_kernels_match_plain_on_card(t, rows):
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                     for x in _flash_inputs(t, rows, seed=t + 7))
+    dout = torch.randn_like(q)
+    scale = 128 ** -0.5
+    before = _bf16_counts()
+    out, dq, dk, dv = _flash_grads(q, k, v, mask, dout)
+    assert _bf16_counts() == tuple(n + (i < 3) for i, n in enumerate(before))
+    assert all(x.dtype == torch.bfloat16 for x in (out, dq, dk, dv))
+    ref = fa.flash_mha_plain(q, k, v, mask, scale)
+    assert _rel(out, ref) <= BF16_OUT_REL
+    refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
+    for g, r in zip((dq, dk, dv), refs):
+        assert _rel(g, r) <= BF16_GRAD_REL
+    empty = [i for i in range(len(rows)) if bool(mask[i].all())]
+    for i in empty:  # no valid key → exactly 0
+        for x in (out, dq, dk, dv):
+            assert torch.count_nonzero(x[i]).item() == 0
+    _, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+    lse_ref = fa.flash_mha_lse_plain(q, k, mask, scale)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isposinf(lse), ~finite)
+    assert ((lse - lse_ref)[finite].abs().max().item()
+            <= 1e-5 * lse_ref[finite].abs().max().item())
+    again = _flash_grads(q, k, v, mask, dout)
+    for a, b in zip((out, dq, dk, dv), again):
+        assert torch.equal(a, b)
+
+
+def _layout_witness(t=192, lens=(192, 100), seed=3):
+    """Inputs whose every product is exact in bf16 and float32: keys
+    k_j = 64 e_j (j < 128) and -64 e_(j-128); each query row i scores 1024
+    against exactly two valid keys a_i, b_i (q_i = 16 (e_a + e_b)), 0 or
+    -1024 against the rest, so with sm_scale 1 its P is 1/2 at a_i and b_i
+    and exp(-1024) = 0 elsewhere, in float64 too; v and dO in {-1, 0, 1}.
+    A swizzle, descriptor or transpose bit that reads the wrong element
+    moves a product by far more than round-off."""
+    rng = np.random.default_rng(seed)
+    b, h, d = len(lens), 2, 128
+    k = np.zeros((b, h, t, d))
+    for j in range(t):
+        k[:, :, j, j % 128] = 64.0 if j < 128 else -64.0
+    q = np.zeros((b, h, t, d))
+    for i, n in enumerate(lens):
+        pool = min(n, 128)
+        for hh in range(h):
+            for r in range(t):
+                a, c = rng.choice(pool, size=2, replace=False)
+                q[i, hh, r, a] = q[i, hh, r, c] = 16.0
+    v, dout = (rng.choice([-1.0, 0.0, 1.0], size=(b, h, t, d),
+                          p=[0.25, 0.5, 0.25]) for _ in range(2))
+    mask = np.arange(t)[None, :] >= np.asarray(lens)[:, None]
+    return q, k, v, dout, mask
+
+
+@pytest.mark.gpu
+def test_bf16_flash_kernels_layout_witness_is_exact_on_card():
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout, mask = _layout_witness()
+    ref64 = [torch.from_numpy(x) for x in (q, k, v, dout)]
+    tmask = torch.from_numpy(mask)
+    out64 = fa.flash_mha_plain(*ref64[:3], tmask, 1.0)
+    grads64 = fa.flash_mha_bwd_plain(*ref64[:3], tmask, out64, ref64[3], 1.0)
+    for x in (out64, *grads64):  # the premise: every value exact in bf16
+        assert torch.equal(x, x.bfloat16().double())
+    assert float(grads64[0].abs().max()) > 1 and float(
+        grads64[1].abs().max()) > 1
+    args = [x.to("cuda", torch.bfloat16) for x in ref64]
+    out, dq, dk, dv = _flash_grads(*args[:3], tmask.to("cuda"), args[3],
+                                   scale=1.0)
+    for got, want in zip((out, dq, dk, dv), (out64, *grads64)):
+        assert torch.equal(got.double().cpu(), want)
+
+
+@pytest.mark.gpu
+def test_auto_takes_the_bf16_kernels_past_2048_frames_on_card():
+    """attention_impl="auto" in bf16: the math path at T = 2048, the bf16
+    kernels (and no float32 kernel) past it, as the float32 rule."""
+    _cuda_or_skip()
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import (
+        multi_head_attention,
+    )
+
+    gen = torch.Generator().manual_seed(12)
+    w = [(torch.randn(256, 256, generator=gen) * 0.05).to("cuda",
+                                                         torch.bfloat16)
+         for _ in range(3)]
+    bias = torch.zeros(256, device="cuda", dtype=torch.bfloat16)
+    for t, launched in ((2048, 0), (2100, 1)):
+        x = torch.randn(2, t, 256, generator=gen).to("cuda", torch.bfloat16)
+        mask = torch.zeros(2, t, dtype=torch.bool, device="cuda")
+        mask[1, t // 2:] = True
+        before = _bf16_counts()
+        out = multi_head_attention(x, w[0], bias, w[1], bias, w[2], bias, 2,
+                                   mask, impl="auto")
+        assert out.dtype == torch.bfloat16
+        assert _bf16_counts() == tuple(n + launched * (i == 0)
+                                       for i, n in enumerate(before))
 
 
 def _preprocess(root, tg_root, raw, name, device):

@@ -475,12 +475,3 @@ def test_amp_bf16_tracks_float32():
     assert abs(bf16[0] - f32[0]) < 0.05 * abs(f32[0]), (f32[0], bf16[0])
     assert abs(bf16[-1] - f32[-1]) < 0.08 * abs(f32[-1]), (f32[-1], bf16[-1])
 
-
-def test_amp_bf16_with_flash_raises():
-    cfg = _config(tcfg, attention_impl="flash")
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, amp_dtype="bfloat16"))
-    state = create_train_state(cfg, None, CPU)
-    batch = stage_batch(_synthetic_batch(np.random.default_rng(3), b=2), CPU)
-    with pytest.raises(TypeError, match="flash"):
-        train_step(state, batch, cfg)
