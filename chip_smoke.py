@@ -2,14 +2,25 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 1,2e,11b [--root DIR]
+
+With no arguments every phase runs and the last two lines are the result
+lines. ``--phases`` runs the phases named (comma-separated) and prints no
+result line; ``--root`` takes the port's package from another checkout
+(the parent's, unpacked with ``git archive``), so that phase 11b times its
+kernels in the same call.
 
 Phases:
   1. environment: the card's name and power limit; build every CUDA source
      of the port with nvcc (sm_90a) and print ptxas's register, shared
      memory and spill lines and the flash kernels' dynamic shared memory
-     and tile widths;
+     and tile widths; for the bf16 backward kernels also the registers of
+     each warpgroup role (setmaxnreg), the ring stages and the waves of
+     blocks at the timed shapes;
      the tensor-core kernels (MRF, flash forward, flash backward dQ and
-     dK/dV) must not spill, and no wgmma may be serialized;
+     dK/dV) must not spill, and no wgmma may be serialized; the bf16
+     backward kernels must be given at launch the registers their
+     setmaxnreg split asks for;
   2. the MRF resblock kernels against their plain PyTorch version on the
      card, at the generator's four stage shapes (B=4 × 1000 mel frames) for
      k = 3, 7, 11 and 13 (past the templated sizes: the kernels' run-time
@@ -120,13 +131,16 @@ Phases:
      counts read before the forward's timing runs).
   2e. the flash kernels in bf16 (forward with the float32 log-sum-exp, dQ
      with Δ, dK/dV) against their plain versions on the same bf16 inputs,
-     which round where the TPU kernel rounds in bf16, at (4, 2, T, 128)
-     for T = 20, 300, 1000 (both masks that are not prefixes), 2300, 4096
-     and (1, 2, 8192, 128): out within 2^-7 · max|ref|, dq, dk, dv within
-     2^-6, the LSE within 1e-5, rows of length 0 exactly 0, one launch of
-     each bf16 kernel and none of the float32 ones, a rerun bit-identical;
-     and a layout witness whose every product is exact (two-hot P, small
-     integers), which must come out exact;
+     which round where the TPU kernel rounds in bf16 (the forward against
+     the blocked plain version on its own 64-key tiles), at
+     (4, 2, T, 128) for T = 20, 300, 320 (an odd count of streamed tiles,
+     a row of one live tile), 1000 (both masks that are not prefixes),
+     2300, 4096, (1, 2, 8192, 128) and (32, 2, T, 128) for T = 1000 and
+     500 (the recipe's batch, the shapes phase 11b times): out within 2^-7 · max|ref| (its margin printed), dq, dk, dv
+     within 2^-6, the LSE within 1e-5, rows of length 0 exactly 0, one
+     launch of each bf16 kernel and none of the float32 ones, a rerun
+     bit-identical; and a layout witness whose every product is exact
+     (two-hot P, small integers), which must come out exact;
   11. efs2-torch-train on the shipped train_tuned.yaml (batch 32, bf16
      amp, steps_per_call 10) with the ESD preprocess.yaml and model.yaml,
      ``attention_impl: "flash"``, phase 5's corpus, its paths and
@@ -136,19 +150,23 @@ Phases:
      float32 forward launches each and nothing else; the chunk-mean loss
      falls;
   11b. times: the bf16 kernels against their bounds (bf16 rate), plain
-     versions and SDPA in bf16 with the bool mask (forward at T = 2300 and
-     4096, backward at 1000 and 4096); the train step under amp bf16
+     versions and SDPA in bf16 with the bool mask, its backend named
+     (forward at T = 2300 and 4096; backward at B = 4, T = 1000 and 4096,
+     and at the recipe's B = 32, T = 1000 and 500 with seeded key lengths
+     over [T/2, T]); the train step under amp bf16
      "flash", amp bf16 "auto" and float32 "flash" at the bucket
      (128, 1000), B = 4 and 32, median of 10 after 3 warm-ups, in turns.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
 no CUDA device, or without the port's package beside it, it exits 1 at
-once. Its last two lines are the ``kernels`` JSON line and the result line.
+once. Its last two lines are the ``kernels`` JSON line, whose every row
+names the shape its times were taken at (``shape``), and the result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -305,6 +323,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The bf16 backward kernels, warp-specialised with setmaxnreg.
+BF16_BWD_KERNELS = ("flash_mha_bwd_dq_bf16_kernel",
+                    "flash_mha_bwd_dkv_bf16_kernel")
 # The tensor-core kernels, which must compile without spills.
 TC_KERNELS = ("mrf_conv_tc_kernel", "flash_mha_fwd_kernel",
               "flash_mha_bwd_dq_kernel", "flash_mha_bwd_dkv_kernel",
@@ -325,6 +346,7 @@ def phase_environment(smoke: Smoke):
     print(f"  built {sorted(libs)} in {time.time() - t0:.1f} s")
     entries = {k: 0 for k in TC_KERNELS}
     clean = {k: 0 for k in TC_KERNELS}
+    launch_regs = {}  # registers a thread ptxas allocates at launch
     serialized, current = [], ""
     for name in libs:
         for line in build.ptxas_report(name).splitlines():
@@ -341,6 +363,10 @@ def phase_environment(smoke: Smoke):
                 for k in TC_KERNELS:
                     clean[k] += (k in current and "0 bytes spill stores, "
                                  "0 bytes spill loads" in line)
+            elif "Used" in line and "registers" in line:
+                for k in BF16_BWD_KERNELS:
+                    if k in current:
+                        launch_regs[k] = int(line.split("Used")[1].split()[0])
     flash = build.load("flash_mha")
     print(f"  flash_mha_fwd_kernel: {flash.flash_mha_fwd_smem_bytes()} bytes "
           f"of dynamic shared memory a block, "
@@ -354,22 +380,53 @@ def phase_environment(smoke: Smoke):
           f"{bwd.flash_mha_bwd_stream_tile()}-query tiles")
     flash16 = build.load("flash_mha_bf16")
     bwd16 = build.load("flash_mha_bwd_bf16")
+    threads = bwd16.flash_mha_bwd_bf16_threads()
+    producer = bwd16.flash_mha_bwd_bf16_producer_regs()
+    consumer = bwd16.flash_mha_bwd_bf16_consumer_regs()
+    consumers = bwd16.flash_mha_bwd_bf16_consumers()
+    asked = 128 * (producer + consumers * consumer)
+    smem = {"dq": bwd16.flash_mha_bwd_dq_bf16_smem_bytes(),
+            "dkv": bwd16.flash_mha_bwd_dkv_bf16_smem_bytes()}
     print(f"  flash_mha_fwd_bf16_kernel: "
           f"{flash16.flash_mha_fwd_bf16_smem_bytes()} bytes a block, "
           f"{flash16.flash_mha_fwd_bf16_key_tile()}-key tiles; "
-          f"flash_mha_bwd_dq_bf16_kernel: "
-          f"{bwd16.flash_mha_bwd_dq_bf16_smem_bytes()} bytes, "
-          f"flash_mha_bwd_dkv_bf16_kernel: "
-          f"{bwd16.flash_mha_bwd_dkv_bf16_smem_bytes()} bytes a block, "
+          f"flash_mha_bwd_dq_bf16_kernel: {smem['dq']} bytes, "
+          f"{bwd16.flash_mha_bwd_dq_bf16_stages()} ring stages; "
+          f"flash_mha_bwd_dkv_bf16_kernel: {smem['dkv']} bytes, "
+          f"{bwd16.flash_mha_bwd_dkv_bf16_stages()} ring stages; "
           f"{bwd16.flash_mha_bwd_bf16_block_rows()} resident rows, "
-          f"{bwd16.flash_mha_bwd_bf16_stream_tile()}-row streamed tiles")
+          f"{bwd16.flash_mha_bwd_bf16_stream_tile()}-row streamed tiles; "
+          f"{threads} threads a block: a producer warpgroup at {producer} "
+          f"registers a thread and {consumers} consumer warpgroups at "
+          f"{consumer} (setmaxnreg: {asked} a block); ptxas allocates "
+          f"{launch_regs} a thread at launch")
+    # One block an SM (shared memory and registers), so a launch's blocks
+    # run in waves of one block per SM.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = {k: min(233472 // (v + 1024), 65536 // (threads * max(
+        launch_regs.values(), default=1))) for k, v in smem.items()}
+    for b, t, lens in bwd_timed_cases():
+        dq_blocks = b * 2 * math.ceil(t / 64)
+        live = 2 * sum(math.ceil(n / 64) for n in lens)
+        print(f"  bf16 backward at ({b}, 2, {t}, 128), key lengths "
+              f"{lens if b <= 4 else f'{min(lens)}..{max(lens)}'}: dQ "
+              f"{dq_blocks} blocks = {dq_blocks / (sms * per_sm['dq']):.2f} "
+              f"waves, dK/dV {live} live of {dq_blocks} blocks = "
+              f"{live / (sms * per_sm['dkv']):.2f} waves ({per_sm} a SM, "
+              f"{sms} SMs)")
     smoke.check(bool(libs), "CUDA sources built")
+    smoke.check(all(launch_regs.get(k, 0) * threads >= asked
+                    for k in BF16_BWD_KERNELS),
+                f"bf16 backward kernels: {launch_regs} registers a thread "
+                f"at launch x {threads} threads hold the {asked} their "
+                f"setmaxnreg split asks for")
     for k in TC_KERNELS:
         smoke.check(entries[k] > 0 and clean[k] == entries[k],
                     f"{k}: {clean[k]} of {entries[k]} instantiations "
                     f"without spills")
     smoke.check(not serialized, f"no serialized wgmma ({len(serialized)} "
                                 f"ptxas warnings)")
+    return libs
 
 
 def random_resblock(c: int, k: int, gen, device, dtype):
@@ -1069,7 +1126,9 @@ def phase_long_times(synth):
                 forced[name] = cuda_time_ms(sdpa, iters)
         ran = min(forced, key=lambda n: abs(forced[n] - lib))
         bd = flash_bounds_ms(mask)
-        rows[t] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+        rows[t] = {"shape": f"({b}, 2, {t}, 128) float32, valid keys "
+                            f"{case_rows}",
+                   "ms": ms, "plain_ms": plain, "library_ms": lib,
                    "bound_ms": bd["tf32_live"], "bound_by": bd["bound_by"]}
         print(f"  flash_mha float32 (B, H, T, D) = ({b}, 2, {t}, 128), valid "
               f"keys {case_rows}: kernel {ms:.4f} ms "
@@ -1556,7 +1615,9 @@ def phase_train_times(device):
         bd = {}
         for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
             bd[name] = flash_bwd_bounds_ms(mask, name)
-            rows[(name, t)] = {"ms": ms, "plain_ms": plain,
+            rows[(name, t)] = {"shape": f"(4, 2, {t}, 128) float32, key "
+                                        f"lengths {lens}",
+                               "ms": ms, "plain_ms": plain,
                                "bound_ms": bd[name]["live"],
                                "bound_by": bd[name]["bound_by"],
                                "library_ms": lib}
@@ -2794,22 +2855,51 @@ def phase_entry_points(smoke: Smoke, device):
 # The bf16 kernels against their plain versions (which round where the TPU
 # kernel rounds in bf16): the float32 kernels' cases, the mask with wholly
 # padded 64-key blocks in the middle of rows too.
+# At T = 320 the streamed tiles are 5 (an odd count: the backward's two
+# consumers take 3 and 2) and a row of 64 keys has one live tile; the
+# recipe's batch of 32 at RECIPE_BWD_TIMED is added in the phase
+# (recipe_lengths).
 FLASH_BF16_CASES = ((4, 20, prefixes(20, 1, 0, 13)),
                     (4, 300, prefixes(300, 37, 0, 211)),
+                    (4, 320, prefixes(320, 64, 0, 200)),
                     (4, 1000, FLASH_HOLES), (4, 1000, FLASH_BLOCK_HOLES),
                     (4, 2300, prefixes(2300, 63, 0, 2049)),
                     (4, 4096, prefixes(4096, 1, 0, 3001)),
                     (1, 8192, prefixes(8100)))
 # Kernel and plain version round the same float32 values to bf16 at the
-# same points, but sum in another order (online, tile by tile, against
-# cuBLAS), which can flip a bf16 rounding of P or dS and of the stored
-# output: out within 2^-7 · max|ref|, dq, dk, dv within 2^-6 · max|ref|.
+# same points (the forward's plain version: flash_mha_blocked_plain on the
+# kernel's own key tiles), but sum in another order (online, tile by tile,
+# against cuBLAS), which can flip a bf16 rounding of P or dS and of the
+# stored output: out within 2^-7 · max|ref|, dq, dk, dv within
+# 2^-6 · max|ref|.
 FLASH_BF16_OUT_REL = 2.0 ** -7
 FLASH_BF16_GRAD_REL = 2.0 ** -6
 # Keys per tile in which the bounds count live keys: the float32 kernels'
 # 32 (the bf16 kernels skip in 64-key tiles; a tile of 32 with no valid
 # key is work no kernel needs).
 BOUND_KEY_TILE = 32
+
+# The bf16 backward's timed shapes (phase 11b): B = 4 at T = 1000 and 4096
+# with key lengths (T, 3T/4, T/2, T/4); and the tuned recipe's batch of 32
+# at the 1000-frame bucket and at 500, the T of the recipe's header, with
+# seeded key lengths over [T/2, T].
+RECIPE_BWD_TIMED = ((32, 1000), (32, 500))
+
+
+def recipe_lengths(b: int, t: int) -> tuple[int, ...]:
+    """``b`` key lengths drawn from a seed over [T/2, T]."""
+    import numpy as np
+
+    rng = np.random.default_rng(t)
+    return tuple(int(n) for n in rng.integers(t // 2, t + 1, size=b))
+
+
+def bwd_timed_cases():
+    """(B, T, key lengths) of the bf16 backward's timed shapes."""
+    return ([(4, t, (t, 3 * t // 4, t // 2, t // 4))
+             for t in FLASH_BWD_TIMED]
+            + [(b, t, recipe_lengths(b, t)) for b, t in RECIPE_BWD_TIMED])
+
 
 # Phase 11: train_tuned.yaml (batch 32, bf16 amp, steps_per_call 10) under
 # "flash" through efs2-torch-train, on phase 5's corpus, 20 steps in two
@@ -2874,10 +2964,16 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
 
+    from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
+
     gen = torch.Generator().manual_seed(10)
     scale = 128 ** -0.5
+    key_tile = build.load("flash_mha_bf16").flash_mha_fwd_bf16_key_tile()
     worst = [0.0, 0.0, 0.0]
-    for b, t, rows in FLASH_BF16_CASES:
+    margin = 0.0  # the forward's worst max|diff| over its bound
+    recipe = tuple((b, t, prefixes(*recipe_lengths(b, t)))
+                   for b, t in RECIPE_BWD_TIMED)
+    for b, t, rows in FLASH_BF16_CASES + recipe:
         q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
                          for x in flash_inputs(b, t, rows, gen))
         dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
@@ -2886,7 +2982,7 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
         launched = (bf16_counts(), flash_counts())
-        ref = fa.flash_mha_plain(q, k, v, mask, scale)
+        ref = fa.flash_mha_blocked_plain(q, k, v, mask, scale, key_tile)
         refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
         line = []
         ok = launched == ((1, 1, 1), (0, 0, 0))
@@ -2898,6 +2994,8 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
             ok &= (x.dtype == torch.bfloat16 and math.isfinite(diff)
                    and diff <= bound)
             worst[min(i, 2)] = max(worst[min(i, 2)], diff)
+            if name == "out":
+                margin = max(margin, diff / bound)
             line.append(f"{name} {diff:.3e} (bound {bound:.3e})")
         lse_ref = fa.flash_mha_lse_plain(q, k, mask, scale)
         finite = torch.isfinite(lse_ref)
@@ -2914,8 +3012,10 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
         same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
                 and all(torch.equal(a, g)
                         for a, g in zip(again_grads, grads)))
+        shown = (rows if b <= 4 else f"prefixes of "
+                 f"{min(r[0][1] for r in rows)}..{max(r[0][1] for r in rows)}")
         smoke.check(ok and same,
-                    f"bf16 B={b} T={t:5d} rows={rows}: max|diff| "
+                    f"bf16 B={b} T={t:5d} rows={shown}: max|diff| "
                     f"{', '.join(line)}; lse {lse_diff:.3e}; launches "
                     f"(bf16, float32) {launched}; rows of length 0 exactly "
                     f"0; a rerun bit-identical: {same}")
@@ -2936,6 +3036,9 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
                 f"layout witness (2, 2, 192, 128), two-hot P: out, dq, dk, "
                 f"dv exact (elements off: {wrong}; nonzero in the "
                 f"reference: {nonzero})")
+    print(f"  bf16 forward against flash_mha_blocked_plain on its "
+          f"{key_tile}-key tiles: worst max|diff| {margin:.3f} of its "
+          f"2^-7 · max|ref| bound")
     return worst
 
 
@@ -3087,16 +3190,19 @@ def phase_tuned_training(smoke: Smoke, device):
 
 def phase_bf16_times(device):
     """Phase 11b: the bf16 kernels against their bounds, their plain
-    versions and SDPA in bf16 with the bool mask (forward at the
-    long-form shapes, backward at the training bucket's T = 1000 and at
-    4096), and the train step under amp bf16 "flash", amp bf16 "auto" and
-    float32 "flash" at the bucket (128, 1000), B = 4 and 32, in turns.
-    Returns the kernels' rows (forward at T = 4096, backward at 1000)."""
+    versions and SDPA in bf16 with the bool mask, its backend named
+    (forward at the long-form shapes; backward at bwd_timed_cases(): the
+    training bucket's T = 1000 and 4096 at B = 4, the recipe's B = 32 at
+    T = 1000 and 500), and the train step under amp bf16 "flash", amp bf16
+    "auto" and float32 "flash" at the bucket (128, 1000), B = 4 and 32, in
+    turns. Returns the kernels' rows: the forward at T = 4096, the
+    backward at (4, 2, 1000, 128)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
     from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
         stage_batch,
@@ -3106,6 +3212,13 @@ def phase_bf16_times(device):
     gen = torch.Generator().manual_seed(11)
     scale = 128 ** -0.5
     iters = 20
+    key_tile = build.load("flash_mha_bf16").flash_mha_fwd_bf16_key_tile()
+    # The forward kernel's plain version, blocked on its key tiles (an
+    # older checkout, driven through --root, may have only the unblocked
+    # one).
+    forward_plain = getattr(fa, "flash_mha_blocked_plain",
+                            lambda q, k, v, mask, scale, _: fa.flash_mha_plain(
+                                q, k, v, mask, scale))
     rows = {}
 
     def sdpa_backend(fn):
@@ -3130,13 +3243,15 @@ def phase_bf16_times(device):
                          for x in flash_inputs(b, t, case_rows, gen))
         keep = ~mask[:, None, None, :]
         ms = cuda_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale), iters)
-        plain = cuda_time_ms(lambda: fa.flash_mha_plain(q, k, v, mask,
-                                                        scale), iters)
+        plain = cuda_time_ms(lambda: forward_plain(
+            q, k, v, mask, scale, key_tile), iters)
         lib, ran, forced = sdpa_backend(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
                                                    scale=scale))
         bd = flash_bf16_bounds_ms(mask, "fwd")
-        rows[("fwd", t)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+        rows[("fwd", t)] = {"shape": f"({b}, 2, {t}, 128) bf16, valid keys "
+                                     f"{case_rows}",
+                            "ms": ms, "plain_ms": plain, "library_ms": lib,
                             "bound_ms": bd["live"], "bound_by": bd["bound_by"]}
         print(f"  flash_mha bf16 ({b}, 2, {t}, 128), valid keys {case_rows}:"
               f" kernel {ms:.4f} ms ({bd['flops_live'] / ms / 1e9:.1f} TF/s"
@@ -3148,10 +3263,9 @@ def phase_bf16_times(device):
               f" [{card}]", flush=True)
         del q, k, v, mask, keep
 
-    for t in FLASH_BWD_TIMED:
-        lens = (t, 3 * t // 4, t // 2, t // 4)
+    for b, t, lens in bwd_timed_cases():
         q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
-                         for x in flash_inputs(4, t, prefixes(*lens), gen))
+                         for x in flash_inputs(b, t, prefixes(*lens), gen))
         dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         _, delta = fa._flash_mha_bwd_dq_cuda(q, k, v, mask, out, dout, lse,
@@ -3167,23 +3281,33 @@ def phase_bf16_times(device):
             qs, ks, vs, attn_mask=~mask[:, None, None, :], scale=scale)
         lib = cuda_time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), dout, retain_graph=True), iters)
+        # The backend SDPA's dispatch picks for these inputs, whose
+        # backward the autograd graph holds.
+        ran = SDPBackend(torch._fused_sdp_choice(
+            qs, ks, vs, ~mask[:, None, None, :], 0.0, False,
+            scale=scale)).name.lower()
         bd = {name: flash_bf16_bounds_ms(mask, name)
               for name in ("dq", "dkv", "both")}
         for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
-            rows[(name, t)] = {"ms": ms, "plain_ms": plain,
-                               "bound_ms": bd[name]["live"],
-                               "bound_by": bd[name]["bound_by"],
-                               "library_ms": lib}
+            rows[(name, b, t)] = {"shape": f"({b}, 2, {t}, 128) bf16, key "
+                                           f"lengths {lens}",
+                                  "ms": ms, "plain_ms": plain,
+                                  "bound_ms": bd[name]["live"],
+                                  "bound_by": bd[name]["bound_by"],
+                                  "library_ms": lib}
         flops = 14 * 2 * t * BOUND_KEY_TILE * bd["both"]["live_tiles"] * 128
-        print(f"  flash_mha backward bf16 (4, 2, {t}, 128), key lengths "
-              f"{lens}: dQ kernel {dq_ms:.4f} ms (bound "
+        shown = lens if b <= 4 else f"{b} seeded in [{t // 2}, {t}]"
+        print(f"  flash_mha backward bf16 ({b}, 2, {t}, 128), key lengths "
+              f"{shown}: dQ kernel {dq_ms:.4f} ms (bound "
               f"{bd['dq']['live']:.4f} live, {bd['dq']['dense']:.4f} dense),"
               f" dK/dV kernel {dkv_ms:.4f} ms (bound {bd['dkv']['live']:.4f}"
               f" live, {bd['dkv']['dense']:.4f} dense), together "
               f"{dq_ms + dkv_ms:.4f} ms = {flops / (dq_ms + dkv_ms) / 1e9:.1f}"
               f" TF/s over the live tiles; whole-backward bound "
               f"{bd['both']['live']:.4f} ms; plain backward {plain:.4f} ms; "
-              f"SDPA bf16 backward {lib:.4f} ms [{card}]", flush=True)
+              f"SDPA bf16 backward {lib:.4f} ms (the {ran} backend); "
+              f"pair / SDPA {(dq_ms + dkv_ms) / lib:.3f} [{card}]",
+              flush=True)
         del q, k, v, mask, dout, out, lse, delta, qs, ks, vs, o
 
     steps = {}
@@ -3213,16 +3337,37 @@ def phase_bf16_times(device):
               f"'flash' / amp bf16 'auto' = "
               f"{bf16_flash / steps[(b, 'bfloat16', 'auto')]:.3f}")
     return {"fwd": rows[("fwd", max(FLASH_TIMED))],
-            "dq": rows[("dq", min(FLASH_BWD_TIMED))],
-            "dkv": rows[("dkv", min(FLASH_BWD_TIMED))]}
+            "dq": rows[("dq", 4, min(FLASH_BWD_TIMED))],
+            "dkv": rows[("dkv", 4, min(FLASH_BWD_TIMED))]}
 
 
-def main() -> int:
-    if not (ROOT / PKG / "__init__.py").exists():
-        print(f"chip_smoke: the package {PKG} is not beside this script",
+# Every phase, in the order a whole run takes them.
+PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
+          "7", "8", "8b", "9", "10", "11", "11b")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one NVIDIA GPU and check it.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all, "
+                             "and the result lines); 3b, 4 and 4b need 3")
+    parser.add_argument("--root", type=Path, default=ROOT,
+                        help="checkout whose package to drive (default: "
+                             "this script's)")
+    args = parser.parse_args(argv)
+    chosen = args.phases.split(",")
+    whole = tuple(chosen) == PHASES
+    unknown = sorted(set(chosen) - set(PHASES))
+    if unknown or ({"3b", "4", "4b"} & set(chosen) and "3" not in chosen):
+        parser.error(f"phases {unknown or chosen}: not a phase, or 3b, 4, "
+                     f"4b without 3")
+    root = args.root.resolve()
+    if not (root / PKG / "__init__.py").exists():
+        print(f"chip_smoke: the package {PKG} is not in {root}",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     import torch
 
     if not torch.cuda.is_available():
@@ -3233,62 +3378,66 @@ def main() -> int:
     device = torch.device("cuda")
     smoke = Smoke()
     t_start = time.time()
+    results = {}
 
-    smoke.phase("1. environment and build", phase_environment, smoke)
-    worst = smoke.phase("2. mrf_resblock kernel vs plain on the card",
-                        phase_mrf_vs_plain, smoke, device)
-    worst_flash = smoke.phase("2b. flash_mha kernel vs plain on the card",
-                              phase_flash_vs_plain, smoke)
-    worst_long = smoke.phase("2c. mrf_resblock kernel vs plain at the "
-                             "long-form and streaming shapes",
-                             phase_long_kernel_vs_plain, smoke, device)
-    worst_bwd = smoke.phase("2d. flash_mha backward kernels vs plain on "
-                            "the card", phase_flash_bwd_vs_plain, smoke)
-    worst_bf16 = smoke.phase("2e. flash_mha bf16 kernels vs plain on the "
-                             "card", phase_flash_bf16_vs_plain, smoke)
-    main_run = smoke.phase("3. main path: Synthesizer.synthesize",
-                           phase_main_path, smoke, device, TEXTS, EMOTIONS)
+    def run(key, name, fn, *fn_args):
+        if key in chosen:
+            results[key] = smoke.phase(f"{key}. {name}", fn, *fn_args)
+        return results.get(key)
+
+    run("1", "environment and build", phase_environment, smoke)
+    worst = run("2", "mrf_resblock kernel vs plain on the card",
+                phase_mrf_vs_plain, smoke, device)
+    worst_flash = run("2b", "flash_mha kernel vs plain on the card",
+                      phase_flash_vs_plain, smoke)
+    worst_long = run("2c", "mrf_resblock kernel vs plain at the long-form "
+                     "and streaming shapes", phase_long_kernel_vs_plain,
+                     smoke, device)
+    worst_bwd = run("2d", "flash_mha backward kernels vs plain on the card",
+                    phase_flash_bwd_vs_plain, smoke)
+    worst_bf16 = run("2e", "flash_mha bf16 kernels vs plain on the card",
+                     phase_flash_bf16_vs_plain, smoke)
+    main_run = run("3", "main path: Synthesizer.synthesize", phase_main_path,
+                   smoke, device, TEXTS, EMOTIONS)
     flash_launches = totals = flash_row = None
     if main_run is not None:
-        flash_launches = smoke.phase(
-            "3b. long-form path: synthesize(max_mel_len=4096) and "
+        flash_launches = run(
+            "3b", "long-form path: synthesize(max_mel_len=4096) and "
             "synthesize_streaming", phase_long_form, smoke, device,
             main_run[0])
-        totals = smoke.phase("4. times", phase_times, main_run[0], TEXTS,
-                             EMOTIONS)
-        flash_row = smoke.phase("4b. times: long-form path and flash kernel",
-                                phase_long_times, main_run[0])
-    train_launches = smoke.phase("5. training: train() under "
-                                 "attention_impl='flash'", phase_training,
-                                 smoke, device)
-    bwd_rows = smoke.phase("6. times: train step and flash backward "
-                           "kernels", phase_train_times, device)
-    dsp = smoke.phase("7. DSP, Griffin-Lim and MelGAN on the card",
-                      phase_dsp_vocoders, smoke, device, TEXTS, EMOTIONS)
-    voc_launches = smoke.phase("8. HiFi-GAN GAN training at full width",
-                               phase_vocoder_training, smoke, device, TEXTS,
-                               EMOTIONS)
-    voc_times = smoke.phase("8b. times: GAN step", phase_vocoder_times,
-                            device)
-    features = smoke.phase("9. feature extraction and GTA fine-tuning at "
-                           "full width", phase_features_gta, smoke, device,
-                           TEXTS, EMOTIONS)
-    entry = smoke.phase("10. entry points: the Quick start through the "
-                        "CLIs", phase_entry_points, smoke, device)
-    tuned = smoke.phase("11. efs2-torch-train on train_tuned.yaml (bf16 "
-                        "amp) under attention_impl='flash'",
-                        phase_tuned_training, smoke, device)
-    bf16_rows = smoke.phase("11b. times: bf16 flash kernels and the amp "
-                            "bf16 train step", phase_bf16_times, device)
+        totals = run("4", "times", phase_times, main_run[0], TEXTS, EMOTIONS)
+        flash_row = run("4b", "times: long-form path and flash kernel",
+                        phase_long_times, main_run[0])
+    train_launches = run("5", "training: train() under "
+                         "attention_impl='flash'", phase_training, smoke,
+                         device)
+    bwd_rows = run("6", "times: train step and flash backward kernels",
+                   phase_train_times, device)
+    dsp = run("7", "DSP, Griffin-Lim and MelGAN on the card",
+              phase_dsp_vocoders, smoke, device, TEXTS, EMOTIONS)
+    voc_launches = run("8", "HiFi-GAN GAN training at full width",
+                       phase_vocoder_training, smoke, device, TEXTS,
+                       EMOTIONS)
+    voc_times = run("8b", "times: GAN step", phase_vocoder_times, device)
+    features = run("9", "feature extraction and GTA fine-tuning at full "
+                   "width", phase_features_gta, smoke, device, TEXTS,
+                   EMOTIONS)
+    entry = run("10", "entry points: the Quick start through the CLIs",
+                phase_entry_points, smoke, device)
+    tuned = run("11", "efs2-torch-train on train_tuned.yaml (bf16 amp) "
+                "under attention_impl='flash'", phase_tuned_training, smoke,
+                device)
+    bf16_rows = run("11b", "times: bf16 flash kernels and the amp bf16 "
+                    "train step", phase_bf16_times, device)
     print(f"== done in {time.time() - t_start:.1f} s")
-    if (smoke.failures or None in (worst, worst_flash, worst_long,
-                                   flash_launches, totals, flash_row,
-                                   worst_bwd, train_launches, bwd_rows,
-                                   dsp, voc_launches, voc_times, features,
-                                   entry, worst_bf16, tuned, bf16_rows)):
+    if smoke.failures or any(results.get(key) is None for key in chosen):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
               file=sys.stderr)
         return 1
+    if not whole:
+        print(f"chip_smoke: phases {','.join(chosen)} of {root} ok (not "
+              f"the whole run: no result lines)")
+        return 0
 
     _, launches = main_run
     kernels = [{
@@ -3299,6 +3448,9 @@ def main() -> int:
                     "mrf_resblock.py:185",
         "launches": launches + entry["launches"]["mrf_resblock"],
         "max_abs_err": max(worst, worst_long),
+        "shape": f"{len(STAGE_SHAPES) * len(KERNEL_SIZES)} resblocks bf16, "
+                 f"B = {BATCH}, (C, T) in {list(STAGE_SHAPES)}, k in "
+                 f"{list(KERNEL_SIZES)}",
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],

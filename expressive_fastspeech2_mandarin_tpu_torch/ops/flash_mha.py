@@ -27,10 +27,12 @@ dtype: ``csrc/flash_mha_bwd.cu`` (``bwd_dq_launch_count``,
 (``bf16_bwd_dq_launch_count``, ``bf16_bwd_dkv_launch_count``). The kernels
 take float32 or bfloat16 (every tensor in one dtype), D = 128, contiguous
 tensors and a bool mask on the same device, or raise. The bf16 kernels
-round where the TPU kernel rounds in bf16: P to bf16 before P·V, Pᵀ and
-dS·sm_scale to bf16 before their products, the outputs stored in bf16,
-everything else float32. On CPU tensors the plain versions run:
-``flash_mha_plain`` forward, ``flash_mha_bwd_plain`` backward, with the
+round where the TPU kernel rounds in bf16: the unnormalised P of each key
+tile to bf16 before P·V, Pᵀ and dS·sm_scale to bf16 before their
+products, the outputs stored in bf16, everything else float32. On CPU
+tensors the plain versions run: the forward ``flash_mha_plain`` (float32
+and float64) or, for bf16, ``flash_mha_blocked_plain`` on the TPU
+kernel's 128-key blocks; the backward ``flash_mha_bwd_plain``, with the
 same rounding points for bf16 inputs. Nothing else selects between kernel
 and plain version. The kernels mask keys only, so they equal the plain
 versions at every query row; the TPU kernel agrees with both at the valid
@@ -48,6 +50,9 @@ HEAD_DIM = 128
 # As in the JAX package (flash_mha.py:supported), the kernel is taken past
 # the reference's 2000-frame cap.
 MIN_SEQ_LEN = 2048
+# Key block of the JAX package's TPU kernel (ops/pallas/flash_mha.py:_BLOCK),
+# where it rounds the unnormalised probabilities in bf16.
+JAX_BLOCK = 128
 
 # Kernel launches on CUDA tensors: the forward, the dQ kernel (with Δ) and
 # the dK/dV kernel, float32 and bfloat16.
@@ -90,25 +95,71 @@ def masked_softmax(scores: torch.Tensor) -> torch.Tensor:
     return e / torch.where(s == 0.0, torch.ones_like(s), s)
 
 
-def _probabilities(q, k, key_padding_mask, sm_scale, dt):
+def _scores(q, k, key_padding_mask, sm_scale, dt):
     scores = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * sm_scale
-    scores = scores.masked_fill(key_padding_mask[:, None, None, :],
-                                float("-inf"))
-    return masked_softmax(scores)
+    return scores.masked_fill(key_padding_mask[:, None, None, :],
+                              float("-inf"))
+
+
+def _probabilities(q, k, key_padding_mask, sm_scale, dt):
+    return masked_softmax(_scores(q, k, key_padding_mask, sm_scale, dt))
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: torch.Tensor,
                     sm_scale: float) -> torch.Tensor:
-    """Plain PyTorch attention on (B, H, T, D), the forward kernels'
-    reference: float32 scores (float64 for float64 inputs), ``-inf`` at
-    padded keys, the probabilities cast to v's dtype before the second
-    product (bf16 for bf16 inputs, as the TPU kernel rounds P), the output
-    in the inputs' dtype."""
+    """Plain PyTorch attention on (B, H, T, D), the float32 forward
+    kernel's reference and the math path ("xla"): float32 scores (float64
+    for float64 inputs), ``-inf`` at padded keys, the normalised
+    probabilities cast to v's dtype before the second product (bf16 for
+    bf16 inputs, as the JAX package's math path rounds them,
+    ``ops/attention.py:69`` there), the output in the inputs' dtype."""
     dt = torch.promote_types(q.dtype, torch.float32)
     attn = _probabilities(q, k, key_padding_mask, sm_scale, dt)
     out = torch.matmul(attn.to(v.dtype).to(dt), v.to(dt))
     return out.to(q.dtype)
+
+
+def flash_mha_blocked_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, key_padding_mask: torch.Tensor,
+                            sm_scale: float, block: int) -> torch.Tensor:
+    """Plain PyTorch attention on (B, H, T, D) as an online softmax over
+    blocks of ``block`` keys, the flash kernels' bf16 reference: the TPU
+    kernel's arithmetic (JAX 0.9.0 ``flash_attention.py:447-474``) in
+    float32 (float64 for float64 inputs). Per block, with m the running row
+    max and l the running sum::
+
+        p = exp(s − m_next),  α = exp(m_prev − m_next),  l_next = Σp + α·l
+        acc = acc · (α·l / l_next) + (p in v's dtype) v / l_next
+
+    so p is rounded (to bf16 for bf16 inputs) before its product
+    *unnormalised*, where ``flash_mha_plain`` rounds the normalised
+    probabilities. A block with no valid key for a row adds nothing (on
+    the TPU α clears it); a row with no valid key is 0. The output is in
+    the inputs' dtype."""
+    dt = torch.promote_types(q.dtype, torch.float32)
+    scores = _scores(q, k, key_padding_mask, sm_scale, dt)
+    v = v.to(dt)
+    acc = torch.zeros(scores.shape[:-1] + (v.shape[-1],), dtype=dt,
+                      device=q.device)
+    m = torch.full(scores.shape[:-1] + (1,), float("-inf"), dtype=dt,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, scores.shape[-1], block):
+        s = scores[..., k0:k0 + block]
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        seen = torch.isfinite(m_next)  # some valid key so far
+        shift = torch.where(seen, m_next, torch.zeros_like(m_next))
+        p = torch.exp(s - shift)
+        alpha = torch.where(seen, torch.exp(m - shift), torch.zeros_like(m))
+        l_corr = alpha * l
+        l_next = p.sum(dim=-1, keepdim=True) + l_corr
+        inv = torch.where(l_next == 0.0, torch.ones_like(l_next),
+                          1.0 / l_next)
+        o = torch.matmul(p.to(q.dtype).to(dt), v[..., k0:k0 + block, :])
+        acc = acc * (l_corr * inv) + o * inv
+        m, l = m_next, l_next
+    return acc.to(q.dtype)
 
 
 def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,10 +200,8 @@ def flash_mha_lse_plain(q: torch.Tensor, k: torch.Tensor,
     sentinel, which makes every recomputed probability 0) for a row with
     no valid key."""
     dt = torch.promote_types(q.dtype, torch.float32)
-    scores = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * sm_scale
-    scores = scores.masked_fill(key_padding_mask[:, None, None, :],
-                                float("-inf"))
-    lse = torch.logsumexp(scores, dim=-1)
+    lse = torch.logsumexp(_scores(q, k, key_padding_mask, sm_scale, dt),
+                          dim=-1)
     return lse.masked_fill(torch.isneginf(lse), float("inf"))
 
 
@@ -305,6 +354,17 @@ def _flash_mha_bwd_cuda(q, k, v, key_padding_mask, out, dout, lse, sm_scale):
     return dq, dk, dv
 
 
+def _flash_mha_cpu(q, k, v, key_padding_mask, sm_scale):
+    """The CPU stand-in for the forward kernels: on bf16 inputs the blocked
+    plain version on the JAX package's 128-key blocks (``flash_mha.py:22``
+    there), so P is rounded where the TPU kernel rounds it; else
+    ``flash_mha_plain``."""
+    if q.dtype == torch.bfloat16:
+        return flash_mha_blocked_plain(q, k, v, key_padding_mask, sm_scale,
+                                       JAX_BLOCK)
+    return flash_mha_plain(q, k, v, key_padding_mask, sm_scale)
+
+
 def _device_type(q: torch.Tensor) -> str:
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_mha runs on cuda or cpu, not {q.device}")
@@ -322,7 +382,7 @@ class FlashMHA(torch.autograd.Function):
             out, lse = _flash_mha_cuda(q, k, v, key_padding_mask, sm_scale,
                                        with_lse=True)
         else:
-            out = flash_mha_plain(q, k, v, key_padding_mask, sm_scale)
+            out = _flash_mha_cpu(q, k, v, key_padding_mask, sm_scale)
             lse = None
         ctx.sm_scale = sm_scale
         ctx.lse = lse
@@ -354,4 +414,4 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device_type(q) == "cuda":
         return _flash_mha_cuda(q, k, v, key_padding_mask, sm_scale,
                                with_lse=False)[0]
-    return flash_mha_plain(q, k, v, key_padding_mask, sm_scale)
+    return _flash_mha_cpu(q, k, v, key_padding_mask, sm_scale)

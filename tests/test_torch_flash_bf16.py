@@ -14,6 +14,11 @@ tests/test_torch_kernels_gpu.py).
   dk and dv within 2⁻⁶·max|g| at every row. Measured: out 4.3e-3 and
   3.6e-3 (about one bf16 ulp of the largest value), dq 4.4e-3 and 1.5e-3,
   dk 4.4e-3 and 2.1e-3, dv 1.0e-3 and 2.0e-3.
+* The CPU "flash" forward on bf16 inputs (``flash_mha_blocked_plain`` on
+  the TPU kernel's 128-key blocks) against the TPU kernel: at least 99 %
+  of the output elements bit-equal in bf16 (rounding the normalised
+  probabilities, as the math path does, leaves about half); the blocked
+  version in float64 is the softmax.
 * The plain versions' bf16 rounding points, and float32 unchanged.
 * One amp-bf16 train step under ``attention_impl="flash"`` at hidden 256
   (two heads of 128) against the JAX step under ``amp_dtype="bfloat16"``
@@ -119,11 +124,70 @@ def test_bf16_op_matches_jax_tpu_kernel(t, lens):
     assert np.abs(dq).max() > 1e-2 and np.abs(dk).max() > 1e-2
 
 
+# The CPU "flash" forward on bf16 inputs against the TPU kernel: the share
+# of output elements (valid query rows) equal in bf16 bit for bit. The TPU
+# kernel rounds the unnormalised p of each 128-key block to bf16 before
+# P·V (flash_attention.py:447, :473-474); rounding the normalised
+# probabilities instead, as the math path does, leaves about half of the
+# elements one bf16 ulp off (measured 0.511, 0.516, 0.511 at T = 256, 300,
+# 640); the blocked plain version on the TPU kernel's blocks leaves 0.999,
+# 0.999, 0.998 equal, the rest within float32 sums in another order.
+FLASH_BF16_EQUAL_SHARE = 0.99
+
+
+@pytest.mark.parametrize("t,lens", [(256, (256, 100)), (300, (300, 171)),
+                                    (640, (640, 333))])
+def test_bf16_cpu_flash_rounds_p_where_the_tpu_kernel_does(t, lens):
+    q, k, v, _, mask = _inputs(t, lens, seed=t)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_mha(*(jnp.asarray(a, jnp.bfloat16)
+                              for a in (q, k, v)), jnp.asarray(mask), SCALE)
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = fm.flash_mha(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                       torch.from_numpy(mask), SCALE)
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    rows = [(i, n) for i, n in enumerate(lens)]
+    equal = (sum(int((out[i, :, :n] == ref[i, :, :n]).sum()) for i, n in rows)
+             / sum(out[i, :, :n].size for i, n in rows))
+    assert equal >= FLASH_BF16_EQUAL_SHARE, equal
+    assert max(np.abs(out[i, :, :n] - ref[i, :, :n]).max()
+               for i, n in rows) <= OUT_REL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("block", [64, 128])
+def test_blocked_plain_is_the_softmax_in_exact_arithmetic(block):
+    """flash_mha_blocked_plain on float64 inputs is the masked softmax
+    attention (no rounding to undo), for blocks wholly padded at the start
+    of a row (and, at 64 keys, in its middle), a row of one valid key and
+    one of none; on bf16 inputs it rounds p per block, and its output is
+    bf16."""
+    t = 300
+    rng = np.random.default_rng(block)
+    q, k, v = (torch.from_numpy(rng.normal(size=(4, 2, t, 128)))
+               for _ in range(3))
+    mask = torch.ones(4, t, dtype=torch.bool)
+    mask[0, 140:150] = False  # keys [0, 128) and [192, 256) padded
+    mask[0, 270:300] = False
+    mask[1, :] = False
+    mask[2, 299] = False
+    out = fm.flash_mha_blocked_plain(q, k, v, mask, SCALE, block)
+    ref = fm.flash_mha_plain(q, k, v, mask, SCALE)
+    assert out.dtype == torch.float64
+    assert (out - ref).abs().max() <= 1e-12 * ref.abs().max()
+    assert torch.count_nonzero(out[3]) == 0
+    low = fm.flash_mha_blocked_plain(*(x.bfloat16() for x in (q, k, v)),
+                                     mask, SCALE, block)
+    assert low.dtype == torch.bfloat16
+    assert (low.double() - ref).abs().max() <= OUT_REL * ref.abs().max()
+
+
 def test_bf16_plain_rounds_where_the_tpu_kernel_does():
-    """flash_mha_plain / flash_mha_bwd_plain on bf16 inputs against the
-    formulas with bf16 rounding at the TPU kernel's points, written out in
-    float64; on float32 inputs the same calls are bit for bit the float32
-    formulas, unrounded."""
+    """flash_mha_plain (the math path: the normalised P rounded) and
+    flash_mha_bwd_plain (the TPU kernel's points) on bf16 inputs against
+    the formulas with those bf16 roundings, written out in float64; on
+    float32 inputs the same calls are bit for bit the float32 formulas,
+    unrounded."""
     lens = (40, 0, 17)
     q, k, v, dout, mask = _inputs(40, lens, seed=5)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
@@ -180,7 +244,8 @@ def test_bf16_cpu_gradient_is_the_plain_backward_without_launches():
             fm.bf16_bwd_dkv_launch_count, fm.launch_count,
             fm.bwd_dq_launch_count, fm.bwd_dkv_launch_count) == counts
     args = [x.detach() for x in (tq, tk, tv)]
-    assert torch.equal(out.detach(), fm.flash_mha_plain(*args, tmask, SCALE))
+    assert torch.equal(out.detach(), fm.flash_mha_blocked_plain(
+        *args, tmask, SCALE, fm.JAX_BLOCK))
     ref = fm.flash_mha_bwd_plain(*args, tmask, out.detach(), tdo, SCALE)
     for g, r in zip((tq.grad, tk.grad, tv.grad), ref):
         assert torch.equal(g, r)

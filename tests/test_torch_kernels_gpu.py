@@ -362,8 +362,10 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
 
 # The bf16 flash kernels (csrc/flash_mha_bf16.cu, csrc/flash_mha_bwd_bf16.cu)
 # against their plain versions on the same bf16 inputs, which round where the
-# TPU kernel rounds in bf16 (P before P·V; Pᵀ and dS·sm_scale before their
-# products; the outputs): out within 2^-7 · max|ref| and the float32 LSE
+# TPU kernel rounds in bf16 (the unnormalised P of each key tile before P·V:
+# the forward's plain version is flash_mha_blocked_plain on the kernel's
+# 64-key tiles; Pᵀ and dS·sm_scale before their products; the outputs):
+# out within 2^-7 · max|ref| and the float32 LSE
 # within 1e-5 · max|ref| of logsumexp; dq, dk, dv within 2^-6 · max|ref|
 # (float32 sums in another order flip bf16 roundings of P and dS). A rerun
 # is bit-identical (no atomics), and the float32 kernels are not launched.
@@ -391,7 +393,14 @@ def _rel(a, b):
     # middle of rows, a row with one valid key (the last), a row with none.
     (1000, [[(0, 100), (300, 1000)], [(64, 128), (640, 700)], [(999, 1000)],
             []]),
-    (2300, _prefixes(2300, 63, 0, 2049))])
+    (2300, _prefixes(2300, 63, 0, 2049)),
+    # Five streamed tiles (an odd count: the backward's two consumer
+    # warpgroups take 3 and 2) and a row of one live tile.
+    (320, _prefixes(320, 64, 0, 200)),
+    # The tuned recipe's batch of 32, at T = 500 and at the 1000-frame
+    # bucket it trains in.
+    (500, _prefixes(*range(500, 244, -8))),
+    (1000, _prefixes(*range(1000, 488, -16)))])
 def test_bf16_flash_kernels_match_plain_on_card(t, rows):
     _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -403,7 +412,7 @@ def test_bf16_flash_kernels_match_plain_on_card(t, rows):
     out, dq, dk, dv = _flash_grads(q, k, v, mask, dout)
     assert _bf16_counts() == tuple(n + (i < 3) for i, n in enumerate(before))
     assert all(x.dtype == torch.bfloat16 for x in (out, dq, dk, dv))
-    ref = fa.flash_mha_plain(q, k, v, mask, scale)
+    ref = fa.flash_mha_blocked_plain(q, k, v, mask, scale, 64)
     assert _rel(out, ref) <= BF16_OUT_REL
     refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
     for g, r in zip((dq, dk, dv), refs):
