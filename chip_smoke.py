@@ -14,13 +14,13 @@ Phases:
   1. environment: the card's name and power limit; build every CUDA source
      of the port with nvcc (sm_90a) and print ptxas's register, shared
      memory and spill lines and the flash kernels' dynamic shared memory
-     and tile widths; for the bf16 backward kernels also the registers of
-     each warpgroup role (setmaxnreg), the ring stages and the waves of
-     blocks at the timed shapes;
+     and tile widths; for the bf16 forward and backward kernels also the
+     registers of each warpgroup role (setmaxnreg), the ring stages and
+     the waves of blocks at the timed shapes;
      the tensor-core kernels (MRF, flash forward, flash backward dQ and
      dK/dV) must not spill, and no wgmma may be serialized; the bf16
-     backward kernels must be given at launch the registers their
-     setmaxnreg split asks for;
+     kernels must be given at launch the registers their setmaxnreg split
+     asks for;
   2. the MRF resblock kernels against their plain PyTorch version on the
      card, at the generator's four stage shapes (B=4 × 1000 mel frames) for
      k = 3, 7, 11 and 13 (past the templated sizes: the kernels' run-time
@@ -96,7 +96,10 @@ Phases:
      (1e-3); ``Synthesizer.synthesize`` without HiFi-GAN weights at
      ``Config()`` width on the four phase-3 utterances: Griffin-Lim is the
      default, its waveforms against the CPU run from the same initial
-     phase (1e-3 of the peak) and at most 0.95 peak; a random-weight MelGAN
+     phase (1e-3 of the peak) and at most 0.95 peak, and for the
+     utterances of the largest and the smallest distance the distance
+     after each round (from each device's mel, from the same mel, and on
+     the CPU alone from the mel moved by one ulp); a random-weight MelGAN
      (seed 2), ``vocoder="melgan"``, against the CPU (1e-4); no MRF or
      flash launch; times of Griffin-Lim's 60 iterations and MelGAN;
   8. HiFi-GAN GAN training at ``Config()`` width (HiFi-GAN V1, MPD
@@ -135,8 +138,9 @@ Phases:
      the blocked plain version on its own 64-key tiles), at
      (4, 2, T, 128) for T = 20, 300, 320 (an odd count of streamed tiles,
      a row of one live tile), 1000 (both masks that are not prefixes),
-     2300, 4096, (1, 2, 8192, 128) and (32, 2, T, 128) for T = 1000 and
-     500 (the recipe's batch, the shapes phase 11b times): out within 2^-7 · max|ref| (its margin printed), dq, dk, dv
+     2300, 4096, (1, 2, 8192, 128) and (32, 2, T, 128) for T = 1000, 500
+     and 128 (the recipe's batch, the shapes phase 11b times): out within
+     2^-7 · max|ref| (its margin printed), dq, dk, dv
      within 2^-6, the LSE within 1e-5, rows of length 0 exactly 0, one
      launch of each bf16 kernel and none of the float32 ones, a rerun
      bit-identical; and a layout witness whose every product is exact
@@ -151,9 +155,11 @@ Phases:
      falls;
   11b. times: the bf16 kernels against their bounds (bf16 rate), plain
      versions and SDPA in bf16 with the bool mask, its backend named
-     (forward at T = 2300 and 4096; backward at B = 4, T = 1000 and 4096,
-     and at the recipe's B = 32, T = 1000 and 500 with seeded key lengths
-     over [T/2, T]); the train step under amp bf16
+     (forward at B = 4, T = 2300 and 4096, and where the tuned recipe
+     launches it, B = 32 at T = 1000 and 128, each also from a CUDA graph
+     of 20 launches, without the host; backward at B = 4, T = 1000 and
+     4096, and at the recipe's B = 32, T = 1000 and 500; the recipe's key
+     lengths seeded over [T/2, T]); the train step under amp bf16
      "flash", amp bf16 "auto" and float32 "flash" at the bucket
      (128, 1000), B = 4 and 32, median of 10 after 3 warm-ups, in turns.
 
@@ -323,9 +329,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# The bf16 backward kernels, warp-specialised with setmaxnreg.
-BF16_BWD_KERNELS = ("flash_mha_bwd_dq_bf16_kernel",
-                    "flash_mha_bwd_dkv_bf16_kernel")
+# The bf16 flash kernels, warp-specialised with setmaxnreg: each kernel's
+# library and the prefix of the exports that give its block's shape.
+SETMAXNREG_KERNELS = {
+    "flash_mha_fwd_bf16_kernel": ("flash_mha_bf16", "flash_mha_fwd_bf16"),
+    "flash_mha_bwd_dq_bf16_kernel": ("flash_mha_bwd_bf16",
+                                     "flash_mha_bwd_bf16"),
+    "flash_mha_bwd_dkv_bf16_kernel": ("flash_mha_bwd_bf16",
+                                      "flash_mha_bwd_bf16")}
 # The tensor-core kernels, which must compile without spills.
 TC_KERNELS = ("mrf_conv_tc_kernel", "flash_mha_fwd_kernel",
               "flash_mha_bwd_dq_kernel", "flash_mha_bwd_dkv_kernel",
@@ -364,7 +375,7 @@ def phase_environment(smoke: Smoke):
                     clean[k] += (k in current and "0 bytes spill stores, "
                                  "0 bytes spill loads" in line)
             elif "Used" in line and "registers" in line:
-                for k in BF16_BWD_KERNELS:
+                for k in SETMAXNREG_KERNELS:
                     if k in current:
                         launch_regs[k] = int(line.split("Used")[1].split()[0])
     flash = build.load("flash_mha")
@@ -380,17 +391,30 @@ def phase_environment(smoke: Smoke):
           f"{bwd.flash_mha_bwd_stream_tile()}-query tiles")
     flash16 = build.load("flash_mha_bf16")
     bwd16 = build.load("flash_mha_bwd_bf16")
-    threads = bwd16.flash_mha_bwd_bf16_threads()
-    producer = bwd16.flash_mha_bwd_bf16_producer_regs()
-    consumer = bwd16.flash_mha_bwd_bf16_consumer_regs()
-    consumers = bwd16.flash_mha_bwd_bf16_consumers()
-    asked = 128 * (producer + consumers * consumer)
-    smem = {"dq": bwd16.flash_mha_bwd_dq_bf16_smem_bytes(),
+    # Each setmaxnreg kernel's threads and the registers its split asks for.
+    split = {}
+    for k, (lib, prefix) in SETMAXNREG_KERNELS.items():
+        lib = build.load(lib)
+        roles = [getattr(lib, f"{prefix}_{x}")() for x in (
+            "threads", "producer_regs", "consumers", "consumer_regs")]
+        split[k] = (roles[0], 128 * (roles[1] + roles[2] * roles[3]), roles)
+    threads, asked, (_, producer, consumers, consumer) = split[
+        "flash_mha_bwd_dq_bf16_kernel"]
+    smem = {"fwd": flash16.flash_mha_fwd_bf16_smem_bytes(),
+            "dq": bwd16.flash_mha_bwd_dq_bf16_smem_bytes(),
             "dkv": bwd16.flash_mha_bwd_dkv_bf16_smem_bytes()}
-    print(f"  flash_mha_fwd_bf16_kernel: "
-          f"{flash16.flash_mha_fwd_bf16_smem_bytes()} bytes a block, "
-          f"{flash16.flash_mha_fwd_bf16_key_tile()}-key tiles; "
-          f"flash_mha_bwd_dq_bf16_kernel: {smem['dq']} bytes, "
+    f_threads, f_asked, (_, f_producer, f_consumers, f_consumer) = split[
+        "flash_mha_fwd_bf16_kernel"]
+    f_rows = flash16.flash_mha_fwd_bf16_block_rows()
+    print(f"  flash_mha_fwd_bf16_kernel: {smem['fwd']} bytes a block, "
+          f"{f_rows} query rows, {flash16.flash_mha_fwd_bf16_key_tile()}-key "
+          f"tiles, {flash16.flash_mha_fwd_bf16_stages()} ring stages; "
+          f"{f_threads} threads a block: a producer warpgroup at "
+          f"{f_producer} registers a thread and {f_consumers} consumer "
+          f"warpgroups at {f_consumer} (setmaxnreg: {f_asked} a block), each "
+          f"consumer {f_rows // f_consumers} of the rows and every streamed "
+          f"tile")
+    print(f"  flash_mha_bwd_dq_bf16_kernel: {smem['dq']} bytes, "
           f"{bwd16.flash_mha_bwd_dq_bf16_stages()} ring stages; "
           f"flash_mha_bwd_dkv_bf16_kernel: {smem['dkv']} bytes, "
           f"{bwd16.flash_mha_bwd_dkv_bf16_stages()} ring stages; "
@@ -398,13 +422,20 @@ def phase_environment(smoke: Smoke):
           f"{bwd16.flash_mha_bwd_bf16_stream_tile()}-row streamed tiles; "
           f"{threads} threads a block: a producer warpgroup at {producer} "
           f"registers a thread and {consumers} consumer warpgroups at "
-          f"{consumer} (setmaxnreg: {asked} a block); ptxas allocates "
-          f"{launch_regs} a thread at launch")
+          f"{consumer} (setmaxnreg: {asked} a block)")
+    print(f"  ptxas allocates {launch_regs} registers a thread at launch")
     # One block an SM (shared memory and registers), so a launch's blocks
     # run in waves of one block per SM.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_sm = {k: min(233472 // (v + 1024), 65536 // (threads * max(
         launch_regs.values(), default=1))) for k, v in smem.items()}
+    for b, t, rows in fwd_timed_cases():
+        blocks = b * 2 * math.ceil(t / f_rows)
+        live = int((~flash_mask(t, rows)).any(-1).sum())  # rows with a key
+        print(f"  bf16 forward at ({b}, 2, {t}, 128), {shown_rows(rows)}: "
+              f"{blocks} blocks = {blocks / (sms * per_sm['fwd']):.2f} "
+              f"waves, {live * 2 * math.ceil(t / f_rows)} of them with a "
+              f"live key tile ({per_sm['fwd']} a SM, {sms} SMs)")
     for b, t, lens in bwd_timed_cases():
         dq_blocks = b * 2 * math.ceil(t / 64)
         live = 2 * sum(math.ceil(n / 64) for n in lens)
@@ -415,11 +446,11 @@ def phase_environment(smoke: Smoke):
               f"{live / (sms * per_sm['dkv']):.2f} waves ({per_sm} a SM, "
               f"{sms} SMs)")
     smoke.check(bool(libs), "CUDA sources built")
-    smoke.check(all(launch_regs.get(k, 0) * threads >= asked
-                    for k in BF16_BWD_KERNELS),
-                f"bf16 backward kernels: {launch_regs} registers a thread "
-                f"at launch x {threads} threads hold the {asked} their "
-                f"setmaxnreg split asks for")
+    for k, (n_threads, n_asked, _) in split.items():
+        smoke.check(launch_regs.get(k, 0) * n_threads >= n_asked,
+                    f"{k}: {launch_regs.get(k)} registers a thread at launch "
+                    f"x {n_threads} threads hold the {n_asked} its setmaxnreg "
+                    f"split asks for")
     for k in TC_KERNELS:
         smoke.check(entries[k] > 0 and clean[k] == entries[k],
                     f"{k}: {clean[k]} of {entries[k]} instantiations "
@@ -1670,6 +1701,44 @@ def harmonic_signal(seconds: float, rng, sr: int = SR):
     return (0.9 * sig / np.abs(sig).max()).astype(np.float32)
 
 
+# Griffin-Lim's iterations at which phase 7 prints the card-vs-CPU distance.
+GL_TRACE_AT = (0, 1, 2, 5, 10, 20, 30, 40, 50, 60)
+
+
+def griffin_lim_trace(stfts, mels, lens, n_iters: int = 60):
+    """Per round of Griffin-Lim (index 0: the first iSTFT), for each row j,
+    max|a - b| / peak(b) over the row's first lens[j] samples, between two
+    runs of ``MelSTFT.griffin_lim``'s loop: run i on ``stfts[i]``'s device
+    from the (B, T', 80) log-mels ``mels[i]``, both from the same initial
+    phase (CPU seed 0 over the batch, as ``mel_to_audio`` draws it)."""
+    import torch
+
+    signals, mags = [], []
+    phase = None
+    for stft, mel in zip(stfts, mels):
+        dev = stft.window.device
+        mag = torch.clamp(torch.exp(mel.float().to(dev)) @ stft.mel_pinv.T,
+                          min=0.0)
+        if phase is None:
+            u = torch.rand(mag.shape,
+                           generator=torch.Generator().manual_seed(0))
+            phase = -math.pi + 2 * math.pi * u
+        mags.append(mag)
+        signals.append(stft.istft(mag, phase.to(dev)))
+    trace = []
+    for i in range(n_iters + 1):
+        a, b = (x.cpu() for x in signals)
+        trace.append([float((a[j, :n] - b[j, :n]).abs().max()
+                            / b[j, :n].abs().max())
+                      for j, n in enumerate(lens)])
+        if i == n_iters:
+            break
+        for j, (stft, mag) in enumerate(zip(stfts, mags)):
+            spec = torch.fft.rfft(stft.frame(signals[j]) * stft.window, dim=-1)
+            signals[j] = stft.istft(mag, torch.angle(spec))
+    return trace
+
+
 def phase_dsp_vocoders(smoke: Smoke, device, texts, emotions):
     """Phase 7. Returns the times of Griffin-Lim and MelGAN."""
     import numpy as np
@@ -1714,16 +1783,24 @@ def phase_dsp_vocoders(smoke: Smoke, device, texts, emotions):
     torch.manual_seed(2)
     melgan = MelGAN().state_dict()
     speakers = list(range(len(texts)))
-    synths, runs = {}, {}
+    synths, runs, gl_mels = {}, {}, {}
     for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
         synths[name] = Synthesizer(cfg, fs2, emotion_maps=EMOTION_MAPS,
                                    device=dev, melgan_state=melgan)
         reset_mrf_counts()
         fa.launch_count = 0
+        to_audio = synths[name].stft.mel_to_audio
+
+        def keep_mel(mel, *args, name=name, to_audio=to_audio, **kwargs):
+            gl_mels[name] = mel.cpu()  # the batch's padded log-mel
+            return to_audio(mel, *args, **kwargs)
+
+        synths[name].stft.mel_to_audio = keep_mel
         runs[name] = {v: synths[name].synthesize(
             texts, speakers, emotions, **({} if v == "default"
                                           else {"vocoder": v}))
             for v in ("default", "melgan")}
+        synths[name].stft.mel_to_audio = to_audio
         if name == "card":
             smoke.check(mrf_counts() == (0, 0) and fa.launch_count == 0,
                         f"Griffin-Lim and MelGAN synthesis: MRF launches "
@@ -1743,6 +1820,34 @@ def phase_dsp_vocoders(smoke: Smoke, device, texts, emotions):
                     f"card vs CPU: {c.wav.shape} samples, peak "
                     f"{float(np.abs(c.wav).max()):.4f} (≤ 0.95), max|diff| / "
                     f"peak {diff:.3e} (bound {GRIFFIN_LIM_REL_BOUND:.0e})")
+    # Where the card and the CPU part, round by round, over the batch the
+    # Synthesizer vocoded (before its peak rescale): from each device's own
+    # mels, from the same mels (the CPU's: FFT round-off alone), and on the
+    # CPU alone from the mels moved by one float32 ulp (round-off without
+    # the card); printed for the utterances of the largest and the
+    # smallest distance.
+    lens = [r.wav.shape[0] for r in runs["cpu"]["default"]]
+    stfts = (synths["card"].stft, synths["cpu"].stft)
+    mel_c, mel_p = gl_mels["card"], gl_mels["cpu"]
+    traces = {
+        "own mels": griffin_lim_trace(stfts, (mel_c, mel_p), lens),
+        "same mels": griffin_lim_trace(stfts, (mel_p, mel_p), lens),
+        "CPU, mels + 1 ulp": griffin_lim_trace(
+            (stfts[1], stfts[1]), (torch.from_numpy(np.nextafter(
+                mel_p.numpy(), np.float32(np.inf))), mel_p), lens)}
+    gl = [(float(np.abs(c.wav - p.wav).max() / np.abs(p.wav).max()), i)
+          for i, (c, p) in enumerate(zip(runs["card"]["default"],
+                                         runs["cpu"]["default"]))]
+    for dist, i in (max(gl), min(gl)):
+        print(f"  {runs['cpu']['default'][i].basename} ({lens[i]} samples "
+              f"of the {tuple(mel_p.shape)} batch; synthesize's distance "
+              f"{dist:.3e}): Griffin-Lim max|diff| / peak after rounds "
+              f"{list(GL_TRACE_AT)}: " + "; ".join(
+                  f"{name} " + ", ".join(f"{tr[n][i]:.2e}"
+                                         for n in GL_TRACE_AT)
+                  for name, tr in traces.items())
+              + f"; batch mels max|card - CPU| "
+              f"{float((mel_c - mel_p).abs().max()):.2e}", flush=True)
     worst_mg = 0.0
     for (c, p) in zip(runs["card"]["melgan"], runs["cpu"]["melgan"]):
         diff = (float(np.abs(c.wav - p.wav).max())
@@ -2901,6 +3006,74 @@ def bwd_timed_cases():
             + [(b, t, recipe_lengths(b, t)) for b, t in RECIPE_BWD_TIMED])
 
 
+# The bf16 forward's timed shapes (phase 11b): the long-form path's
+# (4, 2, T, 128) with FLASH_CASES' masks (the `kernels` line's row is
+# T = 4096), and where the tuned recipe launches it: its batch of 32 at the
+# decoder's 1000-frame bucket and the encoder's 128-phone bucket, with
+# seeded key lengths over [T/2, T].
+RECIPE_FWD_TIMED = ((32, 1000), (32, 128))
+# Phase 2e's recipe cases: every recipe shape phase 11b times.
+RECIPE_CASES = tuple(sorted(set(RECIPE_BWD_TIMED + RECIPE_FWD_TIMED),
+                            reverse=True))
+# Launches a CUDA graph replays to time a kernel without the host.
+GRAPH_LAUNCHES = 20
+
+
+def fwd_timed_cases():
+    """(B, T, rows) of the bf16 forward's timed shapes."""
+    return ([(b, t, rows) for b, t, rows in FLASH_CASES if t in FLASH_TIMED]
+            + [(b, t, prefixes(*recipe_lengths(b, t)))
+               for b, t in RECIPE_FWD_TIMED])
+
+
+def shown_rows(rows) -> str:
+    """A mask's rows as the printouts name them: the spans of valid keys,
+    or past a batch of 4 the range of the prefix lengths."""
+    if len(rows) <= 4:
+        return f"valid keys {rows}"
+    lens = [r[0][1] for r in rows]
+    return f"key lengths {len(rows)} seeded in [{min(lens)}, {max(lens)}]"
+
+
+def graph_time_ms(fn, iters: int = GRAPH_LAUNCHES) -> tuple[float, str]:
+    """Device time of one call of ``fn``, without the host's launch time:
+    ``iters`` calls captured in one CUDA graph, replayed between CUDA
+    events. If the capture fails, torch.profiler's device time of the
+    kernels of ``iters`` calls instead. Returns (ms, how it was taken)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters, "graph"
+    except RuntimeError as err:  # the capture failed: say so, profile
+        print(f"  CUDA graph capture failed ({str(err).splitlines()[0]}); "
+              f"torch.profiler's kernel time instead", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    return us / 1e3 / iters, "profiler"
+
+
 # Phase 11: train_tuned.yaml (batch 32, bf16 amp, steps_per_call 10) under
 # "flash" through efs2-torch-train, on phase 5's corpus, 20 steps in two
 # chunks; its cadences brought inside the run.
@@ -2972,7 +3145,7 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
     worst = [0.0, 0.0, 0.0]
     margin = 0.0  # the forward's worst max|diff| over its bound
     recipe = tuple((b, t, prefixes(*recipe_lengths(b, t)))
-                   for b, t in RECIPE_BWD_TIMED)
+                   for b, t in RECIPE_CASES)
     for b, t, rows in FLASH_BF16_CASES + recipe:
         q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
                          for x in flash_inputs(b, t, rows, gen))
@@ -3012,10 +3185,8 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
         same = (torch.equal(again[0], out) and torch.equal(again[1], lse)
                 and all(torch.equal(a, g)
                         for a, g in zip(again_grads, grads)))
-        shown = (rows if b <= 4 else f"prefixes of "
-                 f"{min(r[0][1] for r in rows)}..{max(r[0][1] for r in rows)}")
         smoke.check(ok and same,
-                    f"bf16 B={b} T={t:5d} rows={shown}: max|diff| "
+                    f"bf16 B={b} T={t:5d} {shown_rows(rows)}: max|diff| "
                     f"{', '.join(line)}; lse {lse_diff:.3e}; launches "
                     f"(bf16, float32) {launched}; rows of length 0 exactly "
                     f"0; a rerun bit-identical: {same}")
@@ -3191,7 +3362,9 @@ def phase_tuned_training(smoke: Smoke, device):
 def phase_bf16_times(device):
     """Phase 11b: the bf16 kernels against their bounds, their plain
     versions and SDPA in bf16 with the bool mask, its backend named
-    (forward at the long-form shapes; backward at bwd_timed_cases(): the
+    (forward at fwd_timed_cases(): the long-form shapes and the recipe's
+    B = 32 at T = 1000 and 128, also from a CUDA graph; backward at
+    bwd_timed_cases(): the
     training bucket's T = 1000 and 4096 at B = 4, the recipe's B = 32 at
     T = 1000 and 500), and the train step under amp bf16 "flash", amp bf16
     "auto" and float32 "flash" at the bucket (128, 1000), B = 4 and 32, in
@@ -3236,31 +3409,46 @@ def phase_bf16_times(device):
         ran = min(forced, key=lambda n: abs(forced[n] - default))
         return default, ran, forced
 
-    for b, t, case_rows in FLASH_CASES:
-        if t not in FLASH_TIMED:
-            continue
+    for b, t, case_rows in fwd_timed_cases():
         q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
                          for x in flash_inputs(b, t, case_rows, gen))
         keep = ~mask[:, None, None, :]
-        ms = cuda_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale), iters)
+
+        def kernel():
+            return fa.flash_mha(q, k, v, mask, scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                  scale=scale)
+
+        ms = cuda_time_ms(kernel, iters)
         plain = cuda_time_ms(lambda: forward_plain(
             q, k, v, mask, scale, key_tile), iters)
-        lib, ran, forced = sdpa_backend(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
-                                                   scale=scale))
+        lib, ran, forced = sdpa_backend(sdpa)
+        # The same launches replayed from a CUDA graph: the device's time
+        # where the event loop above times the host (PERF.md §7).
+        graph_ms, how = graph_time_ms(kernel)
+        lib_graph, _ = graph_time_ms(sdpa)
         bd = flash_bf16_bounds_ms(mask, "fwd")
-        rows[("fwd", t)] = {"shape": f"({b}, 2, {t}, 128) bf16, valid keys "
-                                     f"{case_rows}",
-                            "ms": ms, "plain_ms": plain, "library_ms": lib,
-                            "bound_ms": bd["live"], "bound_by": bd["bound_by"]}
-        print(f"  flash_mha bf16 ({b}, 2, {t}, 128), valid keys {case_rows}:"
-              f" kernel {ms:.4f} ms ({bd['flops_live'] / ms / 1e9:.1f} TF/s"
+        rows[("fwd", b, t)] = {"shape": f"({b}, 2, {t}, 128) bf16, "
+                                        f"{shown_rows(case_rows)}",
+                               "ms": ms, "plain_ms": plain,
+                               "library_ms": lib, "bound_ms": bd["live"],
+                               "bound_by": bd["bound_by"]}
+        print(f"  flash_mha bf16 ({b}, 2, {t}, 128), {shown_rows(case_rows)}"
+              f": kernel {ms:.4f} ms ({bd['flops_live'] / ms / 1e9:.1f} TF/s"
               f" over the {bd['live_tiles']} of {bd['tiles']} live "
-              f"{bd['tile']}-key tiles); bound (bf16 rate) {bd['live']:.4f} "
-              f"ms live, {bd['dense']:.4f} dense ({bd['bound_by']}); plain "
-              f"{plain:.4f} ms; SDPA bf16 {lib:.4f} ms (the {ran} backend; "
-              f"forced {', '.join(f'{n} {x:.4f}' for n, x in forced.items())})"
-              f" [{card}]", flush=True)
+              f"{bd['tile']}-key tiles; {bd['live'] / ms:.3f} of the bound),"
+              f" {graph_ms:.4f} ms from a {how} of {GRAPH_LAUNCHES} launches "
+              f"({bd['flops_live'] / graph_ms / 1e9:.1f} TF/s, "
+              f"{bd['live'] / graph_ms:.3f} of the bound); bound (bf16 rate) "
+              f"{bd['live']:.4f} ms live, {bd['dense']:.4f} dense "
+              f"({bd['bound_by']}); plain {plain:.4f} ms; SDPA bf16 "
+              f"{lib:.4f} ms, {lib_graph:.4f} from a {how} (the {ran} "
+              f"backend; forced "
+              f"{', '.join(f'{n} {x:.4f}' for n, x in forced.items())}); "
+              f"kernel / SDPA {ms / lib:.3f}, from graphs "
+              f"{graph_ms / lib_graph:.3f} [{card}]", flush=True)
         del q, k, v, mask, keep
 
     for b, t, lens in bwd_timed_cases():
@@ -3336,7 +3524,7 @@ def phase_bf16_times(device):
               f"{bf16_flash / steps[(b, 'float32', 'flash')]:.3f}, amp bf16 "
               f"'flash' / amp bf16 'auto' = "
               f"{bf16_flash / steps[(b, 'bfloat16', 'auto')]:.3f}")
-    return {"fwd": rows[("fwd", max(FLASH_TIMED))],
+    return {"fwd": rows[("fwd", 4, max(FLASH_TIMED))],
             "dq": rows[("dq", 4, min(FLASH_BWD_TIMED))],
             "dkv": rows[("dkv", 4, min(FLASH_BWD_TIMED))]}
 

@@ -26,12 +26,11 @@ After the last tile each consumer gets an end slot.
   that consumer 1's stages take no load once it is done (it hands its
   sums over in them).
 * The constants (stages, consumers, tile rows) are read from the sources,
-  so the emulation follows the kernels.
+  so the emulation follows the kernels; the mbarrier model and the random
+  interleaving are tests/ring_model.py's, which the forward's test shares.
 """
 
 import random
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,44 +45,30 @@ from expressive_fastspeech2_mandarin_tpu.ops.pallas.flash_mha import (
 )
 from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fm
 
+from .ring_model import (
+    MBarrier,
+    empty_parity,
+    full_parity,
+    interleave,
+    source_int,
+    stage,
+)
 from .test_torch_flash_bf16 import GRAD_REL, SCALE, _inputs
 
 torch.set_num_threads(2)
-CSRC = Path(fm.__file__).resolve().parents[1] / "csrc"
 
-
-def _source_int(name: str, pattern: str) -> int:
-    found = re.findall(pattern, (CSRC / name).read_text())
-    assert len(found) == 1, (name, pattern, found)
-    return int(found[0])
-
-
-TILE = _source_int("bf16_wgmma.cuh", r"constexpr int kTileRows = (\d+);")
-CONSUMERS = _source_int("flash_mha_bwd_bf16.cu",
-                        r"constexpr int kConsumers = (\d+);")
-DQ_STAGES = _source_int("flash_mha_bwd_bf16.cu",
-                        r"using DqL = Layout<(\d+),")
-DKV_STAGES = _source_int("flash_mha_bwd_bf16.cu",
-                         r"using DkvL = Layout<(\d+),")
+TILE = source_int("bf16_wgmma.cuh", r"constexpr int kTileRows = (\d+);")
+CONSUMERS = source_int("flash_mha_bwd_bf16.cu",
+                       r"constexpr int kConsumers = (\d+);")
+DQ_STAGES = source_int("flash_mha_bwd_bf16.cu",
+                       r"using DqL = Layout<(\d+),")
+DKV_STAGES = source_int("flash_mha_bwd_bf16.cu",
+                        r"using DkvL = Layout<(\d+),")
 LOG2E = np.float32(1.4426950408889634)
 
 
-# The index maps of the kernels' ring (flash_mha_bwd_bf16.cu).
-def stage(n: int, stages: int) -> int:
-    return n % stages
-
-
-def full_parity(n: int, stages: int) -> int:
-    """The parity a consumer waits for on slot n's full barrier."""
-    return (n // stages) & 1
-
-
-def empty_parity(n: int, stages: int) -> int:
-    """The parity the producer waits for on slot n's empty barrier before
-    loading it (a fresh barrier passes parity 1 at once)."""
-    return full_parity(n, stages) ^ 1
-
-
+# The index maps of the kernels' ring (flash_mha_bwd_bf16.cu): stage,
+# full_parity and empty_parity (tests/ring_model.py), and the owner.
 def owner(n: int) -> int:
     """The consumer warpgroup that takes stream slot n."""
     return n % CONSUMERS
@@ -267,25 +252,6 @@ def test_index_maps_of_the_ring():
     assert owner(1) == owner(3) == 1
 
 
-class MBarrier:
-    """An mbarrier's phases: ``count`` arrivals complete a phase;
-    try_wait.parity(p) passes once the phase of parity p has completed
-    (a fresh barrier, in phase 0, passes parity 1)."""
-
-    def __init__(self, count):
-        self.count, self.pending, self.completed = count, count, 0
-
-    def arrive(self, n=1):
-        self.pending -= n
-        assert self.pending >= 0
-        if self.pending == 0:
-            self.completed += 1
-            self.pending = self.count
-
-    def passes(self, parity):
-        return self.completed % 2 != parity
-
-
 def run_ring(n_real, stages, seed, overlap):
     """The producer and the two consumers of one block over ``n_real``
     loaded slots and an end slot for each consumer, in a random
@@ -336,18 +302,7 @@ def run_ring(n_real, stages, seed, overlap):
             yield
         done.add((c, len(loads)))
 
-    rng = random.Random(seed)
-    tasks = [producer(), consumer(0), consumer(1)]
-    live = list(tasks)
-    for _ in range(100000):
-        if not live:
-            break
-        task = rng.choice(live)
-        try:
-            next(task)
-        except StopIteration:
-            live.remove(task)
-    assert not live, "the ring stalled"
+    interleave([producer(), consumer(0), consumer(1)], random.Random(seed))
     return seen, loads, done
 
 

@@ -374,6 +374,13 @@ BF16_OUT_REL = 2.0 ** -7
 BF16_GRAD_REL = 2.0 ** -6
 
 
+def _recipe_lengths(b, t):
+    """``b`` key lengths drawn from a seed over [T/2, T], as chip_smoke.py's
+    ``recipe_lengths`` draws the tuned recipe's batch."""
+    rng = np.random.default_rng(t)
+    return [int(n) for n in rng.integers(t // 2, t + 1, size=b)]
+
+
 def _bf16_counts():
     return (fa.bf16_launch_count, fa.bf16_bwd_dq_launch_count,
             fa.bf16_bwd_dkv_launch_count, fa.launch_count,
@@ -400,7 +407,12 @@ def _rel(a, b):
     # The tuned recipe's batch of 32, at T = 500 and at the 1000-frame
     # bucket it trains in.
     (500, _prefixes(*range(500, 244, -8))),
-    (1000, _prefixes(*range(1000, 488, -16)))])
+    (1000, _prefixes(*range(1000, 488, -16))),
+    # Where the recipe launches the forward: its batch of 32 at the
+    # decoder's 1000-frame bucket and the encoder's 128-phone bucket, with
+    # chip_smoke.py's seeded lengths.
+    (1000, _prefixes(*_recipe_lengths(32, 1000))),
+    (128, _prefixes(*_recipe_lengths(32, 128)))])
 def test_bf16_flash_kernels_match_plain_on_card(t, rows):
     _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
