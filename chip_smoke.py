@@ -34,7 +34,7 @@ Phases:
      seeds; the MRF launches over that run, every one on the tensor-core
      kernel (72 per generator call); the duration_control=2
      probe; one utterance's float32 waveform from the card against the same
-     run on the CPU;
+     run on the CPU, its 72 MRF launches all on the CUDA-core kernel;
   2b. the flash attention kernel (TF32 tensor cores at float32 accuracy)
      against its plain version on the card, float32, at (B, H, D) =
      (4, 2, 128) for T = 20 (under one key tile), 128 (the encoder's
@@ -55,7 +55,10 @@ Phases:
      and 72 MRF launches per window;
   4. times: steady-state batch synthesis, and per stage shape the kernel
      (and its TF/s), its plain version, its bound, the six-launch design's
-     bytes floor and a cuDNN conv chain (library_ms);
+     bytes floor and a cuDNN conv chain (library_ms); the same for the
+     float32 CUDA-core kernel with TF32 off (its bound at the TF32 rate,
+     its operations also at the FP32 CUDA-core rate, the cuDNN chain in
+     float32);
      long-form batch synthesis, its text → mel and generator spans,
      streaming first and last chunk, and the flash kernel against its
      plain version, its bounds at the TF32 rate (over the live key tiles,
@@ -161,7 +164,32 @@ Phases:
      4096, and at the recipe's B = 32, T = 1000 and 500; the recipe's key
      lengths seeded over [T/2, T]); the train step under amp bf16
      "flash", amp bf16 "auto" and float32 "flash" at the bucket
-     (128, 1000), B = 4 and 32, median of 10 after 3 warm-ups, in turns.
+     (128, 1000), B = 4 and 32, median of 10 after 3 warm-ups, in turns;
+  12. the multilingual front end and corpora through the CLIs, at
+     ``Config()`` width, every input written from a seed: (a) six Mandarin
+     sentences with a date, a time, money, a percent, a phone number and a
+     decimal through ``normalize_chinese`` (no ASCII digit left, no pad
+     ID) and the bf16 Synthesizer (finite, non-silent; 72 MRF launches);
+     (b) ``write_lexicon``'s syllable inventory, then
+     ``efs2-torch-pipeline --lexicon <it> --skip-train`` on an ESD corpus
+     (every utterance aligned); (c) an IEMOCAP release (2 sessions, 4
+     emotions, 24 English utterances with numbers, "$" amounts and
+     abbreviations) through ``efs2-torch-pipeline`` stages 1-4 with
+     english_cleaners, a lexicon of the cleaned words' letters, 8 steps
+     under "flash" (10 launches of each float32 flash kernel a step),
+     matmul_precision "highest" and the profiler window of steps 3-5 (its
+     trace's device busy share), the step-8 figure or its logged skip,
+     then ``efs2-torch-synthesize --mode grid`` from the checkpoint (72
+     MRF launches a speaker); (d) AIHub-MMV clips with pre-extracted WAVs
+     and Korean scripts with numbers through ``create_dataset`` and
+     ``prepare_aihub_mmv`` with korean_cleaners (17-field filelist, no
+     digit left), ``extract_audio``'s refusal without ffmpeg; (e)
+     ``train_vocoder`` at batch 16 × 8192 for 8 steps in chunks of 4
+     against the same steps one by one (each chunk's losses its steps'
+     mean within 1e-5 relative; JAX's log, val and save steps); (f)
+     ``train()`` in float32 under matmul_precision "high": TF32 on for its
+     steps and off after, its first loss within 1e-2 of "highest"'s, both
+     step times.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -217,6 +245,8 @@ BF16_REL_BOUND = 2.0 ** -6
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# Float32 outside the tensor cores (the CUDA-core MRF kernel's rate).
+PEAK_FP32_FLOPS = 67e12
 
 def prefixes(*lens):
     """Key-mask rows (the [start, stop) spans of each row's valid keys) for
@@ -491,13 +521,14 @@ def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
     """The MRF kernels against their plain version at (batch, T, C) for each
     (C, T) of ``shapes`` and K of ``kernel_sizes``; with ``float64``,
     float32 also against float64. Returns the worst max|diff| of the bf16
-    (tensor-core) kernel."""
+    (tensor-core) kernel and of the float32 (CUDA-core) kernel against
+    their plain versions."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
 
     gen = torch.Generator().manual_seed(0)
-    worst = 0.0
+    worst = worst_f32 = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for c, t in shapes:
@@ -515,6 +546,7 @@ def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
                     worst = max(worst, diff)
                 else:
                     bound = F32_BOUND
+                    worst_f32 = max(worst_f32, diff)
                 smoke.check(
                     out.shape == ref.shape and math.isfinite(diff)
                     and diff <= bound
@@ -535,7 +567,7 @@ def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
                                 f"max|diff|={diff64:.3e}")
                     del ref64, w64
                 del out, ref, x
-    return worst
+    return worst, worst_f32
 
 
 # A width the kernels are not built for (C % 32 != 0, K = 5, as the JAX
@@ -551,9 +583,9 @@ def phase_mrf_vs_plain(smoke: Smoke, device):
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
 
-    worst = phase_kernel_vs_plain(smoke, device,
-                                  STAGE_SHAPES + (RAGGED_SHAPE,), BATCH,
-                                  kernel_sizes=PHASE2_KERNEL_SIZES)
+    worst, worst_f32 = phase_kernel_vs_plain(
+        smoke, device, STAGE_SHAPES + (RAGGED_SHAPE,), BATCH,
+        kernel_sizes=PHASE2_KERNEL_SIZES)
     c, k, b, t = PADDED_SHAPE
     gen = torch.Generator().manual_seed(7)
     x32 = torch.randn(b, t, c, generator=gen)
@@ -580,7 +612,7 @@ def phase_mrf_vs_plain(smoke: Smoke, device):
         raised = True
     smoke.check(raised, "mrf_resblock raises on the card when a gradient is "
                         "wanted (the kernel has no backward)")
-    return worst
+    return worst, worst_f32
 
 
 def phase_long_kernel_vs_plain(smoke: Smoke, device):
@@ -595,10 +627,11 @@ def phase_long_kernel_vs_plain(smoke: Smoke, device):
 
     window = STREAM_CHUNK + 2 * generator_receptive_radius_frames(
         VocoderConfig())
-    worst = 0.0
+    worst = (0.0, 0.0)
     for batch, frames in ((BATCH, LONG_MAX_MEL), (1, window)):
-        worst = max(worst, phase_kernel_vs_plain(
-            smoke, device, stage_shapes(frames), batch, float64=batch == 1))
+        worst = tuple(map(max, worst, phase_kernel_vs_plain(
+            smoke, device, stage_shapes(frames), batch,
+            float64=batch == 1)))
     return worst
 
 
@@ -736,8 +769,15 @@ def phase_main_path(smoke: Smoke, device, texts, emotions):
     for dev in (device, torch.device("cpu")):
         s = Synthesizer(cfg32, fs2, voc, emotion_maps=EMOTION_MAPS,
                         device=dev)
+        reset_mrf_counts()
         runs.append(s.synthesize(texts[:1], [0], emotions[:1],
                                  vocoder="hifigan")[0])
+        if dev == device:
+            f32_counts = mrf_counts()
+    smoke.check(f32_counts == (0, per_call),
+                f"MRF launches in one float32 generator call: tensor-core "
+                f"kernel {f32_counts[0]} (expected 0), CUDA-core kernel "
+                f"{f32_counts[1]} (expected {per_call})")
     card, cpu = runs
     same_dur = np.array_equal(card.durations, cpu.durations)
     mel_diff = float(np.abs(card.mel - cpu.mel).max()) if same_dur else math.inf
@@ -748,7 +788,7 @@ def phase_main_path(smoke: Smoke, device, texts, emotions):
     smoke.check(wav_diff <= F32_BOUND,
                 f"float32 wav, card vs CPU: max|diff|={wav_diff:.3e} "
                 f"bound={F32_BOUND:.0e}")
-    return synth, launches
+    return synth, launches, f32_counts[1]
 
 
 def phase_long_form(smoke: Smoke, device, synth):
@@ -880,13 +920,16 @@ def library_resblock(x, weights, k):
     return h.transpose(1, 2)
 
 
-def resblock_bound_ms(b: int, t: int, c: int, k: int) -> tuple[float, str]:
-    """Least time for one bf16 resblock: 6 convs of 2·k·C² flops per output
-    element, against reading x and the weights once and writing the output
-    once."""
+def resblock_bound_ms(b: int, t: int, c: int, k: int, elem_bytes: int = 2,
+                      peak_flops: float = PEAK_BF16_FLOPS
+                      ) -> tuple[float, str]:
+    """Least time for one resblock: 6 convs of 2·k·C² flops per output
+    element at ``peak_flops`` (bf16: the bf16 rate; float32: the TF32
+    rate, the card's fastest float32 product), against reading x and the
+    weights once and writing the output once, ``elem_bytes`` an element."""
     flops = 12 * k * c * c * t * b
-    n_bytes = 2 * (2 * b * t * c + 6 * (c * c * k + c))
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
+    n_bytes = elem_bytes * (2 * b * t * c + 6 * (c * c * k + c))
+    t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -999,6 +1042,65 @@ def phase_times(synth, texts, emotions):
           f"plain {totals['plain_ms']:.3f} ms, cuDNN chain "
           f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms,"
           f" six-launch floor {totals['floor_ms']:.3f} ms "
+          f"[{nvidia_smi_line()}]")
+    totals["f32"] = f32_resblock_times(gen)
+    return totals
+
+
+def f32_resblock_times(gen) -> dict:
+    """The float32 (CUDA-core) MRF kernel at the stage shapes, B = 4 × 1000
+    frames, TF32 off: kernel, plain version, the cuDNN chain in float32
+    (library_ms: the one library call of float32 accuracy), the bound (the
+    operations at the TF32 rate against float32 bytes) and the operations
+    at the float32 CUDA-core rate (the best this design can reach)."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
+
+    assert not (torch.backends.cudnn.allow_tf32
+                or torch.backends.cuda.matmul.allow_tf32)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+              "bound_by_operations_ms": 0.0, "fp32_ops_ms": 0.0}
+    rows = []
+    for c, t in STAGE_SHAPES:
+        x = torch.randn(BATCH, t, c, generator=gen).to("cuda")
+        for k in KERNEL_SIZES:
+            w = random_resblock(c, k, gen, torch.device("cuda"),
+                                torch.float32)
+            iters = 3
+            ms = cuda_time_ms(lambda: mrf.mrf_resblock(x, w, k, DILATIONS),
+                              iters)
+            plain = cuda_time_ms(
+                lambda: mrf.mrf_resblock_plain(x, w, k, DILATIONS), iters)
+            lib = cuda_time_ms(lambda: library_resblock(x, w, k), iters)
+            bound, by = resblock_bound_ms(BATCH, t, c, k, 4, PEAK_TF32_FLOPS)
+            flops = 12 * k * c * c * t * BATCH
+            fp32_ms = 1e3 * flops / PEAK_FP32_FLOPS
+            rows.append({"C": c, "T": t, "k": k, "ms": ms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bound,
+                         "bound_by": by, "fp32_ops_ms": fp32_ms,
+                         "tflops": flops / ms / 1e9})
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("bound_ms", bound),
+                           ("fp32_ops_ms", fp32_ms)):
+                totals[key] += v
+            if by == "operations":
+                totals["bound_by_operations_ms"] += bound
+            print(f"  mrf_resblock f32 B={BATCH} C={c:3d} T={t:6d} k={k:2d}:"
+                  f" kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TF/s), plain "
+                  f"{plain:.4f} ms, cuDNN chain f32 {lib:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}, TF32 rate), at the FP32 CUDA-core "
+                  f"rate {fp32_ms:.4f} ms", flush=True)
+        del x
+    print("  float32 resblock times: " + json.dumps(rows))
+    flops = sum(12 * r["k"] * r["C"] ** 2 * r["T"] * BATCH for r in rows)
+    print(f"  the 12 resblocks, float32, B={BATCH} × 1000 frames: kernel "
+          f"{totals['ms']:.3f} ms ({flops / totals['ms'] / 1e9:.1f} TF/s), "
+          f"plain {totals['plain_ms']:.3f} ms, cuDNN chain f32 "
+          f"{totals['library_ms']:.3f} ms (kernel / cuDNN "
+          f"{totals['ms'] / totals['library_ms']:.2f}×), bound "
+          f"{totals['bound_ms']:.3f} ms (TF32 rate), {flops:.3e} flops at "
+          f"the FP32 CUDA-core rate {totals['fp32_ops_ms']:.3f} ms "
           f"[{nvidia_smi_line()}]")
     return totals
 
@@ -2226,10 +2328,12 @@ GTA_VOC_STEPS = 10
 
 
 def write_esd_corpus(root: str, seed: int,
-                     seconds: tuple[float, float] = (2.0, 6.0)) -> str:
+                     seconds: tuple[float, float] = (2.0, 6.0),
+                     utts: int = ESD_UTTS) -> str:
     """An ESD-layout tree: ``<spk>/<Emotion>/<spk>_<n>.wav`` (16 kHz int16,
     ``seconds`` long: ``harmonic_signal`` between silent edges of low
-    noise) and the tab-separated transcripts ``<spk>/<spk>.txt``."""
+    noise), ``utts`` of them per speaker and emotion, and the
+    tab-separated transcripts ``<spk>/<spk>.txt``."""
     import numpy as np
 
     from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import save_wav
@@ -2243,8 +2347,8 @@ def write_esd_corpus(root: str, seed: int,
         lines = []
         for e, emotion in enumerate(ESD_EMOTIONS):
             os.makedirs(os.path.join(root, speaker, emotion))
-            for k in range(ESD_UTTS):
-                base = f"{speaker}_{e * ESD_UTTS + k:06d}"
+            for k in range(utts):
+                base = f"{speaker}_{e * utts + k:06d}"
                 voiced = harmonic_signal(rng.uniform(*seconds) - ESD_LEAD
                                          - ESD_TAIL, rng, ESD_SR)
                 save_wav(os.path.join(root, speaker, emotion, f"{base}.wav"),
@@ -3530,8 +3634,655 @@ def phase_bf16_times(device):
 
 
 # Every phase, in the order a whole run takes them.
+# ---------------------------------------------------------------------------
+# Phase 12: the multilingual front end and corpora through the CLIs.
+
+# Mandarin raw text with a date, a time, money, a percent, a phone number
+# and a decimal, for normalize_chinese.
+ZH_RAW_TEXTS = ("今天是2024年3月5日", "我们明天下午3:45见", "这个东西卖¥36.5",
+                "他说好了80%", "请打电话13812345678", "今天的天气是3.14度")
+LEX_ESD_UTTS = 2        # per speaker and emotion: 20 utterances to align
+IEMOCAP_SR = 16000      # the release's rate; prepare_iemocap resamples
+IEMOCAP_SESSIONS = ("Session1", "Session2")
+# (emotion, valence, arousal), EmoEvaluation's order of the two values.
+IEMOCAP_EMOTIONS = (("neu", "2.5", "2.5"), ("ang", "2.0", "3.5"),
+                    ("hap", "4.0", "3.0"), ("sad", "2.0", "1.5"))
+# English transcripts with numbers, "$" amounts and abbreviations, so that
+# english_cleaners spells them out; each session says all twelve.
+IEMOCAP_TEXTS = (
+    "Dr. Smith paid $3.50 for 2 apples.", "Mr. Jones has 12 cats.",
+    "We met at 10 on the 21st of May.", "It costs $1,200 to fly there.",
+    "Mrs. Brown read 45 pages today.", "The 3rd train leaves at 7.",
+    "Capt. Hook sailed 1,000 miles.", "I owe you $20, not $2.",
+    "St. Louis is 250 miles away.", "Gen. Lee had 3 horses.",
+    "She turned 30 on the 2nd.", "Lt. Dan ran 5 miles at dawn.")
+IEMOCAP_VAL = 4
+IEMOCAP_TRAIN_STEPS = 8
+IEMOCAP_CADENCE = dict(log_step=1, val_step=8, synth_step=8, save_step=8)
+PROFILE_STEPS = (3, 5)  # profile_start_step, profile_stop_step
+# Korean scripts with numbers, for korean_cleaners: (clip, start frame,
+# end frame, speaker, script).
+AIHUB_TURNS = (("clip_0001", 30, 90, "1", "오늘은 3월 15일입니다"),
+               ("clip_0001", 120, 200, "2", "사과 12개를 샀어요"),
+               ("clip_0001", 230, 290, "1", "버스는 7시에 와요"),
+               ("clip_0002", 20, 100, "2", "값이 12000원이에요 – 네"),
+               ("clip_0002", 130, 190, "1", "2번 출구로…\t나가세요"),
+               ("clip_0002", 210, 280, "2", "우리는 25살이에요"))
+AIHUB_FRAMES, AIHUB_FPS = 300, 30.0
+CHUNK_SPC = 4
+CHUNK_VOC_STEPS = 8
+CHUNK_VOC_CADENCE = dict(log_step=1, val_step=8, save_step=4)
+# TF32 rounds each float32 operand to 10 mantissa bits (2^-11 relative);
+# through the model's chains of matmuls and convs the first step's loss
+# moves by far less than 1e-2 of itself.
+TF32_LOSS_REL_BOUND = 1e-2
+TF32_STEPS = 2
+
+
+def write_iemocap_corpus(root: str, seed: int) -> list[tuple[str, str]]:
+    """IEMOCAP's release layout under ``root``: per session
+    ``sentences/wav/<dialog>/<base>.wav`` (16 kHz, ``harmonic_signal``, its
+    length from the transcript's letters) and ``dialog/{transcriptions,
+    EmoEvaluation}/<dialog>.txt``, the emotions in turn. Returns (base,
+    transcript) of every utterance."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.text import clean_text
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import save_wav
+
+    rng = np.random.default_rng(seed)
+    utts = []
+    for s, session in enumerate(IEMOCAP_SESSIONS):
+        dialog = f"Ses0{s + 1}{'FM'[s]}_impro01"
+        wav_dir = os.path.join(root, session, "sentences", "wav", dialog)
+        dlg_dir = os.path.join(root, session, "dialog")
+        os.makedirs(wav_dir)
+        for sub in ("transcriptions", "EmoEvaluation"):
+            os.makedirs(os.path.join(dlg_dir, sub))
+        trans, emo = [], ["% [START_TIME - END_TIME] TURN_NAME EMOTION "
+                          "[V, A, D]"]
+        for i, text in enumerate(IEMOCAP_TEXTS):
+            base = f"{dialog}_{'FM'[i % 2]}{i:03d}"
+            emotion, valence, arousal = IEMOCAP_EMOTIONS[(i + s) % 4]
+            # 0.1 s a letter of the cleaned transcript: a letter is a
+            # phone of the phase's lexicon.
+            letters = sum(c.isalpha()
+                          for c in clean_text(text, ["english_cleaners"]))
+            seconds = 0.8 + 0.1 * letters
+            save_wav(os.path.join(wav_dir, base + ".wav"),
+                     harmonic_signal(seconds, rng, IEMOCAP_SR), IEMOCAP_SR)
+            t0 = 10.0 * i
+            trans.append(f"{base} [{t0:.4f}-{t0 + seconds:.4f}]: {text}")
+            emo.append(f"[{t0:.4f} - {t0 + seconds:.4f}]\t{base}\t{emotion}"
+                       f"\t[{valence}, {arousal}, 2.5]")
+            utts.append((base, text))
+        for sub, lines in (("transcriptions", trans), ("EmoEvaluation", emo)):
+            with open(os.path.join(dlg_dir, sub, dialog + ".txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    return utts
+
+
+def write_letter_lexicon(texts, path: str) -> int:
+    """An MFA-format lexicon for every whitespace token of ``texts``: a
+    token's phones are its letters, which the pinyin table holds, so the
+    aligner, the feature extractor and the dataset agree on every phone.
+    Returns the entries."""
+    words = sorted({w for t in texts for w in t.split()})
+    with open(path, "w") as f:
+        for w in words:
+            f.write(f"{w}\t{' '.join(c for c in w if 'a' <= c <= 'z')}\n")
+    return len(words)
+
+
+def iemocap_configs(root: Path, corpus: str, lexicon: str,
+                    npz: str) -> dict[str, str]:
+    """The shipped ESD triplet turned to IEMOCAP: dataset IEMOCAP,
+    english_cleaners, sub_dir_name "sessions", the letter lexicon, paths
+    under ``root``; ``attention_impl: "flash"``, the seeded generator.npz
+    as the sample vocoder; IEMOCAP_CADENCE, matmul_precision "highest"
+    and the profiler window PROFILE_STEPS."""
+    root.mkdir(parents=True, exist_ok=True)
+    pre = (CONFIG_DIR / "preprocess.yaml").read_text()
+    for key, value in (("dataset", "IEMOCAP"), ("corpus_path", corpus),
+                       ("sub_dir_name", "sessions"),
+                       ("lexicon_path", lexicon),
+                       ("raw_path", root / "raw"),
+                       ("preprocessed_path", root / "pre"),
+                       ("val_size", IEMOCAP_VAL), ("language", "en")):
+        pre = _yaml_set(pre, key, value)
+    cleaners = 'text_cleaners: ["basic_cleaners"]'
+    assert cleaners in pre
+    pre = pre.replace(cleaners, 'text_cleaners: ["english_cleaners"]')
+    model = (CONFIG_DIR / "model.yaml").read_text().replace(
+        "transformer:\n", 'transformer:\n  attention_impl: "flash"\n', 1)
+    speaker = '  speaker: "universal"\n'
+    assert speaker in model
+    model = model.replace(speaker, f'{speaker}  ckpt_path: "{npz}"\n')
+    train = (CONFIG_DIR / "train.yaml").read_text()
+    for key in ("ckpt_path", "log_path", "result_path"):
+        train = _yaml_set(train, key, root / key.split("_")[0])
+    for key, value in IEMOCAP_CADENCE.items():
+        train = _yaml_set(train, key, value)
+    train += ('\nmatmul_precision: "highest"\n'
+              f"profile_start_step: {PROFILE_STEPS[0]}\n"
+              f"profile_stop_step: {PROFILE_STEPS[1]}\n")
+    out = {}
+    for name, text in (("preprocess", pre), ("model", model),
+                       ("train", train)):
+        out[name] = str(root / f"{name}.yaml")
+        Path(out[name]).write_text(text)
+    return out
+
+
+def trace_busy_share(path: str) -> tuple[float, float, int]:
+    """From a ``torch.profiler`` Chrome trace: the union of the device's
+    kernel, copy and set intervals over the window (the first event's
+    start to the last event's end), the window in ms, and the kernels."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, last = 0.0, -math.inf
+    for a, b in device:
+        busy += max(0.0, b - max(a, last))
+        last = max(last, b)
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    return busy / (end - start), (end - start) / 1e3, n_kernels
+
+
+def write_aihub_corpus(root: str, audio_root: str, seed: int) -> int:
+    """AIHub-MMV's layout: per clip an annotation JSON (``nr_frame``,
+    ``actor``, ``data[frame][sub]``) under ``root/part1`` and its audio,
+    pre-extracted (no video, no ffmpeg), under ``audio_root/part1``.
+    Returns the scripts."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import save_wav
+
+    rng = np.random.default_rng(seed)
+    for d in (root, audio_root):
+        os.makedirs(os.path.join(d, "part1"))
+    for clip in sorted({t[0] for t in AIHUB_TURNS}):
+        save_wav(os.path.join(audio_root, "part1", clip + ".wav"),
+                 harmonic_signal(AIHUB_FRAMES / AIHUB_FPS, rng, IEMOCAP_SR),
+                 IEMOCAP_SR)
+        data = {}
+        for _, start, end, who, script in (t for t in AIHUB_TURNS
+                                           if t[0] == clip):
+            triple = {"emotion": "neutral", "arousal": "0.4",
+                      "valence": "0.5"}
+            data[str(start)] = {"sub1": {
+                "text": {"script": script, "script_start": str(start),
+                         "script_end": str(end), "intent": "inform",
+                         "strategy": "none"},
+                "emotion": {"text": triple, "sound": {}, "image": triple,
+                            "multimodal": triple},
+                "person_id": who}}
+        with open(os.path.join(root, "part1", clip + ".json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"nr_frame": AIHUB_FRAMES,
+                       "actor": {"1": {"gender": "female", "age": "20대"},
+                                 "2": {"gender": "male", "age": "30대"}},
+                       "data": data}, f, ensure_ascii=False)
+    return len(AIHUB_TURNS)
+
+
+def phase12_mandarin_text(smoke: Smoke, device) -> int:
+    """12a: raw Mandarin text → normalize_chinese → the bf16 Synthesizer
+    at Config() width; returns the MRF launches."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.config import Config
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+    from expressive_fastspeech2_mandarin_tpu_torch.text import (
+        chinese_text_to_ids,
+        symbols,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.text.hanzi import (
+        hanzi_to_pinyin,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.text.normalizer_zh import (
+        normalize_chinese,
+    )
+
+    normalized = [normalize_chinese(t) for t in ZH_RAW_TEXTS]
+    ids = [chinese_text_to_ids(t) for t in normalized]
+    unread = sorted({c for t in normalized for c in t
+                     if "一" <= c <= "鿿"
+                     and not "".join(hanzi_to_pinyin(c)).strip()})
+    smoke.check(not any(c in "0123456789" for t in normalized for c in t)
+                and all(x and symbols.PAD_ID not in x for x in ids),
+                f"normalize_chinese: {list(zip(ZH_RAW_TEXTS, normalized))}; "
+                f"no ASCII digit left, {[len(x) for x in ids]} phone IDs, "
+                f"none pad (hanzi the built-in table cannot read, dropped "
+                f"as in the JAX package: {unread})")
+    cfg = Config()
+    fs2, voc = seeded_states(cfg)
+    synth = Synthesizer(cfg, fs2, voc, emotion_maps=EMOTION_MAPS,
+                        device=device)
+    n = len(normalized)
+    tc0, fma0 = mrf_counts()
+    results = synth.synthesize(normalized, [i % 4 for i in range(n)],
+                               [EMOTIONS[i % 4] for i in range(n)],
+                               vocoder="hifigan")
+    tc, fma = (a - b for a, b in zip(mrf_counts(), (tc0, fma0)))
+    per_call = 2 * len(DILATIONS) * len(synth.vocoder.resblocks)
+    peaks = [float(np.abs(r.wav).max()) for r in results]
+    smoke.check(len(results) == n and all(
+        r.wav.size > 0 and np.isfinite(r.wav).all() for r in results)
+        and min(peaks) > 1e-4 and (tc, fma) == (per_call, 0),
+        f"synthesize (bf16 HiFi-GAN): {n} waveforms, "
+        f"{[round(r.wav.size / r.sampling_rate, 2) for r in results]} s, "
+        f"peaks {[round(p, 4) for p in peaks]} (finite, non-silent); MRF "
+        f"launches tensor-core {tc} (expected {per_call}), CUDA-core {fma}")
+    del synth
+    return tc
+
+
+def phase12_lexicon(smoke: Smoke, device, tmp: Path) -> None:
+    """12b: write_lexicon's inventory, then efs2-torch-pipeline
+    --lexicon <it> --skip-train on phase 10's ESD corpus (fewer
+    utterances)."""
+    from expressive_fastspeech2_mandarin_tpu_torch.text.lexicon import (
+        build_lexicon,
+        write_lexicon,
+    )
+
+    lexicon = str(tmp / "pinyin.dict")
+    n_entries = write_lexicon(lexicon)
+    esd = write_esd_corpus(str(tmp / "esd"), 12, E2E_SECONDS, LEX_ESD_UTTS)
+    y = e2e_configs(tmp / "lex", esd)
+    text, seconds = run_cli("pipeline", [
+        "-p", y["preprocess"], "-m", y["model"], "-t", y["train"],
+        "--lexicon", lexicon, "--skip-train", "--device", str(device)])
+    n_utts = len(ESD_SPEAKERS) * len(ESD_EMOTIONS) * LEX_ESD_UTTS
+    grids = list((tmp / "lex" / "pre").glob("TextGrid/*/*.TextGrid"))
+    smoke.check(n_entries == len(build_lexicon()) and len(grids) == n_utts
+                and "[4/4] training: skipped" in text
+                and (tmp / "lex" / "pre" / "train.txt").exists(),
+                f"write_lexicon: {n_entries} syllables; efs2-torch-pipeline "
+                f"--lexicon <it> --skip-train: {len(grids)} of {n_utts} "
+                f"utterances aligned, features written, in {seconds:.2f} s")
+
+
+def phase12_iemocap(smoke: Smoke, device, tmp: Path) -> dict:
+    """12c: an IEMOCAP release → efs2-torch-pipeline stages 1-4 (8 steps
+    under "flash", the profiler window, matmul_precision "highest") →
+    efs2-torch-synthesize --mode grid from its checkpoint. Returns the
+    flash and MRF launches."""
+    import logging
+
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.models.hifigan import (
+        save_generator_npz,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.text import clean_text
+    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
+    from expressive_fastspeech2_mandarin_tpu_torch.utils import plotting
+    from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import load_wav
+
+    card = nvidia_smi_line()
+    utts = write_iemocap_corpus(str(tmp / "IEMOCAP_full_release"), 13)
+    cleaned = [clean_text(" ".join(t.split()), ["english_cleaners"])
+               for _, t in utts]
+    lexicon = str(tmp / "english_letters.dict")
+    n_words = write_letter_lexicon(cleaned, lexicon)
+    npz = str(tmp / "generator.npz")
+    save_generator_npz(npz, seeded_states(C.Config())[1])
+    y = iemocap_configs(tmp / "iemocap", str(tmp / "IEMOCAP_full_release"),
+                        lexicon, npz)
+    argv = ["-p", y["preprocess"], "-m", y["model"], "-t", y["train"]]
+
+    calls: dict[str, list] = {"train_step": [], "eval_step": [],
+                              "synth_step": []}
+    originals = {name: getattr(loop, name) for name in calls}
+
+    def counted(name):
+        fn = originals[name]
+
+        def wrapper(*args, **kwargs):
+            before = bf16_counts() + flash_counts()
+            out = fn(*args, **kwargs)
+            calls[name].append(tuple(
+                a - b for a, b in zip(bf16_counts() + flash_counts(),
+                                      before)))
+            return out
+
+        return wrapper
+
+    skips: list[str] = []
+    handler = logging.Handler()
+    handler.emit = lambda record: skips.append(record.getMessage())
+    logging.getLogger(plotting.__name__).addHandler(handler)
+    flash0, mrf0 = flash_counts(), mrf_counts()
+    for name in calls:
+        setattr(loop, name, counted(name))
+    try:
+        text, seconds = run_cli("pipeline", [
+            *argv, "--total_steps", IEMOCAP_TRAIN_STEPS, "--device",
+            str(device)])
+    finally:
+        for name, fn in originals.items():
+            setattr(loop, name, fn)
+        logging.getLogger(plotting.__name__).removeHandler(handler)
+    train_flash = [a - b for a, b in zip(flash_counts(), flash0)]
+    train_mrf = sum(mrf_counts()) - sum(mrf0)
+    pre = tmp / "iemocap" / "pre"
+    cfg = C.load_config(y["preprocess"], y["model"], y["train"])
+    n_blocks = (cfg.model.transformer.encoder_layer
+                + cfg.model.transformer.decoder_layer)
+    emotions = json.loads((pre / "emotions.json").read_text())
+    meta = [line for f in ("train.txt", "val.txt")
+            for line in (pre / f).read_text().splitlines() if line.strip()]
+    phones = {p for line in meta
+              for p in line.split("|")[2].strip("{}").split()}
+    grids = list(pre.glob("TextGrid/*/*.TextGrid"))
+    smoke.check(len(grids) == len(utts) and len(meta) == len(utts)
+                and set(emotions["emotion_dict"]) == {
+                    e[0] for e in IEMOCAP_EMOTIONS}
+                and phones <= set("abcdefghijklmnopqrstuvwxyz") | {"sp"},
+                f"efs2-torch-pipeline stages 1-3 (IEMOCAP, english_cleaners, "
+                f"{n_words} words in the letter lexicon): {len(grids)} of "
+                f"{len(utts)} aligned, {len(meta)} utterances featurized, "
+                f"emotions.json {sorted(emotions['emotion_dict'])}, "
+                f"{len(phones)} phones, all letters of the pinyin table")
+    log = _metrics(tmp / "iemocap" / "log" / "train" / "metrics.jsonl")
+    smoke.check(
+        cfg.train.matmul_precision == "highest"
+        and len(calls["train_step"]) == IEMOCAP_TRAIN_STEPS
+        and all(c == (0, 0, 0) + (n_blocks,) * 3
+                for c in calls["train_step"])
+        and [r["step"] for r in log] == list(
+            range(1, IEMOCAP_TRAIN_STEPS + 1))
+        and all(math.isfinite(r["total_loss"]) for r in log)
+        and (tmp / "iemocap" / "ckpt" / f"{IEMOCAP_TRAIN_STEPS}.pt").exists(),
+        f"stage 4, train under 'flash': {len(calls['train_step'])} steps in "
+        f"{seconds:.2f} s (the whole pipeline), each launching (bf16 "
+        f"forward, dQ, dK/dV; float32 forward, dQ, dK/dV) "
+        f"{sorted(set(calls['train_step']))} (expected "
+        f"{(0, 0, 0) + (n_blocks,) * 3}); val {calls['eval_step']}, synth "
+        f"{calls['synth_step']}; flash over the run {train_flash}; losses "
+        f"{[round(r['total_loss'], 3) for r in log]} [{card}]")
+    traces = sorted((tmp / "iemocap" / "log" / "profile").glob("*.json"))
+    want = f"trace_steps{PROFILE_STEPS[0]}-{PROFILE_STEPS[1]}.json"
+    ok = [t.name for t in traces] == [want]
+    busy, window_ms, n_kernels = (trace_busy_share(str(traces[0])) if ok
+                                  else (math.nan, math.nan, 0))
+    smoke.check(ok and n_kernels > 0 and 0.0 < busy <= 1.0
+                and "profiler trace written to" in text,
+                f"profiler window steps {PROFILE_STEPS}: "
+                f"{[os.path.relpath(t, tmp) for t in traces]}, "
+                f"{os.path.getsize(traces[0]) / 2**20 if ok else 0:.1f} MiB, "
+                f"{n_kernels} kernels over a {window_ms:.1f} ms window, "
+                f"device busy share {busy:.3f} (the profiler's host cost in "
+                f"the window) [{card}]")
+    samples = tmp / "iemocap" / "result" / "train_samples"
+    png = samples / f"step{IEMOCAP_TRAIN_STEPS}.png"
+    no_plt = plotting.pyplot() is None
+    smoke.check((samples / f"step{IEMOCAP_TRAIN_STEPS}_mel.npy").exists()
+                and (png.exists() != no_plt)
+                and (not no_plt or plotting._skip_logged),
+                f"synth_step {IEMOCAP_TRAIN_STEPS}: "
+                + ("no matplotlib here, the figure's skip logged "
+                   f"({skips or 'in an earlier phase'})" if no_plt
+                   else f"{png.name} written")
+                + f"; sample vocoder MRF launches over the run {train_mrf}")
+
+    mrf1 = mrf_counts()
+    grid_dir = tmp / "iemocap_grid"
+    phone_text = "{" + " ".join(c for c in cleaned[0] if "a" <= c <= "z") + "}"
+    _, synth_s = run_cli("synthesize", [
+        *argv, "--mode", "grid", "--text", phone_text, "--vocoder_ckpt",
+        npz, "--out_dir", grid_dir, "--device", str(device)])
+    grid_mrf = [a - b for a, b in zip(mrf_counts(), mrf1)]
+    wavs = sorted(grid_dir.glob("grid_*.wav"))
+    audio = [load_wav(str(w), None)[0] for w in wavs]
+    per_call = 2 * len(DILATIONS) * 3 * len(cfg.model.vocoder.upsample_rates)
+    speakers = json.loads((pre / "speakers.json").read_text())
+    smoke.check(len(wavs) == len(speakers) * len(IEMOCAP_EMOTIONS)
+                and all(a.size > 0 and np.isfinite(a).all() for a in audio)
+                and grid_mrf == [per_call * len(speakers), 0],
+                f"efs2-torch-synthesize --mode grid from the step-"
+                f"{IEMOCAP_TRAIN_STEPS} checkpoint: {len(wavs)} wavs "
+                f"({sorted(speakers)} × {len(IEMOCAP_EMOTIONS)} emotions) in "
+                f"{synth_s:.2f} s; MRF launches (tensor-core, CUDA-core) "
+                f"{grid_mrf} (expected {[per_call * len(speakers), 0]})")
+    return {"flash": train_flash, "mrf": train_mrf + sum(grid_mrf)}
+
+
+def phase12_aihub(smoke: Smoke, tmp: Path) -> None:
+    """12d: AIHub-MMV clips with pre-extracted WAVs → create_dataset →
+    prepare_aihub_mmv with korean_cleaners; extract_audio without
+    ffmpeg."""
+    import shutil
+
+    from expressive_fastspeech2_mandarin_tpu_torch import preprocess
+
+    n = write_aihub_corpus(str(tmp / "mmv"), str(tmp / "mmv_audio"), 14)
+    n_ds = preprocess.create_aihub_dataset(
+        str(tmp / "mmv"), str(tmp / "mmv_audio"), str(tmp / "mmv_ds"),
+        sampling_rate=IEMOCAP_SR)
+    n_raw = preprocess.prepare_aihub_mmv(
+        str(tmp / "mmv_ds"), str(tmp / "mmv_raw"), sampling_rate=SR,
+        sub_dir_name="clips", cleaners=("korean_cleaners",))
+    lines = (tmp / "mmv_raw" / "filelist.txt").read_text(
+        encoding="utf-8").splitlines()
+    labs = sorted((tmp / "mmv_raw" / "clips").glob("*/*.lab"))
+    texts = [p.read_text(encoding="utf-8") for p in labs]
+    smoke.check(n_ds == n_raw == n == len(lines) == len(labs)
+                and all(len(line.split("|")) == 17 for line in lines)
+                and all(t and not any(c.isdigit() for c in t)
+                        for t in texts),
+                f"AIHub-MMV: {n_ds} utterances cut from "
+                f"{len({t[0] for t in AIHUB_TURNS})} clips, 17-field "
+                f"filelist, korean_cleaners labs without digits: {texts}")
+    if shutil.which("ffmpeg") is None:
+        try:
+            preprocess.extract_aihub_audio(str(tmp / "mmv"),
+                                           str(tmp / "mmv_x"))
+            message = ""
+        except RuntimeError as e:
+            message = str(e)
+        smoke.check(message.startswith("ffmpeg not found"),
+                    f"extract_audio without ffmpeg raises: {message!r}")
+    else:
+        print("  ffmpeg is installed here: extract_audio's refusal not "
+              "exercised")
+
+
+def phase12_chunked_gan(smoke: Smoke, device, tmp: Path) -> None:
+    """12e: train_vocoder at hifigan/config.json width (batch 16 × 8192),
+    8 steps in chunks of 4, then the same 8 steps one by one from the
+    same state: each chunk's logged losses against its steps' mean, and
+    the log, val and save steps the JAX package's loop picks."""
+    import dataclasses
+
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.train.vocoder import (
+        load_corpus_wavs,
+        train_vocoder,
+    )
+
+    card = nvidia_smi_line()
+    wavs = load_corpus_wavs(write_wav_corpus(str(tmp / "wavs"), 8), SR)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for spc, cadence in ((CHUNK_SPC, CHUNK_VOC_CADENCE),
+                             (1, dict(log_step=1, val_step=100,
+                                      save_step=100))):
+            cfg = C.Config(vocoder_train=dataclasses.replace(
+                C.VocoderTrainConfig(), steps_per_call=spc, **cadence))
+            out = tmp / f"voc_spc{spc}"
+            t0 = time.perf_counter()
+            train_vocoder(cfg, wavs, str(out), total_steps=CHUNK_VOC_STEPS,
+                          device=device, log=lambda *_: None)
+            torch.cuda.synchronize()
+            runs[spc] = (_metrics(out / "metrics.jsonl"),
+                         sorted(int(p.name[:-3])
+                                for p in (out / "ckpt").glob("*.pt")),
+                         time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    records, saved, chunk_s = runs[CHUNK_SPC]
+    one = {r["step"]: r for r in runs[1][0] if "mel_l1" in r}
+    logged = [r for r in records if "mel_l1" in r]
+    worst = 0.0
+    for r in logged:
+        for key in ("gen_total", "disc", "mel_l1", "fm", "adv"):
+            mean = sum(one[s][key] for s in range(
+                r["step"] - CHUNK_SPC + 1, r["step"] + 1)) / CHUNK_SPC
+            worst = max(worst, abs(r[key] - mean) / abs(mean))
+    ends = range(CHUNK_SPC, CHUNK_VOC_STEPS + 1, CHUNK_SPC)
+
+    def jax_steps(every):  # the JAX loop's test at each chunk's end
+        return [e for e in ends if e % max(every, CHUNK_SPC) < CHUNK_SPC]
+
+    want = {"log": jax_steps(CHUNK_VOC_CADENCE["log_step"]),
+            "val": jax_steps(CHUNK_VOC_CADENCE["val_step"]),
+            "save": sorted(set(jax_steps(CHUNK_VOC_CADENCE["save_step"])
+                               + [CHUNK_VOC_STEPS]))}
+    got = {"log": [r["step"] for r in logged],
+           "val": [r["step"] for r in records if "val_mel_l1" in r],
+           "save": saved}
+    smoke.check(got == want and worst <= VOC_LOSS_REL_BOUND,
+                f"train_vocoder, {CHUNK_VOC_STEPS} steps in chunks of "
+                f"{CHUNK_SPC} against one by one (batch "
+                f"{C.VocoderTrainConfig().batch_size} × "
+                f"{C.VocoderTrainConfig().segment_size}): worst rel diff "
+                f"of a chunk's mean losses {worst:.2e} (bound "
+                f"{VOC_LOSS_REL_BOUND:.0e}); logged, validated, saved at "
+                f"{got} (the JAX loop's {want}); {chunk_s:.2f} s chunked, "
+                f"{runs[1][2]:.2f} s one by one [{card}]")
+
+
+def phase12_tf32(smoke: Smoke, device, tmp: Path) -> None:
+    """12f: train() in float32 under matmul_precision "high" (TF32 on for
+    its steps, off after it) against "highest"; the first step's loss;
+    step times of both at phase 6's batch, in turns."""
+    import dataclasses
+
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        loop,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        matmul_precision,
+        stage_batch,
+    )
+
+    card = nvidia_smi_line()
+    corpus = write_training_corpus(str(tmp / "corpus"), 0)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    seen: dict[str, list] = {}
+    real = loop.train_step
+    for name in ("high", "highest"):
+        base = training_config(corpus, str(tmp / name), "auto")
+        cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, matmul_precision=name))
+        seen[name] = []
+
+        def step(state, batch, cfg, rows=seen[name]):
+            rows.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            report = real(state, batch, cfg)
+            rows[-1] += (float(report.total),)
+            return report
+
+        loop.train_step = step
+        try:
+            loop.train(cfg, total_steps=TF32_STEPS, device=device)
+        finally:
+            loop.train_step = real
+    after = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    high, highest = seen["high"][0][2], seen["highest"][0][2]
+    rel = abs(high - highest) / abs(highest)
+    smoke.check([r[:2] for r in seen["high"]] == [(True, True)] * TF32_STEPS
+                and [r[:2] for r in seen["highest"]]
+                == [(False, False)] * TF32_STEPS
+                and after == before and rel <= TF32_LOSS_REL_BOUND,
+                f"train(), float32: TF32 (matmul, cuDNN) inside its steps "
+                f"{sorted({r[:2] for r in seen['high']})} under 'high', "
+                f"{sorted({r[:2] for r in seen['highest']})} under "
+                f"'highest', {after} after ({before} before); first-step "
+                f"loss {high:.6f} "
+                f"against {highest:.6f}, rel diff {rel:.2e} (bound "
+                f"{TF32_LOSS_REL_BOUND:.0e})")
+
+    b, s, t = TRAIN_TIMED
+    batch = stage_batch(synthetic_train_batch(b, s, t, seed=5), device)
+    cfg = training_config(corpus, str(tmp / "timed"), "auto")
+    states = {name: create_train_state(cfg, None, device)
+              for name in ("highest", "high")}
+    ms: dict[str, list] = {name: [] for name in states}
+    for i in range(13):
+        for name, state in states.items():
+            with matmul_precision(name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.train_step(state, batch, cfg)
+                torch.cuda.synchronize()
+            if i >= 3:
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+    med = {name: sorted(v)[len(v) // 2] for name, v in ms.items()}
+    print(f"  float32 train step, B={b}, bucket ({s}, {t}), 'auto': "
+          f"matmul_precision 'highest' {med['highest']:.3f} ms, 'high' "
+          f"(TF32) {med['high']:.3f} ms, medians of 10 after 3 warm-ups, "
+          f"in turns [{card}]", flush=True)
+
+
+def phase_front_ends(smoke: Smoke, device):
+    """Phase 12: (a) Mandarin raw text through normalize_chinese and the
+    bf16 Synthesizer; (b) write_lexicon and the pipeline aligning from it;
+    (c) an IEMOCAP release through efs2-torch-pipeline stages 1-4 and
+    efs2-torch-synthesize; (d) AIHub-MMV prep; (e) chunked GAN steps; (f)
+    TF32 under matmul_precision "high". Every kernel's counts are set to 0
+    at the start and read at the end. Returns the launches."""
+    reset_flash_counts()
+    reset_bf16_counts()
+    reset_mrf_counts()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        for key, fn, fn_args in (
+                ("a", phase12_mandarin_text, (smoke, device)),
+                ("b", phase12_lexicon, (smoke, device, tmp / "b")),
+                ("c", phase12_iemocap, (smoke, device, tmp / "c")),
+                ("d", phase12_aihub, (smoke, tmp / "d")),
+                ("e", phase12_chunked_gan, (smoke, device, tmp / "e")),
+                ("f", phase12_tf32, (smoke, device, tmp / "f"))):
+            (tmp / key).mkdir()
+            t0 = time.perf_counter()
+            fn(*fn_args)
+            times[key] = time.perf_counter() - t0
+            print(f"   12{key}: {times[key]:.1f} s", flush=True)
+    flash = flash_counts()
+    launches = {"mrf_resblock": mrf_counts()[0],
+                "mrf_resblock_f32": mrf_counts()[1],
+                "flash_mha": flash[0], "flash_mha_bwd_dq": flash[1],
+                "flash_mha_bwd_dkv": flash[2]}
+    smoke.check(all(launches[k] > 0 for k in (
+        "mrf_resblock", "flash_mha", "flash_mha_bwd_dq",
+        "flash_mha_bwd_dkv")),
+        f"kernel launches over phase 12: {launches}")
+    return {"launches": launches, "times": times}
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
-          "7", "8", "8b", "9", "10", "11", "11b")
+          "7", "8", "8b", "9", "10", "11", "11b", "12")
 
 
 def main(argv=None) -> int:
@@ -3617,6 +4368,8 @@ def main(argv=None) -> int:
                 device)
     bf16_rows = run("11b", "times: bf16 flash kernels and the amp bf16 "
                     "train step", phase_bf16_times, device)
+    fronts = run("12", "the multilingual front end and corpora through the "
+                 "CLIs", phase_front_ends, smoke, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if smoke.failures or any(results.get(key) is None for key in chosen):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
@@ -3627,15 +4380,17 @@ def main(argv=None) -> int:
               f"the whole run: no result lines)")
         return 0
 
-    _, launches = main_run
+    _, launches, f32_launches = main_run
+    f32 = totals["f32"]
     kernels = [{
         "name": "mrf_resblock",
         "route": "cuda",
         "source": f"{PKG}/csrc/mrf_resblock.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "mrf_resblock.py:185",
-        "launches": launches + entry["launches"]["mrf_resblock"],
-        "max_abs_err": max(worst, worst_long),
+        "launches": (launches + entry["launches"]["mrf_resblock"]
+                     + fronts["launches"]["mrf_resblock"]),
+        "max_abs_err": max(worst[0], worst_long[0]),
         "shape": f"{len(STAGE_SHAPES) * len(KERNEL_SIZES)} resblocks bf16, "
                  f"B = {BATCH}, (C, T) in {list(STAGE_SHAPES)}, k in "
                  f"{list(KERNEL_SIZES)}",
@@ -3646,13 +4401,31 @@ def main(argv=None) -> int:
                      >= totals["bound_ms"] else "bytes"),
         "library_ms": totals["library_ms"],
     }, {
+        "name": "mrf_resblock_f32",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/mrf_resblock.cu",
+        "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
+                    "mrf_resblock.py:186",
+        "launches": f32_launches + fronts["launches"]["mrf_resblock_f32"],
+        "max_abs_err": max(worst[1], worst_long[1]),
+        "shape": f"{len(STAGE_SHAPES) * len(KERNEL_SIZES)} resblocks float32 "
+                 f"(TF32 off), B = {BATCH}, (C, T) in {list(STAGE_SHAPES)}, "
+                 f"k in {list(KERNEL_SIZES)}",
+        "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": ("operations" if 2 * f32["bound_by_operations_ms"]
+                     >= f32["bound_ms"] else "bytes"),
+        "library_ms": f32["library_ms"],
+    }, {
         "name": "flash_mha",
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_mha.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "flash_mha.py:53",
         "launches": (train_launches[0] + features["launches"]["flash_mha"]
-                     + entry["launches"]["flash_mha"] + tuned["float32"][0]),
+                     + entry["launches"]["flash_mha"] + tuned["float32"][0]
+                     + fronts["launches"]["flash_mha"]),
         "max_abs_err": worst_flash,
         **flash_row,
     }, {
@@ -3660,7 +4433,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_mha_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-        "launches": train_launches[1] + entry["launches"]["flash_mha_bwd_dq"],
+        "launches": (train_launches[1] + entry["launches"]["flash_mha_bwd_dq"]
+                     + fronts["launches"]["flash_mha_bwd_dq"]),
         "max_abs_err": worst_bwd[0],
         **bwd_rows["dq"],
     }, {
@@ -3669,7 +4443,8 @@ def main(argv=None) -> int:
         "source": f"{PKG}/csrc/flash_mha_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
         "launches": (train_launches[2]
-                     + entry["launches"]["flash_mha_bwd_dkv"]),
+                     + entry["launches"]["flash_mha_bwd_dkv"]
+                     + fronts["launches"]["flash_mha_bwd_dkv"]),
         "max_abs_err": worst_bwd[1],
         **bwd_rows["dkv"],
     }, {

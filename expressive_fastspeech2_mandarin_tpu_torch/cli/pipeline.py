@@ -2,8 +2,8 @@
 → training (reference: train_pinyin_pipeline.py:30-150's orchestration,
 with the native aligner in place of batched MFA subprocesses).
 
-Each stage is skipped if its outputs already exist. Corpus prep takes
-ESD's layout; the IEMOCAP and AIHub-MMV adapters are not ported yet.
+Each stage is skipped if its outputs already exist. Corpus prep is
+picked by the dataset name: IEMOCAP, AIHub-MMV, or else ESD's layout.
 """
 
 from __future__ import annotations
@@ -31,10 +31,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="raw ESD dataset (skip if raw_path already prepared)")
     ap.add_argument("--corpus-root", default=None,
                     help="raw corpus release for stage-1 prep; the prep "
-                         "module is picked from the dataset name (ESD*; "
-                         "IEMOCAP and AIHub-MMV are not ported yet). "
-                         "Defaults to cfg.path.corpus_path when that "
-                         "directory exists")
+                         "module is picked from the dataset name (IEMOCAP / "
+                         "AIHub-MMV / ESD*). Defaults to "
+                         "cfg.path.corpus_path when that directory exists")
     ap.add_argument("--total_steps", type=int, default=None)
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--align-iters", type=int, default=8)
@@ -48,8 +47,9 @@ def main(argv: list[str] | None = None) -> None:
 
     cfg = config_from_args(args)
     raw = cfg.preprocess.path.raw_path
-    # Speaker dirs live under raw/<sub_dir_name> ("" for ESD): the aligner
-    # and the feature extractor walk that level.
+    # Speaker dirs live under raw/<sub_dir_name> (IEMOCAP "sessions",
+    # AIHub "clips", "" for ESD): the aligner and the feature extractor
+    # walk that level.
     align_root = os.path.join(raw, cfg.preprocess.path.sub_dir_name)
     pre = cfg.preprocess.path.preprocessed_path
     tg_dir = os.path.join(pre, "TextGrid")
@@ -60,15 +60,23 @@ def main(argv: list[str] | None = None) -> None:
         corpus_root = cfg.preprocess.path.corpus_path
     if corpus_root and not os.path.exists(os.path.join(raw, "filelist.txt")):
         name = cfg.preprocess.dataset.lower()
-        if "iemocap" in name or "aihub" in name:
-            raise NotImplementedError(
-                f"corpus prep for {cfg.preprocess.dataset} is not ported yet "
-                f"(the IEMOCAP and AIHub-MMV adapters, ROADMAP queue 1)")
+        sr = cfg.preprocess.audio.sampling_rate
         print(f"[1/4] preparing corpus ({cfg.preprocess.dataset}) ...")
-        from ..preprocess import prepare_esd
+        if "iemocap" in name or "aihub" in name:
+            from ..preprocess import prepare_aihub_mmv, prepare_iemocap
 
-        prepare_esd(corpus_root, raw,
-                    sampling_rate=cfg.preprocess.audio.sampling_rate)
+            prepare, sub_dir = ((prepare_iemocap, "sessions")
+                                if "iemocap" in name
+                                else (prepare_aihub_mmv, "clips"))
+            prepare(corpus_root, raw, sampling_rate=sr,
+                    sub_dir_name=cfg.preprocess.path.sub_dir_name or sub_dir,
+                    fixed_text_path=(cfg.preprocess.path.fixed_text_path
+                                     or None),
+                    cleaners=cfg.preprocess.text_cleaners)
+        else:
+            from ..preprocess import prepare_esd
+
+            prepare_esd(corpus_root, raw, sampling_rate=sr)
     else:
         print("[1/4] corpus prep: skipped (already prepared)")
 
@@ -107,6 +115,11 @@ def main(argv: list[str] | None = None) -> None:
         from ..train.loop import train
 
         print("[4/4] training ...")
+        # Read again now that stage 3 has written speakers.json and
+        # emotions.json, which size the model's speaker and emotion tables
+        # (the JAX pipeline trains on the tables read before stage 3, which
+        # its synthesize, reading them after, cannot load).
+        cfg = config_from_args(args)
         train(cfg, total_steps=args.total_steps, device=device)
     else:
         print("[4/4] training: skipped")

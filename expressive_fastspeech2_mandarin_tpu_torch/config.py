@@ -6,9 +6,13 @@ variance features under ``PreprocessConfig``; transformer, variance and
 vocoder sizes under ``ModelConfig``; optimizer, cadence and buckets under
 ``TrainConfig``; the GAN recipe under ``VocoderTrainConfig`` — with the
 same field names and defaults, so a configuration reads the same in both
-packages. Training values that only mean something on a TPU (a
-model-parallel mesh, XLA matmul precision, the JAX profiler, the packed
-generator, the vocoder's scan chunks) raise ``ValueError``.
+packages. ``matmul_precision`` maps XLA's precision names onto the card's
+TF32 switches (``train.loop.matmul_precision``); the profiler window
+writes a ``torch.profiler`` trace; the vocoder's scan chunks run as eager
+chunks; ``packed_generator``, a TPU lane-packing layout with the plain
+generator's semantics, trains the plain generator. A model-parallel mesh
+(``mesh.model_parallel_size`` > 1) raises ``ValueError``: the port trains
+on one card.
 
 ``load_config(p, m, t)`` reads the reference's three YAML files (``-p/-m/
 -t``) through ``utils.yaml_reader``, which resolves their scalars as
@@ -205,6 +209,13 @@ class MeshConfig:
     model_parallel_size: int = 1
 
 
+# jax_default_matmul_precision's names → whether float32 matmuls and convs
+# may run on TF32 tensor cores.
+MATMUL_PRECISIONS = {"default": False, "highest": False, "float32": False,
+                     "high": True, "tensorfloat32": True, "bfloat16": True,
+                     "bfloat16_3x": True}
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     path: PathConfig = field(default_factory=PathConfig)
@@ -213,7 +224,10 @@ class TrainConfig:
     buckets: BucketConfig = field(default_factory=BucketConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     seed: int = 1234
-    # TPU matmul precision; the port takes only "default".
+    # jax_default_matmul_precision's names: "default", "highest" and
+    # "float32" keep float32 matmuls and convs off TF32; "high",
+    # "tensorfloat32", "bfloat16" and "bfloat16_3x" let them run on TF32
+    # tensor cores, for the length of ``train()``.
     matmul_precision: str = "default"
     # "bfloat16": forward and backward on a bf16 copy of the float32
     # master parameters; "float32" keeps full precision.
@@ -228,26 +242,21 @@ class TrainConfig:
     transfer_dtype: str = "int16"
     # Batches staged ahead of the running step.
     prefetch_chunks: int = 2
-    # JAX profiler window; the port takes only the default (off).
+    # A torch.profiler trace of steps [start, stop) under
+    # <log_path>/profile (off when start < 0).
     profile_start_step: int = -1
     profile_stop_step: int = -1
 
     def __post_init__(self):
-        tpu_only = [
-            (self.mesh.model_parallel_size > 1,
-             f"mesh.model_parallel_size={self.mesh.model_parallel_size} "
-             "(a model-parallel TPU mesh)"),
-            (self.matmul_precision != "default",
-             f"matmul_precision={self.matmul_precision!r} (XLA's TPU "
-             "matmul precision)"),
-            (self.profile_start_step >= 0,
-             f"profile_start_step={self.profile_start_step} (the JAX "
-             "profiler)"),
-        ]
-        for bad, what in tpu_only:
-            if bad:
-                raise ValueError(f"{what} is a TPU setting the PyTorch port "
-                                 f"does not take; leave it at its default")
+        if self.mesh.model_parallel_size > 1:
+            raise ValueError(
+                f"mesh.model_parallel_size={self.mesh.model_parallel_size} "
+                f"(a model-parallel TPU mesh) is a TPU setting the PyTorch "
+                f"port does not take; leave it at its default")
+        if self.matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision must be one of "
+                             f"{sorted(MATMUL_PRECISIONS)}, got "
+                             f"{self.matmul_precision!r}")
         if self.steps_per_call < 1:
             raise ValueError(f"steps_per_call must be at least 1, got "
                              f"{self.steps_per_call}")
@@ -282,11 +291,13 @@ class VocoderTrainConfig:
     # "bfloat16": bf16 generator and discriminator convs, float32 master
     # parameters, weight-norm statistics and losses.
     amp_dtype: str = "float32"
-    # The JAX package's packed generator (TPU lane packing); the port takes
-    # only False.
+    # The JAX package's packed generator, a TPU lane-packing layout with
+    # the plain generator's semantics: the port trains the plain generator
+    # either way.
     packed_generator: bool = False
-    # GAN steps per host dispatch (a lax.scan chunk on the TPU); the port
-    # takes only 1 (ROADMAP queue 1).
+    # GAN steps per chunk (a lax.scan on the TPU; eager steps here): the
+    # log, val and save cadences are checked at chunk ends, and a chunk
+    # logs its steps' mean losses.
     steps_per_call: int = 1
     total_step: int = 400000
     log_step: int = 100
@@ -294,16 +305,6 @@ class VocoderTrainConfig:
     val_step: int = 5000
 
     def __post_init__(self):
-        tpu_only = [
-            (self.packed_generator, "vocoder_train.packed_generator=True "
-             "(the TPU's lane-packed generator layout)"),
-            (self.steps_per_call > 1, "vocoder_train.steps_per_call="
-             f"{self.steps_per_call} (lax.scan chunks of GAN steps)"),
-        ]
-        for bad, what in tpu_only:
-            if bad:
-                raise ValueError(f"{what} is a TPU setting the PyTorch port "
-                                 f"does not take; leave it at its default")
         if self.amp_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"amp_dtype must be float32 or bfloat16, got "
                              f"{self.amp_dtype!r}")
@@ -448,6 +449,10 @@ def train_config_from_dict(d: dict[str, Any], **overrides) -> TrainConfig:
         ),
         steps_per_call=d.get("steps_per_call", 1),
         matmul_precision=d.get("matmul_precision", "default"),
+        # Read from train.yaml here; the JAX package takes the profiler
+        # window from Python only.
+        profile_start_step=d.get("profile_start_step", -1),
+        profile_stop_step=d.get("profile_stop_step", -1),
         transfer_dtype=d.get("transfer_dtype", "int16"),
         amp_dtype=d.get("amp_dtype", "float32"),
         prefetch_chunks=d.get("prefetch_chunks", 2),

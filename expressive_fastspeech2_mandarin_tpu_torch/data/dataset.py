@@ -61,7 +61,7 @@ class BucketedDataset:
                 continue  # the reference's filter
             self.examples.append(Example(
                 utt=utt,
-                speaker_id=corpus.speaker_map[utt.speaker],
+                speaker_id=corpus.speaker_id(utt),
                 emotion_id=corpus.emotion_map[utt.emotion],
                 arousal_id=corpus.arousal_map[utt.arousal],
                 valence_id=corpus.valence_map[utt.valence],

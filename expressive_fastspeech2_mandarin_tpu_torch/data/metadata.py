@@ -43,6 +43,9 @@ class Utterance:
     emotion: str
     arousal: str
     valence: str
+    # The corpus filelist's speaker (the fifth field), where it is given:
+    # the name speakers.json holds when the folder's is not in it.
+    corpus_speaker: str = ""
 
     def phone_ids(self, table: str = "pinyin") -> np.ndarray:
         phones = self.phone_text.strip("{}").split()
@@ -66,7 +69,8 @@ def parse_metadata_line(line: str) -> Utterance:
     else:
         emotion, arousal, valence = "Neutral", "0.5", "0.5"
     return Utterance(basename, speaker, phone_text, raw_text, emotion,
-                     arousal, valence)
+                     arousal, valence,
+                     aux[0] if len(aux) >= 5 else speaker)
 
 
 def read_metadata(path: str) -> list[Utterance]:
@@ -91,6 +95,16 @@ class PreprocessedCorpus:
         """The three maps under the keys ``Synthesizer`` takes."""
         return {"emotion": self.emotion_map, "arousal": self.arousal_map,
                 "valence": self.valence_map}
+
+    def speaker_id(self, utt: Utterance) -> int:
+        """The utterance's speaker ID: by its folder's name, or where
+        speakers.json does not hold that name (IEMOCAP's dialog folders
+        under ``sessions``, speakers.json holding the filelist's session
+        speakers) by the filelist's speaker. The JAX package raises
+        ``KeyError`` there, so it cannot train on IEMOCAP."""
+        if utt.speaker in self.speaker_map:
+            return self.speaker_map[utt.speaker]
+        return self.speaker_map[utt.corpus_speaker]
 
     def metadata(self, filename: str) -> list[Utterance]:
         return read_metadata(os.path.join(self.root, filename))

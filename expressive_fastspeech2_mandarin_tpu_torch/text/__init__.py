@@ -4,11 +4,18 @@
 pinyin, or explicit phones, unknown phones mapped to pad) or the IPA table
 (explicit phones, unknown phones mapped to ``@spn``). ``phonemes_to_ids``
 skips unknown phones unless told otherwise, as the training data wants.
+``text_to_sequence`` runs the named cleaners over plain text and reads
+``{...}`` spans as ``@``-prefixed phones, over the IPA table.
+
+The other languages' front ends are modules of their own: ``english``
+(CMUdict, ``g2p_en``), ``korean`` (jamo, pronunciation rules),
+``numbers_en``, and ``normalizer_zh`` (Chinese non-standard words).
 """
 
 from __future__ import annotations
 
 import logging
+import re
 
 from . import symbols
 from .cleaners import clean_text
@@ -16,6 +23,8 @@ from .hanzi import hanzi_to_pinyin
 from .pinyin import pinyin_sequence_to_phonemes, pinyin_to_phonemes
 
 logger = logging.getLogger(__name__)
+
+_curly_re = re.compile(r"(.*?)\{(.+?)\}(.*)")
 
 __all__ = [
     "symbols",
@@ -25,6 +34,7 @@ __all__ = [
     "chinese_text_to_phonemes",
     "chinese_text_to_ids",
     "text_to_ids",
+    "text_to_sequence",
     "text_to_sequence_ipa",
     "pinyin_to_phonemes",
     "pinyin_sequence_to_phonemes",
@@ -74,6 +84,34 @@ def chinese_text_to_ids(text: str) -> list[int]:
     """Hanzi or phones → pinyin-table IDs, unknown phones mapped to pad."""
     return phonemes_to_ids(chinese_text_to_phonemes(text), "pinyin",
                            unknown="pad")
+
+
+def _should_keep(s: str, table: dict[str, int]) -> bool:
+    return s in table and s not in ("_", "~")
+
+
+def text_to_sequence(text: str, cleaner_names: list[str]) -> list[int]:
+    """IPA-table IDs of ``text``: plain spans cleaned by ``cleaner_names``
+    and read character by character, ``{...}`` spans read as
+    ``@``-prefixed phones; pad and unknown symbols dropped (the JAX
+    package's ``text/__init__.py:104-122``)."""
+    table = symbols.IPA_TO_ID
+    sequence: list[int] = []
+    while text:
+        m = _curly_re.match(text)
+        if not m:
+            cleaned = clean_text(text, cleaner_names)
+            sequence += [table[s] for s in cleaned if _should_keep(s, table)]
+            break
+        cleaned = clean_text(m.group(1), cleaner_names)
+        sequence += [table[s] for s in cleaned if _should_keep(s, table)]
+        sequence += [
+            table[t]
+            for t in ("@" + s for s in m.group(2).split())
+            if _should_keep(t, table)
+        ]
+        text = m.group(3)
+    return sequence
 
 
 def text_to_sequence_ipa(text: str) -> list[int]:

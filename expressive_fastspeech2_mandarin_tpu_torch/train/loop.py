@@ -12,8 +12,18 @@ free-running every ``synth_step``, its predicted mels and lengths saved as
 ``<result_path>/train_samples/step<N>_{mel,mel_lens}.npy`` and its first
 utterance, predicted and ground truth, vocoded by ``SampleVocoder``
 (HiFi-GAN from ``model.vocoder.ckpt_path``, else Griffin-Lim) into
-``step<N>_{predicted,reconstructed}.wav``; a checkpoint every
-``save_step`` and at the end.
+``step<N>_{predicted,reconstructed}.wav``, its predicted mel plotted into
+``step<N>.png`` and predicted against ground truth, pitch and energy
+over them, into ``<log_path>/train/figures/train_spectrogram_step<N>.png``
+(where matplotlib imports; else the skip is logged once); a checkpoint
+every ``save_step`` and at the end.
+
+``matmul_precision`` sets the card's TF32 switches for float32 matmuls
+and convs (``matmul_precision``) while ``train()`` runs and restores them
+when it returns. ``profile_start_step``/``profile_stop_step`` record a
+``torch.profiler`` trace (CPU, and CUDA on the card) of the steps from
+the group that reaches the start step to the one that reaches the stop
+step, written as a Chrome trace under ``<log_path>/profile``.
 
 With ``steps_per_call`` > 1, consecutive batches of one bucket run as
 chunks of that many steps (``chunks``), as the JAX package's scanned
@@ -31,6 +41,7 @@ float32) and every array is copied host → device from pinned memory with
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from collections import deque
@@ -39,10 +50,11 @@ from collections.abc import Iterable, Iterator
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import MATMUL_PRECISIONS, Config
 from ..data import BucketedDataset, PreprocessedCorpus
 from ..device import resolve_device
 from ..utils.logging import TrainLogger
+from ..utils.plotting import expand_by_duration, plot_mel, save_mel_plot
 from ..utils.wav import save_wav
 from .loss import LossReport
 from .sampling import SampleVocoder
@@ -142,11 +154,15 @@ def evaluate(model, val_ds: BucketedDataset, cfg: Config,
 
 def save_synth_sample(model, val_ds: BucketedDataset, cfg: Config,
                       device: torch.device, step: int,
-                      sampler: SampleVocoder) -> str:
+                      sampler: SampleVocoder, stats: dict,
+                      logger: TrainLogger) -> str:
     """Synthesize the first val batch free-running, at its mel bucket, and
-    save the predicted mels and lengths, and the first utterance's
-    predicted and ground-truth audio through ``sampler`` (when both are
-    longer than 4 frames, as the JAX loop does); returns the directory."""
+    save the predicted mels and lengths, the first utterance's figures
+    (``step<N>.png``, and to ``logger`` the predicted and ground-truth
+    panels with pitch and energy, from the corpus ``stats``, as the JAX
+    loop logs them) and its predicted and ground-truth audio through
+    ``sampler`` (when both are longer than 4 frames, as the JAX loop
+    does); returns the directory."""
     batch = next(val_ds.epoch(0, shuffle=False))
     mel, mel_lens, _ = synth_step(model, stage_batch(batch, device),
                                   max_mel_len=batch["mels"].shape[1])
@@ -158,6 +174,19 @@ def save_synth_sample(model, val_ds: BucketedDataset, cfg: Config,
     np.save(os.path.join(out_dir, f"step{step}_mel.npy"), mel)
     np.save(os.path.join(out_dir, f"step{step}_mel_lens.npy"), mel_lens)
     t_pred, t_gt = int(mel_lens[0]), int(batch["mel_lens"][0])
+    pred_mel = mel[0, :max(t_pred, 1)].T
+    s = int(batch["src_lens"][0])
+    durations = batch["durations"][0, :s]
+    pitch = expand_by_duration(batch["pitches"][0, :s], durations)
+    energy = expand_by_duration(batch["energies"][0, :s], durations)
+    fig = plot_mel([(pred_mel, pitch, energy),
+                    (batch["mels"][0, :t_gt].T, pitch, energy)],
+                   list(stats["pitch"]) + list(stats["energy"][:2]),
+                   ["Synthesized", "Ground truth"])
+    if fig is not None:
+        logger.log_figure("train/spectrogram", fig, step)
+    save_mel_plot(os.path.join(out_dir, f"step{step}.png"),
+                  [(pred_mel, None, None)], None, ["Synthesized"])
     if t_pred > 4 and t_gt > 4:
         sr = cfg.preprocess.audio.sampling_rate
         for name, m, t in (("predicted", mel[0], t_pred),
@@ -165,6 +194,65 @@ def save_synth_sample(model, val_ds: BucketedDataset, cfg: Config,
             save_wav(os.path.join(out_dir, f"step{step}_{name}.wav"),
                      sampler.vocode(m, t), sr)
     return out_dir
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str):
+    """TF32 for float32 matmuls (``torch.backends.cuda.matmul``) and convs
+    (``torch.backends.cudnn``) as ``jax_default_matmul_precision``'s
+    ``name`` asks (``config.MATMUL_PRECISIONS``): off for "default",
+    "highest" and "float32"; on for "high", "tensorfloat32", "bfloat16"
+    and "bfloat16_3x". The switches are restored on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    tf32 = MATMUL_PRECISIONS[name]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+class ProfileWindow:
+    """A ``torch.profiler`` trace of steps [start, stop): opened by the
+    group that reaches ``start`` and closed, the device synchronized, by
+    the group that reaches ``stop`` (crossings, as the JAX loop checks
+    them, since a chunk may step past either), or when the run ends; the
+    Chrome trace goes to ``<out_dir>/trace_steps<a>-<b>.json``."""
+
+    def __init__(self, start: int, stop: int, out_dir: str,
+                 device: torch.device):
+        self.start, self.stop, self.out_dir = start, stop, out_dir
+        self.device = device
+        self.prof = None
+        self.first = 0
+
+    def before(self, prev: int, n_group: int) -> None:
+        if self.prof is None and prev <= self.start < prev + n_group:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+            self.first = prev
+
+    def after(self, prev: int, step: int) -> None:
+        if self.prof is not None and prev < self.stop <= step:
+            self.close(step)
+
+    def close(self, step: int) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(
+            self.out_dir, f"trace_steps{self.first}-{step}.json"))
+        self.prof = None
+        print(f"profiler trace written to {self.out_dir}")
 
 
 def train(cfg: Config, restore_step: int | None = None,
@@ -219,7 +307,13 @@ def train(cfg: Config, restore_step: int | None = None,
     log_dir = tc.path.log_path or "output/log"
     logger = TrainLogger(os.path.join(log_dir, "train"))
     val_logger = TrainLogger(os.path.join(log_dir, "val"))
-    try:
+    profile = ProfileWindow(tc.profile_start_step, tc.profile_stop_step,
+                            os.path.join(log_dir, "profile"), device)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(matmul_precision(tc.matmul_precision))
+        stack.callback(val_logger.close)
+        stack.callback(logger.close)
+        stack.callback(lambda: profile.close(state.step))
         stream = staged_groups()
         staged: deque[list[Batch]] = deque()
         while True:
@@ -232,10 +326,12 @@ def train(cfg: Config, restore_step: int | None = None,
                 break
             group = staged.popleft()
             prev = state.step
+            profile.before(prev, len(group))
             reports = [train_step(state, b, cfg) for b in group]
             for _ in group:
                 logger.tick()
             step = state.step
+            profile.after(prev, step)
 
             def crossed(every: int) -> bool:
                 # A chunk may step past an exact multiple.
@@ -256,11 +352,8 @@ def train(cfg: Config, restore_step: int | None = None,
                     step, evaluate(state.model, val_ds, cfg, device))
             if crossed(s.synth_step):
                 save_synth_sample(state.model, val_ds, cfg, device, step,
-                                  sampler)
+                                  sampler, corpus.stats, logger)
             if crossed(s.save_step):
                 ckpt.save(step, state)
         ckpt.save(state.step, state)
-    finally:
-        logger.close()
-        val_logger.close()
     return state

@@ -34,9 +34,15 @@ optimizers with the learning rate ×0.999 every 1000 updates (staircase).
 Deviations from the published recipe, the JAX package's own: the loss mel
 frames a segment with the Tacotron centre padding (33 frames per 8192
 samples, not 32), the convention of the generator's input mels; the first
-MSD scale has weight norm, not spectral norm. The JAX package's lax.scan
-chunks (``steps_per_call``) and its retry of a remote TPU's transient
-dispatch errors are not here.
+MSD scale has weight norm, not spectral norm.
+
+With ``steps_per_call`` > 1 the loop runs chunks of that many steps, as
+the JAX package's lax.scan chunks do: a chunk's steps are the same eager
+steps, on the same windows, as one by one; the cadences are checked when
+a chunk ends (``step % max(every, spc) < spc``), a chunk logs its steps'
+mean losses, and the last chunk runs whole, so the run may end past
+``total_steps``, as JAX's does. The JAX package's retry of a remote TPU's
+transient dispatch errors is not here.
 """
 
 from __future__ import annotations
@@ -92,6 +98,15 @@ class VocoderLossReport(NamedTuple):
 
     def as_dict(self) -> dict[str, float]:
         return {k: float(v) for k, v in self._asdict().items()}
+
+
+def chunk_mean(reports: list[VocoderLossReport]) -> VocoderLossReport:
+    """A chunk's report: each loss's mean over its steps, as the JAX
+    package's scanned step returns it."""
+    if len(reports) == 1:
+        return reports[0]
+    return VocoderLossReport(*(torch.stack(xs).mean()
+                               for xs in zip(*reports)))
 
 
 def _discriminator_params(state: VocoderTrainState) -> dict:
@@ -448,10 +463,12 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray] | None, out_dir: str,
     by the step, so a resumed run draws new windows); ``metrics.jsonl``
     with the five losses every ``log_step`` and the copy-synthesis mel L1
     of four fixed validation batches every ``val_step``; and the folded
-    generator as ``generator.npz`` at the end."""
+    generator as ``generator.npz`` at the end. With ``steps_per_call``
+    > 1, chunks of steps (the module's docstring)."""
     device = resolve_device(device)
     vcfg = cfg.vocoder_train
     total = total_steps or vcfg.total_step
+    spc = max(1, vcfg.steps_per_call)
     os.makedirs(out_dir, exist_ok=True)
     ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
     state = init_vocoder_train_state(cfg, device, init_generator_params)
@@ -482,23 +499,25 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray] | None, out_dir: str,
     t0 = time.time()
     with open(os.path.join(out_dir, "metrics.jsonl"), "a") as mf:
         while state.step < total:
-            report = step_fn(state, stage(sampler.sample(vcfg.batch_size)))
+            report = chunk_mean([
+                step_fn(state, stage(sampler.sample(vcfg.batch_size)))
+                for _ in range(spc)])
             step = state.step
-            if step % vcfg.log_step == 0:
+            if step % max(vcfg.log_step, spc) < spc:
                 rec = {"step": step, "time": time.time() - t0,
                        **report.as_dict()}
                 mf.write(json.dumps(rec) + "\n")
                 mf.flush()
                 log(f"voc step {step}: gen {rec['gen_total']:.3f} "
                     f"mel {rec['mel_l1']:.3f} disc {rec['disc']:.3f}")
-            if vcfg.val_step and step % vcfg.val_step == 0:
+            if vcfg.val_step and step % max(vcfg.val_step, spc) < spc:
                 v = float(np.mean([val_fn(state.gen, vb)
                                    for vb in val_batches]))
                 mf.write(json.dumps({"step": step, "time": time.time() - t0,
                                      "val_mel_l1": round(v, 4)}) + "\n")
                 mf.flush()
                 log(f"voc val step {step}: copy-synthesis mel L1 {v:.3f}")
-            if step % vcfg.save_step == 0 or step >= total:
+            if step % max(vcfg.save_step, spc) < spc or step >= total:
                 ckpt.save_dict(step, vocoder_checkpoint(state))
     save_generator_npz(os.path.join(out_dir, "generator.npz"),
                        fold_weight_norm(state.gen.state_dict()))

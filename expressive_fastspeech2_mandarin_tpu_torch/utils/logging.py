@@ -1,5 +1,6 @@
-"""Training log: plain text and JSONL metrics, with a step timer; the JAX
-package's ``utils/logging.py:TrainLogger`` without TensorBoard."""
+"""Training log: plain text and JSONL metrics, with a step timer, and
+figures as PNG files; the JAX package's ``utils/logging.py:TrainLogger``
+without TensorBoard."""
 
 from __future__ import annotations
 
@@ -43,6 +44,18 @@ class TrainLogger:
                   "steps_per_sec": round(self.steps_per_sec, 3), **losses}
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+
+    def log_figure(self, tag: str, fig, step: int) -> str:
+        """Write ``fig`` to ``<log_dir>/figures/<tag>_step<N>.png`` (a "/"
+        in the tag as "_") and close it; returns the path."""
+        from .plotting import save_figure
+
+        fig_dir = os.path.join(self.log_dir, "figures")
+        os.makedirs(fig_dir, exist_ok=True)
+        path = os.path.join(fig_dir,
+                            f"{tag.replace('/', '_')}_step{step}.png")
+        save_figure(path, fig)
+        return path
 
     def close(self) -> None:
         self._text.close()

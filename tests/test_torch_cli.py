@@ -310,12 +310,48 @@ def test_train_refuses_multi_process_flags(tmp_path):
                         "--device", "cpu"])
 
 
-def test_pipeline_refuses_unported_corpora(tmp_path):
+def _stage1_call(tmp_path, monkeypatch, dataset: str, prep: str) -> tuple:
+    """(corpus, raw, keyword arguments) of the one call stage 1 of
+    ``pipeline`` makes to ``preprocess.<prep>`` for ``dataset``."""
+    from expressive_fastspeech2_mandarin_tpu_torch import preprocess
+
     p, m, t = write_configs(tmp_path, tmp_path / "esd")
-    Path(p).write_text(_set(Path(p).read_text(), "dataset", '"IEMOCAP"'))
+    Path(p).write_text(_set(Path(p).read_text(), "dataset", f'"{dataset}"'))
     os.makedirs(tmp_path / "esd")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    calls = []
+
+    class Stop(Exception):
+        pass
+
+    def fake(corpus, raw, **kw):
+        calls.append((corpus, raw, kw))
+        raise Stop  # before the aligner
+
+    monkeypatch.setattr(preprocess, prep, fake)
+    with pytest.raises(Stop):
         cli_pipeline.main(["-p", p, "-m", m, "-t", t, "--device", "cpu"])
+    [call] = calls
+    return call
+
+
+def test_pipeline_refuses_unported_corpora(tmp_path, monkeypatch):
+    """Stage 1 hands an IEMOCAP release to its adapter (once refused, hence
+    the name), with the JAX CLI's arguments: the default sub-directory, no
+    fixed texts, the configured cleaners (tests/test_torch_corpus_prep.py
+    runs the stages)."""
+    corpus, _, kw = _stage1_call(tmp_path, monkeypatch, "IEMOCAP",
+                                 "prepare_iemocap")
+    assert corpus == str(tmp_path / "esd")
+    assert kw == dict(sampling_rate=22050, sub_dir_name="sessions",
+                      fixed_text_path=None, cleaners=("basic_cleaners",))
+
+
+def test_pipeline_takes_aihub_corpora(tmp_path, monkeypatch):
+    corpus, _, kw = _stage1_call(tmp_path, monkeypatch, "AIHub-MMV",
+                                 "prepare_aihub_mmv")
+    assert corpus == str(tmp_path / "esd")
+    assert kw == dict(sampling_rate=22050, sub_dir_name="clips",
+                      fixed_text_path=None, cleaners=("basic_cleaners",))
 
 
 def test_synthesize_torch_ckpt_matches_the_jax_cli(tmp_path, monkeypatch):

@@ -135,14 +135,22 @@ def test_load_config_equals_jax(triplet, tmp_path):
      "vocoder_train.packed_generator"),
 ])
 def test_tpu_only_values_in_yaml_raise_naming_the_key(extra, key, tmp_path):
+    """The JAX settings that once meant something only on a TPU: the port
+    loads each of these as the JAX package does, to the same values (the
+    test's name is the one it had when the port refused them)."""
     d = os.path.dirname(TRIPLETS[0])
     t = tmp_path / "train.yaml"
     t.write_text(Path(TRIPLETS[0]).read_text() + "\n" + extra + "\n")
-    jcfg.load_config(os.path.join(d, "preprocess.yaml"),
-                     os.path.join(d, "model.yaml"), str(t))  # JAX takes it
-    with pytest.raises(ValueError, match=f"{key}=.*TPU setting"):
-        tcfg.load_config(os.path.join(d, "preprocess.yaml"),
-                         os.path.join(d, "model.yaml"), str(t))
+    files = (os.path.join(d, "preprocess.yaml"),
+             os.path.join(d, "model.yaml"), str(t))
+    ref = jcfg.config_to_dict(jcfg.load_config(*files))
+    ours = tcfg.config_to_dict(tcfg.load_config(*files))
+    assert ours == ref
+    section, _, name = key.rpartition(".")
+    value = (ours[section or "train"][name])
+    assert value == {"matmul_precision": "highest",
+                     "vocoder_train.steps_per_call": 10,
+                     "vocoder_train.packed_generator": True}[key]
 
 
 @pytest.mark.parametrize("kwargs,key", [
@@ -151,5 +159,42 @@ def test_tpu_only_values_in_yaml_raise_naming_the_key(extra, key, tmp_path):
     (dict(profile_start_step=5), "profile_start_step"),
 ])
 def test_tpu_only_train_fields_raise_naming_the_key(kwargs, key):
-    with pytest.raises(ValueError, match=f"{key}=.*TPU setting"):
-        tcfg.TrainConfig(**kwargs)
+    """A model-parallel mesh still raises, naming its key; the profiler
+    window is taken (``train.loop.ProfileWindow``)."""
+    if key == "mesh.model_parallel_size":
+        with pytest.raises(ValueError, match=f"{key}=.*TPU setting"):
+            tcfg.TrainConfig(**kwargs)
+    else:
+        assert tcfg.TrainConfig(**kwargs).profile_start_step == 5
+
+
+@pytest.mark.parametrize("value", ["default", "highest", "float32", "high",
+                                   "tensorfloat32", "bfloat16",
+                                   "bfloat16_3x"])
+def test_matmul_precision_takes_jax_names(value):
+    assert tcfg.TrainConfig(matmul_precision=value).matmul_precision == value
+
+
+def test_matmul_precision_unknown_name_raises():
+    with pytest.raises(ValueError, match="matmul_precision must be one of"):
+        tcfg.TrainConfig(matmul_precision="fastest")
+
+def test_profiler_window_reads_from_train_yaml(tmp_path):
+    """train.yaml's profile_start_step/profile_stop_step reach TrainConfig
+    (the JAX package takes the window from Python only: its loader drops
+    them); every other field loads as in JAX."""
+    d = os.path.dirname(TRIPLETS[0])
+    t = tmp_path / "train.yaml"
+    t.write_text(Path(TRIPLETS[0]).read_text()
+                 + "\nprofile_start_step: 3\nprofile_stop_step: 5\n")
+    files = (os.path.join(d, "preprocess.yaml"),
+             os.path.join(d, "model.yaml"), str(t))
+    ours = tcfg.load_config(*files)
+    assert (ours.train.profile_start_step, ours.train.profile_stop_step) == (
+        3, 5)
+    ref = jcfg.config_to_dict(jcfg.load_config(*files))
+    assert (ref["train"]["profile_start_step"],
+            ref["train"]["profile_stop_step"]) == (-1, -1)
+    mine = tcfg.config_to_dict(ours)
+    mine["train"].update(profile_start_step=-1, profile_stop_step=-1)
+    assert mine == ref

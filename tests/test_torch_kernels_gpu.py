@@ -98,6 +98,31 @@ def test_tc_kernel_matches_plain_on_card(C, k, B, T):
     assert diff <= 2.0 ** -6 * ref.float().abs().max().item()
 
 
+# The float32 CUDA-core kernel (csrc/mrf_resblock.cu, mrf_conv_f32_kernel)
+# at the generator's four stage shapes (C, T) on 1000 mel frames, against
+# the plain resblock in float64: its own error, within 1e-4 (chip_smoke
+# phase 2's bound), every launch the CUDA-core kernel's.
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T", [(256, 8000), (128, 64000), (64, 128000),
+                                 (32, 256000)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_f32_kernel_matches_float64_plain_at_the_stage_shapes_on_card(
+        C, T, k):
+    _cuda_or_skip()
+    torch.backends.cudnn.allow_tf32 = False
+    x, weights = _random_resblock(1, T, C, k, seed=C + k)
+    x = x.float()
+    weights = [(w.float(), b.float()) for w, b in weights]
+    before = (mrf.tc_launch_count, mrf.fma_launch_count)
+    out = mrf.mrf_resblock(x, weights, k, DIL)
+    assert (mrf.tc_launch_count, mrf.fma_launch_count) == (before[0],
+                                                          before[1] + 6)
+    ref64 = mrf.mrf_resblock_plain(
+        x.double(), [(w.double(), b.double()) for w, b in weights], k, DIL)
+    assert out.dtype == torch.float32 and out.shape == ref64.shape
+    assert (out.double() - ref64).abs().max().item() <= 1e-4
+
+
 @pytest.mark.gpu
 def test_float32_resblock_runs_the_cuda_core_kernel_on_card():
     _cuda_or_skip()

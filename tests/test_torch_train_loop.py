@@ -123,8 +123,14 @@ def test_nan_loss_writes_emergency_checkpoint_and_raises(tmp_path):
     ("profile_start_step", 10),
     ("mesh", tcfg.MeshConfig(model_parallel_size=2))])
 def test_tpu_only_train_settings_raise(field, value):
-    with pytest.raises(ValueError, match="TPU setting"):
-        tcfg.TrainConfig(**{field: value})
+    """Of the settings once refused as TPU-only (hence the name), only the
+    model-parallel mesh still raises; matmul precision and the profiler
+    window are taken (run by the tests below)."""
+    if field == "mesh":
+        with pytest.raises(ValueError, match="TPU setting"):
+            tcfg.TrainConfig(**{field: value})
+    else:
+        assert getattr(tcfg.TrainConfig(**{field: value}), field) == value
 
 
 def test_train_entry_point_needs_the_card_unless_asked_for_cpu(tmp_path):
@@ -278,3 +284,90 @@ def test_synthesizer_from_checkpoint_equals_the_state_dict(tmp_path):
     assert all(torch.equal(sd[k], saved[k]) for k in saved)
     assert not all(torch.equal(sd[k], v) for k, v in
                    state.model.state_dict().items())
+
+
+def test_profiler_window_writes_a_trace_and_synth_step_writes_figures(
+        tmp_path):
+    """profile_start_step 3, profile_stop_step 5: the group reaching step 3
+    opens the window, the one reaching step 5 closes it and writes a Chrome
+    trace under <log_path>/profile; synth_step 4 writes step4.png and the
+    predicted-against-ground-truth figure beside the .npy/.wav samples."""
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=16)
+    cfg = _cfg(corpus, str(tmp_path / "out"), profile_start_step=3,
+               profile_stop_step=5)
+    train(cfg, total_steps=6, device="cpu")
+    profile = tmp_path / "out/log/profile"
+    assert sorted(p.name for p in profile.iterdir()) == [
+        "trace_steps3-5.json"]
+    trace = json.loads((profile / "trace_steps3-5.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("conv1d" in n or "addmm" in n or "mm" in n for n in names)
+    samples = tmp_path / "out/result/train_samples"
+    png = (samples / "step4.png").read_bytes()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    fig = tmp_path / "out/log/train/figures/train_spectrogram_step4.png"
+    assert fig.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert (samples / "step4_mel.npy").exists()
+
+
+def test_profiler_window_crossed_by_a_chunk(tmp_path):
+    """With steps_per_call 2 the groups end at steps 2, 4, 6: a start at
+    step 3 opens at the group from 2 to 4 and a stop at 5 closes at the
+    group ending at 6, as the JAX loop's crossing checks do."""
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=16)
+    cfg = _cfg(corpus, str(tmp_path / "out"), profile_start_step=3,
+               profile_stop_step=5, steps_per_call=2,
+               step=tcfg.StepConfig(total_step=6, log_step=2, synth_step=100,
+                                    val_step=100, save_step=100))
+    train(cfg, device="cpu")
+    assert os.listdir(tmp_path / "out/log/profile") == ["trace_steps2-6.json"]
+
+
+@pytest.mark.parametrize("name,tf32", sorted(tcfg.MATMUL_PRECISIONS.items()))
+def test_matmul_precision_maps_jax_names_to_tf32_and_restores(name, tf32):
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        matmul_precision,
+    )
+
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for before in (True, False):
+            for f in flags:
+                f.allow_tf32 = before
+            with matmul_precision(name):
+                assert [f.allow_tf32 for f in flags] == [tf32, tf32]
+            assert [f.allow_tf32 for f in flags] == [before, before]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+def test_train_sets_tf32_while_it_runs_and_restores_it(tmp_path,
+                                                       monkeypatch):
+    """matmul_precision "high" turns TF32 on for train()'s steps; when
+    train() returns the switches are as they were."""
+    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
+
+    seen = []
+    real_step = loop.train_step
+
+    def step(state, batch, cfg):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return real_step(state, batch, cfg)
+
+    monkeypatch.setattr(loop, "train_step", step)
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=12)
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = False
+        train(_cfg(corpus, str(tmp_path / "out"), matmul_precision="high"),
+              total_steps=2, device="cpu")
+        assert seen == [(True, True)] * 2
+        assert [f.allow_tf32 for f in flags] == [False, False]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v

@@ -416,8 +416,10 @@ def test_bfloat16_amp_step_runs_on_cpu():
 @pytest.mark.parametrize("field,value", [("packed_generator", True),
                                          ("steps_per_call", 2)])
 def test_tpu_only_vocoder_settings_raise(field, value):
-    with pytest.raises(ValueError, match="TPU setting"):
-        tcfg.VocoderTrainConfig(**{field: value})
+    """The settings once refused as TPU-only (hence the name) are taken
+    (chunks: tests/test_torch_train_loop.py); an unknown amp dtype still
+    raises."""
+    assert getattr(tcfg.VocoderTrainConfig(**{field: value}), field) == value
     with pytest.raises(ValueError, match="amp_dtype"):
         tcfg.VocoderTrainConfig(amp_dtype="float16")
 
@@ -436,3 +438,94 @@ def test_config_fields_match_jax():
     ref = {f.name: f.default for f in dataclasses.fields(
         jcfg.VocoderTrainConfig)}
     assert ours == ref
+
+
+def _jax_cadence(cfg, out_dir, total: int, monkeypatch) -> dict:
+    """The JAX package's ``train_vocoder`` loop with its state, steps,
+    checkpoints and export stubbed out: the steps at which it logs,
+    validates and saves."""
+    from expressive_fastspeech2_mandarin_tpu.models import hifigan as jhifi
+
+    saved = []
+
+    class Ckpt:
+        def __init__(self, _path):
+            pass
+
+        def latest_step(self):
+            return None
+
+        def save(self, step, _state):
+            saved.append(step)
+
+    class State(dict):
+        step = 0
+        gen = {}
+
+    zero = jvoc.VocoderLossReport(*[np.float32(0)] * 5)
+    monkeypatch.setattr(jvoc, "CheckpointManager", Ckpt)
+    monkeypatch.setattr(jvoc, "init_vocoder_train_state",
+                        lambda *a, **k: State())
+    for name in ("make_vocoder_multi_step", "make_vocoder_train_step"):
+        monkeypatch.setattr(jvoc, name,
+                            lambda *a, **k: lambda st, b: (st, zero))
+    monkeypatch.setattr(jvoc, "make_vocoder_val_step",
+                        lambda *a, **k: lambda gen, vb: np.float32(0))
+    monkeypatch.setattr(jvoc, "fold_weight_norm", lambda tree: tree)
+    monkeypatch.setattr(jhifi, "save_generator_npz", lambda *a: None)
+    jcfg_ = _cfg(jcfg, **{f.name: getattr(cfg.vocoder_train, f.name)
+                          for f in dataclasses.fields(cfg.vocoder_train)
+                          if f.name in ("log_step", "val_step", "save_step",
+                                        "steps_per_call")})
+    jvoc.train_vocoder(jcfg_, _wavs(6), str(out_dir), total_steps=total,
+                       log=lambda *_: None)
+    with open(out_dir / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    return {"log": [r["step"] for r in records if "mel_l1" in r],
+            "val": [r["step"] for r in records if "val_mel_l1" in r],
+            "save": saved}
+
+
+def test_train_vocoder_chunks_are_the_steps_one_by_one(tmp_path,
+                                                       monkeypatch):
+    """steps_per_call 2 over 6 steps: the same parameters and losses as
+    the steps one by one (each chunk's logged losses its steps' mean, 1e-6
+    relative), logged, validated and saved at the steps the JAX package's
+    loop picks (step % max(every, 2) < 2, and at the end)."""
+    cadence = dict(log_step=3, val_step=4, save_step=3)
+    chunked_cfg = _cfg(tcfg, steps_per_call=2, **cadence)
+    real_save = tvoc.CheckpointManager.save_dict
+    runs = {}
+    for spc, cfg in ((2, chunked_cfg),
+                     (1, _cfg(tcfg, log_step=1, val_step=100,
+                              save_step=100))):
+        out = tmp_path / f"spc{spc}"
+        saves = []
+
+        def save(self, step, ckpt, saves=saves):
+            saves.append(step)
+            real_save(self, step, ckpt)
+
+        monkeypatch.setattr(tvoc.CheckpointManager, "save_dict", save)
+        state = tvoc.train_vocoder(cfg, _wavs(6), str(out), total_steps=6,
+                                   device="cpu", log=lambda *_: None)
+        with open(out / "metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        runs[spc] = (state, records, saves)
+    chunked, records, saves = runs[2]
+    one, one_records, _ = runs[1]
+    assert chunked.step == one.step == 6
+    for a, b in zip(chunked.gen.parameters(), one.gen.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    per_step = {r["step"]: r for r in one_records}
+    logged = [r for r in records if "mel_l1" in r]
+    for r in logged:
+        for key in ("gen_total", "disc", "mel_l1", "fm", "adv"):
+            want = (per_step[r["step"] - 1][key] + per_step[r["step"]][key]) / 2
+            assert abs(r[key] - want) <= 1e-6 * abs(want), (r["step"], key)
+    ours = {"log": [r["step"] for r in logged],
+            "val": [r["step"] for r in records if "val_mel_l1" in r],
+            "save": saves}
+    monkeypatch.undo()
+    ref = _jax_cadence(chunked_cfg, tmp_path / "jax", 6, monkeypatch)
+    assert ours == ref == {"log": [4, 6], "val": [4], "save": [4, 6]}
