@@ -20,6 +20,11 @@
 // resblock 0.22..0.88 ms at 3.35 TB/s: C = 256 and 128 are bound by
 // operations, C = 64 and 32 by bytes, and the six-launch design cannot go
 // below the bytes (fusing a conv pair, or the whole chain, can; ROADMAP.md).
+// In float32 (three TF32 products a product at the 495 TF/s TF32 rate) the
+// operations take 14.41 ms for the 12 resblocks at B = 4 x 1000 (one
+// product: 4.81 ms); the six launches' float32 activation passes take
+// 0.15..0.59 ms a resblock, more than the operations only at C = 64, K = 3
+// and C = 32, K <= 7.
 //
 // bfloat16: tensor cores (mrf_conv_tc_kernel). Each conv is an implicit GEMM
 // with M = time rows, N = output channels, K = C_in x taps:
@@ -48,30 +53,81 @@
 //     cp.async.bulk into a 4-stage ring guarded by mbarriers (full: bytes
 //     arrived; empty: every consumer warp's wgmmas on it retired), so the next
 //     slabs load while the current ones are multiplied;
-//   * epilogue as the float32 kernel: bias added in f32, rounded to bf16, the
-//     residual added in f32 and rounded again, rows >= T masked.
+//   * epilogue: bias added in f32, rounded to bf16, the residual added in
+//     f32 and rounded again, rows >= T masked.
 //
-// float32: CUDA cores (mrf_conv_f32_kernel). The exact path: the card's
-// float32 run is held within 1e-4 of the CPU and of float64, which TF32
-// tensor cores (10-bit mantissa products) would not meet. A block owns a tile
-// of kNty*kRows time rows x TCO output channels and each thread an 8 x 8
-// register tile; the halo'd input (already leaky-ReLU'd, zero outside
-// [0, T)) and the weights are staged through shared memory kCi channels at
-// a time.
+// float32: tensor cores at float32 accuracy (mrf_conv_f32_tc_kernel). The
+// card's float32 run is held within 1e-4 of the CPU and of float64, which
+// one TF32 product (10-bit mantissas) would not meet, so every product is
+// three TF32 products of split operands (3xTF32, csrc/tf32_wgmma.cuh):
+// x = hi + lo, hi = rna_tf32(x), lo = rna_tf32(x - hi), and a*b becomes
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, about 2^-21 relative. It is the bf16
+// kernel's implicit GEMM moved to TF32:
+//   * a block owns 128 time rows (two consumer warpgroups of 64 rows) and
+//     BN = 128, 64 or 32 output channels, and loops over C_in in chunks of
+//     KC = 32 (or 16, for a wide halo) channels and, inside a chunk, over
+//     the K taps; each (chunk, tap) is KC/8 k-steps of three
+//     wgmma.mma_async m64nBNk8.f32.tf32.tf32 per warpgroup, both operands
+//     K-major (TF32 wgmma takes no other);
+//   * the input rows of a chunk are staged once, leaky-ReLU'd in f32, zero
+//     outside [0, T), split, the two parts in two buffers of the same
+//     unswizzled core-matrix layout [channel group of 4][row][4 float32]
+//     (16 bytes a row, an odd row count). A core matrix is 8 rows x 16
+//     bytes = 8 rows x 4 channels, so a k8 step spans two core matrices
+//     along K: the descriptor's leading byte offset (LBO, the next core
+//     matrix along K) is one channel group, a_stride * 16 bytes, its
+//     stride byte offset (SBO, the next 8 rows) 128 bytes, and k-step ks
+//     starts 2 * ks groups further. Tap j reads the same tile j*d rows
+//     further, as the bf16 kernel does. The next chunk is staged into a
+//     second pair of buffers while the tensor cores run the current one,
+//     a round of two float4 a thread at each tap: the round's loads are
+//     issued after one tap's wgmmas and stored after the next tap's, so
+//     their latency passes under the tensor cores' work (staging a whole
+//     chunk at its first tap, as the bf16 kernel does, left the tensor
+//     cores idle for the loads: chip_smoke.py phase 4's 12 resblocks took
+//     30.4 ms that way against 25.9 on an H100 at 700 W);
+//   * the weights are packed and split once per tensor by the wrapper
+//     (ops/mrf_resblock.py:pack_mrf_weights_tf32), per (N tile, tap) a hi
+//     and a lo image [channel group of 4][BN][4] (LBO BN * 16 bytes, SBO
+//     128), so any chunk's slab is contiguous; the producer warp moves each
+//     (hi, lo) slab pair with two cp.async.bulk into a ring of 4 to 2
+//     stages (full/empty mbarriers, as the bf16 kernel);
+//   * per k-step lo*hi, hi*lo, then hi*hi, the small products first. The
+//     tensor cores add into an accumulator rounding toward zero, an error
+//     that grows with the chain, so a chain (from acc = 0) holds at most
+//     44 k-steps, 132 wgmma: a chunk's taps at K <= 11 and KC = 32 (every
+//     conv of the generator), else 11 taps (KC = 32) or 22 (KC = 16) and
+//     the rest in further chains. The chains are summed in software into
+//     a float32 total: the sum's order is fixed, so a rerun is
+//     bit-identical;
+//   * epilogue: bias and the residual added in f32, float32 stores, rows
+//     >= T masked.
+// Registers: a block of 288 threads is given registers as three full
+// warpgroups, 168 a thread at most (ptxas's cap; with __maxnreg__(224) the
+// launch fails for want of registers). At BN = 128 the two accumulators
+// take 128 of them, so a staging round holds two float4, not four (four
+// spill).
+// Shared memory: the ring, 2 * BN * KC * 4 bytes a stage, and the staged
+// input, 2 buffers x 2 parts x KC/4 x a_stride x 16 bytes (a_stride =
+// (128 + (K-1)*d) | 1). f32_plan takes KC = 32 with the deepest ring of 4,
+// 3 or 2 stages that fits in the 232,448 bytes a block may use, else KC =
+// 16 likewise (at K = 11, d = 5, BN = 128: KC 32, 4 stages, 222,848 bytes;
+// K = 17: 3 stages; K = 45: KC 16, 4 stages, 155,008 bytes).
 //
 // Kernel sizes: both kernels are instantiated for K = 3, 7 and 11 with the
 // tap count a template constant, and once more with K read at run time
-// (template K = 0) for any other odd K; the wrapper zero-pads an odd K < 11
-// to the next templated size. The weight ring holds one (chunk, tap) slab a
-// stage whatever K is; the staged input tile grows with the halo, (K-1)*d
-// rows, and a launch whose shared memory would pass the 232,448 bytes a
-// block may use is refused (cudaErrorInvalidValue): at d = 5 that is K > 45
-// on the CUDA cores (64 output channels a block) and K > 105 on the tensor
-// cores (BN = 128).
+// (template K = 0) for any other odd K (and for every float32 conv at
+// KC = 16); the wrapper zero-pads an odd K < 11 to the next templated size.
+// The weight ring holds one (chunk, tap) slab a stage whatever K is; the
+// staged input tile grows with the halo, (K-1)*d rows, and a launch that
+// would pass the shared memory a block may use is refused
+// (cudaErrorInvalidValue): the float32 kernel takes (K-1)*d up to 650 at
+// BN = 128, 714 at BN = 64 and 746 at BN = 32 (at d = 5, K up to 131, 143
+// and 149), the bf16 kernel K up to 105 at d = 5 (BN = 128).
 //
-// Layouts: activations (B, T, C) contiguous, channels last; float32 weights
-// as torch.nn.Conv1d keeps them, (C_out, C_in, K); bfloat16 weights packed
-// (see pack_mrf_weights); bias (C) in the working type. Offsets into the
+// Layouts: activations (B, T, C) contiguous, channels last; weights packed
+// by the wrapper (pack_mrf_weights for bfloat16, pack_mrf_weights_tf32 for
+// float32); bias (C) in the working type. Offsets into the
 // activations are 64-bit.
 
 #include <cuda_bf16.h>
@@ -81,6 +137,7 @@
 #include <cstring>
 
 #include "sm90.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace {
 
@@ -88,158 +145,6 @@ using namespace sm90;
 
 constexpr float kSlope = 0.1f;
 constexpr size_t kMaxSmem = 232448;  // the most shared memory a block may use
-
-// ---------------------------------------------------------------------------
-// float32 on the CUDA cores.
-
-constexpr int kThreads = 256;          // threads per block
-constexpr int kCi = 16;                // input channels staged per step
-constexpr int kRows = 8;               // output rows per thread
-constexpr int kCols = 8;               // output channels per thread
-constexpr int kXsStride = kCi + 1;     // padded staged-input row (no bank conflicts)
-
-template <int TCO>
-struct Tile {
-  static constexpr int kNtx = TCO / kCols;             // threads across channels
-  static constexpr int kNty = kThreads / kNtx;         // threads across time
-  static constexpr int kTimeRows = kNty * kRows;       // output rows per block
-  static constexpr int kWsStride = TCO + 4;            // padded staged-weight row
-};
-
-// K > 0: the tap count as a template constant (the taps unrolled); K == 0:
-// the tap count is kernel_size, read at run time, for an odd K past the
-// templated sizes.
-template <int K, int TCO>
-__global__ void __launch_bounds__(kThreads)
-mrf_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ res, float* __restrict__ out,
-                    int t_len, int channels, int kernel_size, int dilation) {
-  using TL = Tile<TCO>;
-  const int taps = K > 0 ? K : kernel_size;
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                 // [kCi*taps][kWsStride]
-  float* xs = smem + kCi * taps * TL::kWsStride;    // [rows][kXsStride]
-
-  const int pad = (taps - 1) / 2 * dilation;
-  const int rows = TL::kTimeRows + 2 * pad;
-  const int tx = threadIdx.x % TL::kNtx;
-  const int ty = threadIdx.x / TL::kNtx;
-  const int t0 = blockIdx.x * TL::kTimeRows;
-  const int co0 = blockIdx.y * TCO;
-  const int64_t batch_off = (int64_t)blockIdx.z * t_len * channels;
-
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-
-  for (int ci0 = 0; ci0 < channels; ci0 += kCi) {
-    // Weights: for each output channel the kCi*K values of this chunk are
-    // contiguous in (C_out, C_in, K), so consecutive threads read
-    // consecutive addresses.
-    for (int i = threadIdx.x; i < TCO * kCi * taps; i += kThreads) {
-      const int co = i / (kCi * taps);
-      const int q = i - co * (kCi * taps);  // ci * taps + tap
-      ws[q * TL::kWsStride + co] =
-          w[((int64_t)(co0 + co) * channels + ci0) * taps + q];
-    }
-    // Input rows [t0 - pad, t0 + kTimeRows + pad), leaky-ReLU'd, zero
-    // outside [0, T).
-    for (int i = threadIdx.x; i < rows * kCi; i += kThreads) {
-      const int r = i / kCi;
-      const int ci = i - r * kCi;
-      const int t = t0 - pad + r;
-      float v = 0.f;
-      if (t >= 0 && t < t_len) {
-        v = x[batch_off + (int64_t)t * channels + ci0 + ci];
-        v = v >= 0.f ? v : v * kSlope;
-      }
-      xs[r * kXsStride + ci] = v;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int ci = 0; ci < kCi; ++ci) {
-#pragma unroll
-      for (int k = 0; k < taps; ++k) {
-        const float* wrow = ws + (ci * taps + k) * TL::kWsStride + tx * kCols;
-        const float4 wa = *reinterpret_cast<const float4*>(wrow);
-        const float4 wb = *reinterpret_cast<const float4*>(wrow + 4);
-        // Output row ty + r*kNty reads input row t - pad + k*d, which is
-        // staged row ty + r*kNty + k*d.
-        const float* xcol = xs + (ty + k * dilation) * kXsStride + ci;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float xv = xcol[r * TL::kNty * kXsStride];
-          acc[r][0] = fmaf(xv, wa.x, acc[r][0]);
-          acc[r][1] = fmaf(xv, wa.y, acc[r][1]);
-          acc[r][2] = fmaf(xv, wa.z, acc[r][2]);
-          acc[r][3] = fmaf(xv, wa.w, acc[r][3]);
-          acc[r][4] = fmaf(xv, wb.x, acc[r][4]);
-          acc[r][5] = fmaf(xv, wb.y, acc[r][5]);
-          acc[r][6] = fmaf(xv, wb.z, acc[r][6]);
-          acc[r][7] = fmaf(xv, wb.w, acc[r][7]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float b[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) b[c] = bias[co0 + tx * kCols + c];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = t0 + ty + r * TL::kNty;
-    if (t >= t_len) break;
-    const int64_t off = batch_off + (int64_t)t * channels + co0 + tx * kCols;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      float y = acc[r][c] + b[c];
-      if (res != nullptr) y += res[off + c];
-      out[off + c] = y;
-    }
-  }
-}
-
-template <int K, int TCO>
-cudaError_t launch_f32(const float* x, const float* w, const float* bias,
-                       const float* res, float* out, int batch, int t_len,
-                       int channels, int kernel_size, int dilation,
-                       cudaStream_t stream) {
-  using TL = Tile<TCO>;
-  const int pad = (kernel_size - 1) / 2 * dilation;
-  const size_t smem =
-      sizeof(float) * ((size_t)kCi * kernel_size * TL::kWsStride +
-                       (size_t)(TL::kTimeRows + 2 * pad) * kXsStride);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  // Above 48 KB a block may use dynamic shared memory only after this call;
-  // without it the launch is refused.
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_conv_f32_kernel<K, TCO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t_len + TL::kTimeRows - 1) / TL::kTimeRows,
-                  channels / TCO, batch);
-  mrf_conv_f32_kernel<K, TCO><<<grid, kThreads, smem, stream>>>(
-      x, w, bias, res, out, t_len, channels, kernel_size, dilation);
-  return cudaGetLastError();
-}
-
-template <int TCO>
-cudaError_t dispatch_f32(const float* x, const float* w, const float* bias,
-                         const float* res, float* out, int batch, int t_len,
-                         int channels, int kernel_size, int dilation,
-                         cudaStream_t s) {
-  switch (kernel_size) {
-    case 3: return launch_f32<3, TCO>(x, w, bias, res, out, batch, t_len, channels, 3, dilation, s);
-    case 7: return launch_f32<7, TCO>(x, w, bias, res, out, batch, t_len, channels, 7, dilation, s);
-    case 11: return launch_f32<11, TCO>(x, w, bias, res, out, batch, t_len, channels, 11, dilation, s);
-    default: return launch_f32<0, TCO>(x, w, bias, res, out, batch, t_len, channels, kernel_size, dilation, s);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores.
@@ -381,7 +286,8 @@ __device__ __forceinline__ void stage_input(const bf16* __restrict__ x,
   }
 }
 
-// K as in mrf_conv_f32_kernel: 0 reads the tap count from kernel_size.
+// K > 0: the tap count as a template constant; K == 0: the tap count is
+// kernel_size, read at run time, for an odd K past the templated sizes.
 template <int K, int BN, int KC>
 __global__ void __launch_bounds__(kTcThreads)
 mrf_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
@@ -550,6 +456,332 @@ cudaError_t dispatch_tc(const bf16* x, const bf16* wp, const bf16* bias,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores at float32 accuracy (3xTF32).
+
+constexpr int kF32WideKC = 32;    // input channels a chunk, if they fit
+constexpr int kF32NarrowKC = 16;  // else (a wide halo)
+constexpr int kF32MaxStages = 4;  // weight ring: the deepest that fits,
+constexpr int kF32MinStages = 2;  // down to this
+// k-steps of 8 channels a wgmma chain at most (3 wgmma each): a chunk of
+// KC = 32 at K <= 11 is one chain; longer chunks close a chain every
+// kF32ChainSteps / (KC / 8) taps, so a chain's error does not grow with K.
+constexpr int kF32ChainSteps = 44;
+
+// Shared memory of the float32 kernel for BN output channels, KC input
+// channels a chunk, `stages` ring stages and a staged tile of a_stride rows:
+// the barriers, the ring of (hi, lo) slab pairs and two buffers of the
+// input's two parts.
+constexpr size_t f32_smem(int bn, int kc, int stages, int64_t a_stride) {
+  return kBarrierBytes + (size_t)stages * 2 * bn * kc * 4 +
+         2 * 2 * (size_t)(kc / 4) * a_stride * 16;
+}
+
+struct F32Plan {
+  int kc, stages, a_stride;
+  size_t smem;
+};
+
+// KC = 32 with the deepest ring that fits, else KC = 16 likewise; false if
+// nothing fits (tests/test_torch_mrf_f32_tc.py models this from the
+// constants above).
+bool f32_plan(int bn, int kernel_size, int dilation, F32Plan* plan) {
+  const int64_t a_stride =
+      (kTcRows + 2 * ((int64_t)(kernel_size - 1) / 2 * dilation)) | 1;
+  const int chunks[2] = {kF32WideKC, kF32NarrowKC};
+  for (int kc : chunks)
+    for (int stages = kF32MaxStages; stages >= kF32MinStages; --stages) {
+      const size_t smem = f32_smem(bn, kc, stages, a_stride);
+      if (smem <= kMaxSmem) {
+        *plan = {kc, stages, (int)a_stride, smem};
+        return true;
+      }
+    }
+  return false;
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], uint64_t a,
+                                           uint64_t b, int acc) {
+  if constexpr (BN == 128) tf32x3::wgmma_m64n128k8(d, a, b, acc);
+  else if constexpr (BN == 64) tf32x3::wgmma_m64n64k8(d, a, b, acc);
+  else tf32x3::wgmma_m64n32k8(d, a, b, acc);
+}
+
+// The staged input of a chunk, input rows [t_first, t_first + rows) x
+// channels [ci0, ci0 + KC) of one batch row, leaky-ReLU'd in f32, zero
+// outside [0, T), split into TF32 parts, goes into hi and lo as
+// [KC/4][a_stride][4] float32, in rounds: in round n consumer thread i
+// takes the 16-byte channel groups v = i + 256 * (kRoundVecs * n + u),
+// u < kRoundVecs, of row v / (KC/4). Consecutive threads take consecutive
+// groups of a row (coalesced loads); at KC = 32 the 8 stores of a row fall
+// in distinct banks (a_stride is odd). A round's loads go into registers
+// and its stores follow later, so that the loads' latency passes while
+// the tensor cores run a tap.
+constexpr int kRoundVecs = 2;
+
+__device__ __forceinline__ int stage_rounds(int rows, int kc) {
+  const int per_round = kTcConsumers * kRoundVecs;
+  return (rows * (kc / 4) + per_round - 1) / per_round;
+}
+
+template <int KC>
+__device__ __forceinline__ void stage_load(float4 (&held)[kRoundVecs],
+                                           const float* __restrict__ x,
+                                           int round, int t_first, int rows,
+                                           int t_len, int channels,
+                                           int ci0) {
+  constexpr int kCg = KC / 4;
+#pragma unroll
+  for (int u = 0; u < kRoundVecs; ++u) {
+    const int v = threadIdx.x + kTcConsumers * (kRoundVecs * round + u);
+    const int r = v / kCg;
+    const int t = t_first + r;
+    held[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows && t >= 0 && t < t_len)
+      held[u] = *reinterpret_cast<const float4*>(
+          x + (int64_t)t * channels + ci0 + v % kCg * 4);
+  }
+}
+
+__device__ __forceinline__ float lrelu(float v) {
+  return v >= 0.f ? v : v * kSlope;
+}
+
+template <int KC>
+__device__ __forceinline__ void stage_store(const float4 (&held)[kRoundVecs],
+                                            uint8_t* hi, uint8_t* lo,
+                                            int a_stride, int round,
+                                            int rows) {
+  constexpr int kCg = KC / 4;
+#pragma unroll
+  for (int u = 0; u < kRoundVecs; ++u) {
+    const int v = threadIdx.x + kTcConsumers * (kRoundVecs * round + u);
+    const int r = v / kCg;
+    if (r >= rows) continue;
+    const float4 h = held[u];
+    const size_t off = ((size_t)(v % kCg) * a_stride + r) * 16;
+    tf32x3::store_split4(hi + off, lo + off,
+                         make_float4(lrelu(h.x), lrelu(h.y), lrelu(h.z),
+                                     lrelu(h.w)));
+  }
+}
+
+// K as in mrf_conv_tc_kernel. wp is pack_mrf_weights_tf32's image:
+// (C/BN, taps, 2, C/4, BN, 4) float32.
+template <int K, int BN, int KC>
+__global__ void __launch_bounds__(kTcThreads)
+mrf_conv_f32_tc_kernel(const float* __restrict__ x,
+                       const float* __restrict__ wp,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ res, float* __restrict__ out,
+                       int t_len, int channels, int kernel_size, int dilation,
+                       int a_stride, int stages) {
+  const int taps = K > 0 ? K : kernel_size;
+  constexpr int kChainTaps = kF32ChainSteps / (KC / 8);
+  constexpr uint32_t kSlabBytes = BN * KC * 4;  // one part of a slab
+  extern __shared__ __align__(128) uint8_t f32_smem_buf[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(f32_smem_buf);
+  uint64_t* empty = full + kF32MaxStages;
+  uint8_t* ring = f32_smem_buf + kBarrierBytes;
+  uint8_t* abuf = ring + stages * 2 * kSlabBytes;
+  const uint32_t a_part = (KC / 4) * a_stride * 16;  // one part, one buffer
+
+  const int pad = (taps - 1) / 2 * dilation;
+  const int rows = kTcRows + 2 * pad;
+  const int t0 = blockIdx.x * kTcRows;
+  const int n_chunks = channels / KC;
+  const int64_t batch_off = (int64_t)blockIdx.z * t_len * channels;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), kTcConsumers / 32);  // one per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kTcConsumers) {
+    // Producer: one thread streams this N tile's (hi, lo) slab pairs,
+    // (chunk, tap) in the consumers' order, through the ring. Part p of
+    // tap j's chunk kc starts at ((nt * taps + j) * 2 + p) * C * BN +
+    // kc * KC * BN floats.
+    if (tid == kTcConsumers) {
+      const float* tile = wp + (int64_t)blockIdx.y * taps * 2 * channels * BN;
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kc = 0; kc < n_chunks; ++kc)
+        for (int j = 0; j < taps; ++j) {
+          mbar_wait(smem_addr(&empty[s]), phase ^ 1);
+          mbar_expect_tx(smem_addr(&full[s]), 2 * kSlabBytes);
+          const float* src =
+              tile + (int64_t)j * 2 * channels * BN + (int64_t)kc * KC * BN;
+          const uint32_t dst = smem_addr(ring + s * 2 * kSlabBytes);
+          bulk_copy(dst, src, kSlabBytes, smem_addr(&full[s]));
+          bulk_copy(dst + kSlabBytes, src + (int64_t)channels * BN,
+                    kSlabBytes, smem_addr(&full[s]));
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const bool leader = tid % 32 == 0;  // each warp frees a slab once its
+                                      // own wgmmas on it have retired
+  const float* xb = x + batch_off;
+  // The running total (software sums, round to nearest) and a chunk's wgmma
+  // chain. Each chain's first wgmma ignores `part` (acc = 0); both are
+  // defined here so that no code reads an indeterminate value.
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+
+  const int n_rounds = stage_rounds(rows, KC);
+  float4 held[kRoundVecs];  // a staging round between its loads and stores
+  for (int n = 0; n < n_rounds; ++n) {
+    stage_load<KC>(held, xb, n, t0 - pad, rows, t_len, channels, 0);
+    stage_store<KC>(held, abuf, abuf + a_part, a_stride, n, rows);
+  }
+  fence_proxy_async();
+  consumers_sync();
+
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+#pragma unroll 1
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    // This warpgroup's 64 output rows start at staged row wg*64; tap j
+    // reads staged rows shifted by j*d. Buffer b holds its hi part, then
+    // its lo part.
+    const uint32_t a_hi =
+        smem_addr(abuf + (kc & 1) * 2 * a_part) + wg * 64 * 16;
+    const uint32_t a_lo = a_hi + a_part;
+    // Taps [j0, j1) make one chain.
+    for (int j0 = 0; j0 < taps; j0 += kChainTaps) {
+      const int j1 = min(j0 + kChainTaps, taps);
+      fence_operands(part);
+#pragma unroll 1
+      for (int j = j0; j < j1; ++j) {
+        mbar_wait(smem_addr(&full[s]), phase);
+        const uint32_t a_tap = j * dilation * 16;
+        const uint32_t b_hi = smem_addr(ring + s * 2 * kSlabBytes);
+        const uint32_t b_lo = b_hi + kSlabBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KC / 8; ++ks) {
+          // k-step ks: channel groups 2ks and 2ks + 1 (LBO one group apart).
+          const uint32_t ka = a_tap + 2 * ks * a_stride * 16;
+          const uint32_t kb = 2 * ks * BN * 16;
+          const uint64_t ahi = smem_desc(a_hi + ka, a_stride * 16, 128);
+          const uint64_t bhi = smem_desc(b_hi + kb, BN * 16, 128);
+          wgmma_tf32<BN>(part, smem_desc(a_lo + ka, a_stride * 16, 128), bhi,
+                         (j > j0 || ks != 0));
+          wgmma_tf32<BN>(part, ahi, smem_desc(b_lo + kb, BN * 16, 128), 1);
+          wgmma_tf32<BN>(part, ahi, bhi, 1);
+        }
+        wgmma_commit();
+        if (j > j0) {
+          // The previous tap's wgmmas have retired: free its slab pair.
+          wgmma_wait<1>();
+          if (leader) mbar_arrive(smem_addr(&empty[prev]));
+        }
+        if (kc + 1 < n_chunks) {
+          // Stage the next chunk a round a tap while the tensor cores run
+          // this one: the stores of the round loaded at the previous tap,
+          // then the loads of round j; at the last tap every round left.
+          // Its buffers were last read by chunk kc-1, retired in both
+          // warpgroups before the barrier that closed that chunk.
+          uint8_t* next = abuf + ((kc + 1) & 1) * 2 * a_part;
+          const int ci = (kc + 1) * KC;
+          if (j > 0 && j <= n_rounds)
+            stage_store<KC>(held, next, next + a_part, a_stride, j - 1, rows);
+          const int last = j + 1 < taps ? min(j + 1, n_rounds) : n_rounds;
+          for (int n = j; n < last; ++n) {
+            stage_load<KC>(held, xb, n, t0 - pad, rows, t_len, channels, ci);
+            if (j + 1 == taps)
+              stage_store<KC>(held, next, next + a_part, a_stride, n, rows);
+          }
+        }
+        prev = s;
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(part);
+      if (leader) mbar_arrive(smem_addr(&empty[prev]));
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+    fence_proxy_async();
+    consumers_sync();
+  }
+
+  // Epilogue, in the accumulator layout of m64nN (tf32_wgmma.cuh): bias
+  // and residual added in f32, float32 stores.
+  const int lane = tid % 32;
+  const int row0 = t0 + wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  const int col0 = blockIdx.y * BN + 2 * (lane % 4);
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    const int col = col0 + 8 * n;
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = row0 + 8 * h;
+      if (t >= t_len) continue;
+      const int64_t off = batch_off + (int64_t)t * channels + col;
+      float2 y = make_float2(acc[4 * n + 2 * h] + b.x,
+                             acc[4 * n + 2 * h + 1] + b.y);
+      if (res != nullptr) {
+        const float2 r = *reinterpret_cast<const float2*>(res + off);
+        y.x += r.x;
+        y.y += r.y;
+      }
+      *reinterpret_cast<float2*>(out + off) = y;
+    }
+  }
+}
+
+template <int K, int BN, int KC>
+cudaError_t launch_f32(const float* x, const float* wp, const float* bias,
+                       const float* res, float* out, int batch, int t_len,
+                       int channels, int kernel_size, int dilation,
+                       const F32Plan& plan, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mrf_conv_f32_tc_kernel<K, BN, KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + kTcRows - 1) / kTcRows, channels / BN, batch);
+  mrf_conv_f32_tc_kernel<K, BN, KC><<<grid, kTcThreads, plan.smem, stream>>>(
+      x, wp, bias, res, out, t_len, channels, kernel_size, dilation,
+      plan.a_stride, plan.stages);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t dispatch_f32(const float* x, const float* wp, const float* bias,
+                         const float* res, float* out, int batch, int t_len,
+                         int channels, int kernel_size, int dilation,
+                         cudaStream_t s) {
+  F32Plan p;
+  if (!f32_plan(BN, kernel_size, dilation, &p)) return cudaErrorInvalidValue;
+  if (p.kc == kF32NarrowKC)
+    return launch_f32<0, BN, kF32NarrowKC>(x, wp, bias, res, out, batch, t_len, channels, kernel_size, dilation, p, s);
+  switch (kernel_size) {
+    case 3: return launch_f32<3, BN, kF32WideKC>(x, wp, bias, res, out, batch, t_len, channels, 3, dilation, p, s);
+    case 7: return launch_f32<7, BN, kF32WideKC>(x, wp, bias, res, out, batch, t_len, channels, 7, dilation, p, s);
+    case 11: return launch_f32<11, BN, kF32WideKC>(x, wp, bias, res, out, batch, t_len, channels, 11, dilation, p, s);
+    default: return launch_f32<0, BN, kF32WideKC>(x, wp, bias, res, out, batch, t_len, channels, kernel_size, dilation, p, s);
+  }
+}
+
 bool valid(int batch, int t_len, int channels, int kernel_size,
            int dilation) {
   return batch > 0 && t_len > 0 && channels > 0 && channels % 32 == 0 &&
@@ -558,9 +790,11 @@ bool valid(int batch, int t_len, int channels, int kernel_size,
 
 }  // namespace
 
-// out = [res +] conv_{K,dilation}(lrelu(x)) + bias in float32; res may be
-// null; w is (C_out, C_in, K). Returns cudaGetLastError() after the launch
-// (0 on success).
+// out = [res +] conv_{K,dilation}(lrelu(x)) + bias in float32 on the tensor
+// cores at float32 accuracy; res may be null; w is pack_mrf_weights_tf32's
+// image for BN = 128, 64 or 32 output channels as C allows. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a shape it does not take.
 extern "C" int mrf_conv_f32(const void* x, const void* w, const void* bias,
                             const void* res, void* out, int batch, int t_len,
                             int channels, int kernel_size, int dilation,
@@ -573,9 +807,11 @@ extern "C" int mrf_conv_f32(const void* x, const void* w, const void* bias,
   const float* rp = static_cast<const float*>(res);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(channels % 64 == 0
-                   ? dispatch_f32<64>(xp, wp, bp, rp, op, batch, t_len, channels, kernel_size, dilation, s)
-                   : dispatch_f32<32>(xp, wp, bp, rp, op, batch, t_len, channels, kernel_size, dilation, s));
+  if (channels % 128 == 0)
+    return (int)dispatch_f32<128>(xp, wp, bp, rp, op, batch, t_len, channels, kernel_size, dilation, s);
+  if (channels % 64 == 0)
+    return (int)dispatch_f32<64>(xp, wp, bp, rp, op, batch, t_len, channels, kernel_size, dilation, s);
+  return (int)dispatch_f32<32>(xp, wp, bp, rp, op, batch, t_len, channels, kernel_size, dilation, s);
 }
 
 // The same in bfloat16 on the tensor cores, each conv output rounded to

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) plumbing that does not depend on the operand type: shared
 // addresses, mbarriers, bulk and TMA copies, named barriers, the wgmma
 // fence/commit/wait, the 128-byte swizzle and its descriptors, and float32
-// and bf16 tensor maps. Included by csrc/mrf_resblock.cu (bf16 wgmma) and,
-// through csrc/tf32_wgmma.cuh, by csrc/flash_mha.cu and csrc/flash_mha_bwd.cu
-// (TF32 wgmma) and, through csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu
-// and csrc/flash_mha_bwd_bf16.cu (bf16 wgmma).
+// and bf16 tensor maps. Included by csrc/mrf_resblock.cu (bf16 wgmma, and
+// TF32 through csrc/tf32_wgmma.cuh), through csrc/tf32_wgmma.cuh by
+// csrc/flash_mha.cu and csrc/flash_mha_bwd.cu (TF32 wgmma) and, through
+// csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu and
+// csrc/flash_mha_bwd_bf16.cu (bf16 wgmma).
 //
 // The 128-byte swizzle, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it: a tile
 // is rows of 128 bytes; within each 1024-byte-aligned atom of 8 rows, the

@@ -1,6 +1,7 @@
 // float32 products on Hopper's tensor cores at float32 accuracy (3xTF32): the
 // operand split, A fragments loaded from shared memory, and TF32 wgmma.
-// Included by csrc/flash_mha.cu and csrc/flash_mha_bwd.cu. The type-neutral
+// Included by csrc/flash_mha.cu, csrc/flash_mha_bwd.cu and
+// csrc/mrf_resblock.cu (its float32 kernel). The type-neutral
 // plumbing (barriers, TMA, the swizzle and descriptors, wgmma ordering) is
 // in csrc/sm90.cuh.
 //
@@ -17,9 +18,10 @@
 // tests/test_torch_flash_tc.py emulates the split bit for bit on the CPU.
 //
 // Layout. Every TF32 wgmma operand is K-major (TF32 wgmma takes no
-// transpose) and 128-byte swizzled (sm90.cuh): rows of 32 float32, a K
-// extent of 128 as four such tiles ("chunks" of 32 columns) one after the
-// other; a k-step's descriptor points 32 bytes further into the row.
+// transpose). The flash kernels' are 128-byte swizzled (sm90.cuh): rows of
+// 32 float32, a K extent of 128 as four such tiles ("chunks" of 32 columns)
+// one after the other; a k-step's descriptor points 32 bytes further into
+// the row. The MRF kernel's are unswizzled core matrices (its note).
 
 #pragma once
 
@@ -154,6 +156,51 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], uint64_t a,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d(64 x 32) = A(64 x 8, descriptor) * B(8 x 32, descriptor) + (acc ? d : 0).
+__device__ __forceinline__ void wgmma_m64n32k8(float (&d)[16], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d(64 x 128) = A(64 x 8, descriptor) * B(8 x 128, descriptor)
+// + (acc ? d : 0).
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t a,
+                                                uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
 }
 

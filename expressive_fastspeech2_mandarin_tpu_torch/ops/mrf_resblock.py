@@ -12,17 +12,24 @@ accumulation and bias, every conv output stored in the working type
 
 On a CUDA tensor ``mrf_resblock`` launches a kernel of
 ``csrc/mrf_resblock.cu`` once per conv (six launches per resblock, each
-counted in ``launch_count``): bfloat16 goes to the tensor-core kernel
-(counted in ``tc_launch_count``) with its weights packed by
-``pack_mrf_weights``, float32 to the exact CUDA-core kernel (counted in
-``fma_launch_count``). On a CPU tensor it runs ``mrf_resblock_plain``, the
-same function written with ``F.conv1d``. Nothing else selects between them.
+counted in ``launch_count``), both on the tensor cores: bfloat16 goes to
+the bf16 kernel (counted in ``tc_launch_count``) with its weights packed by
+``pack_mrf_weights``, float32 to the float32 kernel (counted in
+``f32_launch_count``), which keeps float32 accuracy with three TF32
+products a product and its weights packed and split by
+``pack_mrf_weights_tf32``, whatever PyTorch's TF32 switches say. On a CPU
+tensor it runs ``mrf_resblock_plain``, the same function written with
+``F.conv1d``. Nothing else selects between them.
 
 The kernels are built for C a multiple of 32, with the taps unrolled for
 K in ``KERNEL_SIZES`` and read at run time for any other odd K;
 ``pad_resblock`` zero-pads any other C and an odd K below 11 to those
 widths (exactly: the padded taps and channels contribute zeros, and the
 padded lanes of the result are 0), and the wrapper slices the result back.
+A halo (K - 1) * d too wide for a block's shared memory is refused with a
+``RuntimeError``: the float32 kernel takes (K - 1) * d up to 650 at
+C % 128 == 0, 714 at C = 64 and 746 at C = 32 (at d = 5, K up to 131,
+143 and 149), the bf16 kernel K up to 105 at d = 5.
 The kernels have no backward: on a CUDA tensor with a gradient wanted the
 wrapper raises rather than return a result cut off from autograd (the
 vocoder trainer runs the generator's plain path, ``Generator(fast=False)``,
@@ -49,10 +56,10 @@ LRELU_SLOPE = 0.1
 KERNEL_SIZES = (3, 7, 11)
 
 # Kernel launches made by ``mrf_resblock`` on CUDA tensors: all of them, the
-# bfloat16 tensor-core kernel's and the float32 CUDA-core kernel's.
+# bfloat16 kernel's and the float32 kernel's.
 launch_count = 0
 tc_launch_count = 0
-fma_launch_count = 0
+f32_launch_count = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _lib = None
@@ -129,9 +136,9 @@ def pad_resblock(x: torch.Tensor,
 
 
 def mrf_tiles(channels: int) -> tuple[int, int]:
-    """(BN, KC) of the tensor-core kernel for C channels: output channels
-    per block and input channels per chunk (as ``csrc/mrf_resblock.cu``
-    picks them)."""
+    """(BN, KC) of the bf16 kernel for C channels: output channels per
+    block and input channels per chunk (as ``csrc/mrf_resblock.cu`` picks
+    them). The float32 kernel takes the same BN; its KC follows the halo."""
     bn = 128 if channels % 128 == 0 else 64 if channels % 64 == 0 else 32
     return bn, 64 if channels % 64 == 0 else 32
 
@@ -149,6 +156,38 @@ def pack_mrf_weights(weight: torch.Tensor,
     return w.permute(0, 2, 5, 3, 1, 4).contiguous()
 
 
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as a float32 whose low 13 bits are zero: the bit
+    arithmetic of ``csrc/tf32_wgmma.cuh:tf32_rna``."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 → (hi, lo), hi = rna(t), lo = rna(t - hi) (``t - hi`` is
+    exact): hi + lo is within 2^-21 of t, relative."""
+    hi = tf32_rna(t)
+    return hi, tf32_rna(t - hi)
+
+
+def pack_mrf_weights_tf32(weight: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, K) float32 conv weight → the image the float32 kernel's
+    wgmma B descriptors read: its TF32 parts (``split_tf32``) laid out as
+    ``(C_out/BN, K, 2, C_in/4, BN, 4)``, ``packed[nt, j, p, g, n, e]`` =
+    part p (0 hi, 1 lo) of ``weight[nt*BN + n, 4*g + e, j]``. Every (N tile,
+    tap, part) is [channel group of 4][output channel][4] float32, so the
+    slab of any chunk of KC input channels is contiguous whatever KC the
+    kernel takes."""
+    c_out, c_in, k = weight.shape
+    bn, _ = mrf_tiles(c_out)
+    parts = torch.stack(split_tf32(weight.detach().float()))
+    parts = parts.reshape(2, c_out // bn, bn, c_in // 4, 4, k)
+    return parts.permute(1, 5, 0, 3, 2, 4).contiguous()
+
+
 # id(weight) → (weakref to it, its _version, its packed image). An entry is
 # dropped when its tensor dies and replaced when the tensor is written in
 # place (its version moves).
@@ -156,15 +195,19 @@ _packed: dict[int, tuple[weakref.ref, int, torch.Tensor]] = {}
 
 
 def packed_weights(weight: torch.Tensor) -> torch.Tensor:
-    """``pack_mrf_weights(weight)``, packed once per tensor and version.
-    Inference tensors carry no version counter and are packed every call."""
+    """The image the kernel of ``weight``'s dtype reads, packed once per
+    tensor and version: ``pack_mrf_weights_tf32(weight)`` for float32,
+    ``pack_mrf_weights(weight)`` for bfloat16. Inference tensors carry no
+    version counter and are packed every call."""
+    pack = (pack_mrf_weights_tf32 if weight.dtype == torch.float32
+            else pack_mrf_weights)
     if weight.is_inference():
-        return pack_mrf_weights(weight)
+        return pack(weight)
     key = id(weight)
     hit = _packed.get(key)
     if hit is not None and hit[0]() is weight and hit[1] == weight._version:
         return hit[2]
-    packed = pack_mrf_weights(weight)
+    packed = pack(weight)
     ref = weakref.ref(weight, lambda _, key=key: _packed.pop(key, None))
     _packed[key] = (ref, weight._version, packed)
     return packed
@@ -184,7 +227,7 @@ def _library():
 
 
 def _launch(lib, x, weight, bias, res, out, kernel_size, dilation, stream):
-    global launch_count, tc_launch_count, fma_launch_count
+    global launch_count, tc_launch_count, f32_launch_count
     b, t, c = x.shape
     tc = x.dtype == torch.bfloat16
     fn = lib.mrf_conv_bf16 if tc else lib.mrf_conv_f32
@@ -200,7 +243,7 @@ def _launch(lib, x, weight, bias, res, out, kernel_size, dilation, stream):
     if tc:
         tc_launch_count += 1
     else:
-        fma_launch_count += 1
+        f32_launch_count += 1
 
 
 def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
@@ -224,8 +267,7 @@ def _mrf_resblock_cuda(x, weights, kernel_size, dilations):
     c = x.shape[-1]
     x, weights, kernel_size = pad_resblock(x, weights, kernel_size)
     lib = _library()
-    if x.dtype == torch.bfloat16:
-        weights = [(packed_weights(w), b) for w, b in weights]
+    weights = [(packed_weights(w), b) for w, b in weights]
     x = x.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

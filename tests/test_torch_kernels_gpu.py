@@ -77,7 +77,7 @@ def _random_resblock(b, t, c, k, seed):
 # against the plain version: the same bf16 values and rounding points, f32
 # sums in another order, which can flip a conv output's bf16 rounding and
 # carry through the chain; bound 2^-6 · max|ref|. Every bf16 launch is the
-# tensor-core kernel's; the float32 CUDA-core kernel is not launched.
+# bf16 kernel's; the float32 kernel is not launched.
 @pytest.mark.gpu
 @pytest.mark.parametrize("C", [32, 64, 128, 256])
 @pytest.mark.parametrize("k", [3, 7, 11])
@@ -88,9 +88,9 @@ def _random_resblock(b, t, c, k, seed):
 def test_tc_kernel_matches_plain_on_card(C, k, B, T):
     _cuda_or_skip()
     x, weights = _random_resblock(B, T, C, k, seed=C * k + T)
-    before = (mrf.launch_count, mrf.tc_launch_count, mrf.fma_launch_count)
+    before = (mrf.launch_count, mrf.tc_launch_count, mrf.f32_launch_count)
     out = mrf.mrf_resblock(x, weights, k, DIL)
-    assert (mrf.launch_count, mrf.tc_launch_count, mrf.fma_launch_count) == (
+    assert (mrf.launch_count, mrf.tc_launch_count, mrf.f32_launch_count) == (
         before[0] + 6, before[1] + 6, before[2])
     ref = mrf.mrf_resblock_plain(x, weights, k, DIL)
     diff = (out.float() - ref.float()).abs().max().item()
@@ -98,10 +98,10 @@ def test_tc_kernel_matches_plain_on_card(C, k, B, T):
     assert diff <= 2.0 ** -6 * ref.float().abs().max().item()
 
 
-# The float32 CUDA-core kernel (csrc/mrf_resblock.cu, mrf_conv_f32_kernel)
-# at the generator's four stage shapes (C, T) on 1000 mel frames, against
-# the plain resblock in float64: its own error, within 1e-4 (chip_smoke
-# phase 2's bound), every launch the CUDA-core kernel's.
+# The float32 kernel (csrc/mrf_resblock.cu, mrf_conv_f32_tc_kernel: 3xTF32
+# wgmma) at the generator's four stage shapes (C, T) on 1000 mel frames,
+# against the plain resblock in float64: its own error, within 1e-4
+# (chip_smoke phase 2's bound), every launch the float32 kernel's.
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,T", [(256, 8000), (128, 64000), (64, 128000),
                                  (32, 256000)])
@@ -113,13 +113,31 @@ def test_f32_kernel_matches_float64_plain_at_the_stage_shapes_on_card(
     x, weights = _random_resblock(1, T, C, k, seed=C + k)
     x = x.float()
     weights = [(w.float(), b.float()) for w, b in weights]
-    before = (mrf.tc_launch_count, mrf.fma_launch_count)
+    before = (mrf.tc_launch_count, mrf.f32_launch_count)
     out = mrf.mrf_resblock(x, weights, k, DIL)
-    assert (mrf.tc_launch_count, mrf.fma_launch_count) == (before[0],
+    assert (mrf.tc_launch_count, mrf.f32_launch_count) == (before[0],
                                                           before[1] + 6)
     ref64 = mrf.mrf_resblock_plain(
         x.double(), [(w.double(), b.double()) for w, b in weights], k, DIL)
     assert out.dtype == torch.float32 and out.shape == ref64.shape
+    assert (out.double() - ref64).abs().max().item() <= 1e-4
+
+
+# The float32 kernel at its refusal limits at d = 5 (the halo the shared
+# memory of BN = 128, 64 and 32 holds): its longest chains of taps keep
+# the float64 bound.
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,k", [(256, 131), (64, 143), (32, 149)])
+def test_f32_kernel_matches_float64_plain_at_its_limits_on_card(C, k):
+    _cuda_or_skip()
+    x, weights = _random_resblock(2, 700, C, k, seed=C + k)
+    x = x.float()
+    weights = [(w.float(), b.float()) for w, b in weights]
+    before = mrf.f32_launch_count
+    out = mrf.mrf_resblock(x, weights, k, DIL)
+    assert mrf.f32_launch_count == before + 6
+    ref64 = mrf.mrf_resblock_plain(
+        x.double(), [(w.double(), b.double()) for w, b in weights], k, DIL)
     assert (out.double() - ref64).abs().max().item() <= 1e-4
 
 
@@ -129,10 +147,36 @@ def test_float32_resblock_runs_the_cuda_core_kernel_on_card():
     x, weights = _random_resblock(1, 200, 64, 7, seed=5)
     x = x.float()
     weights = [(w.float(), b.float()) for w, b in weights]
-    before = (mrf.tc_launch_count, mrf.fma_launch_count)
+    before = (mrf.tc_launch_count, mrf.f32_launch_count)
     mrf.mrf_resblock(x, weights, 7, DIL)
-    assert (mrf.tc_launch_count, mrf.fma_launch_count) == (before[0],
+    assert (mrf.tc_launch_count, mrf.f32_launch_count) == (before[0],
                                                           before[1] + 6)
+
+
+# The float32 kernel keeps float32 accuracy whatever PyTorch's TF32
+# switches say: its result is bit-identical with TF32 allowed and
+# disallowed, and on a rerun (no atomics, a fixed order of sums).
+@pytest.mark.gpu
+def test_f32_kernel_is_bit_identical_with_tf32_allowed_on_card():
+    _cuda_or_skip()
+    x, weights = _random_resblock(2, 700, 128, 7, seed=11)
+    x = x.float()
+    weights = [(w.float(), b.float()) for w, b in weights]
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    outs = []
+    try:
+        for tf32 in (False, True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.set_float32_matmul_precision("high" if tf32 else "highest")
+            outs.append(mrf.mrf_resblock(x, weights, 7, DIL))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 @pytest.mark.gpu
@@ -153,9 +197,9 @@ def test_tc_kernel_repacks_after_an_in_place_update_on_card():
 def test_kernel_rejects_unsupported_input_on_card():
     _cuda_or_skip()
     # An even K has no 'same' padding; an odd K whose halo (K - 1) * d
-    # outgrows the float32 kernel's shared memory (K > 45 at d = 5) is
-    # refused by the launch.
-    for k, error in ((4, ValueError), (2, ValueError), (49, RuntimeError)):
+    # outgrows the float32 kernel's shared memory (at C = 48, run at 64:
+    # K > 143 at d = 5) is refused by the launch.
+    for k, error in ((4, ValueError), (2, ValueError), (145, RuntimeError)):
         x = torch.zeros(1, 10, 48, device="cuda")
         w = [(torch.zeros(48, 48, k, device="cuda"),
               torch.zeros(48, device="cuda"))] * 6
@@ -165,22 +209,23 @@ def test_kernel_rejects_unsupported_input_on_card():
 
 # An odd K past 11 runs at the kernels' run-time tap count
 # (csrc/mrf_resblock.cu, template K = 0), within the bounds above, on the
-# kernel of its dtype.
+# kernel of its dtype; in float32 K = 17 at C = 256 with a three-stage
+# weight ring and K = 45 there with 16 input channels a chunk.
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("C", [64, 256])
-@pytest.mark.parametrize("k", [13, 17])
+@pytest.mark.parametrize("k", [13, 17, 45])
 def test_odd_kernel_sizes_past_11_match_plain_on_card(dtype, C, k):
     _cuda_or_skip()
     torch.backends.cudnn.allow_tf32 = False
     x, weights = _random_resblock(2, 700, C, k, seed=C + k)
     dt = getattr(torch, dtype)
     x, weights = x.to(dt), [(w.to(dt), b.to(dt)) for w, b in weights]
-    before = (mrf.tc_launch_count, mrf.fma_launch_count)
+    before = (mrf.tc_launch_count, mrf.f32_launch_count)
     out = mrf.mrf_resblock(x, weights, k, DIL)
     bf16 = dtype == "bfloat16"
     assert (mrf.tc_launch_count - before[0],
-            mrf.fma_launch_count - before[1]) == ((6, 0) if bf16 else (0, 6))
+            mrf.f32_launch_count - before[1]) == ((6, 0) if bf16 else (0, 6))
     ref = mrf.mrf_resblock_plain(x, weights, k, DIL)
     assert out.shape == ref.shape and out.dtype == ref.dtype
     diff = (out.float() - ref.float()).abs().max().item()

@@ -135,7 +135,7 @@ def test_packed_gemm_matches_plain_and_jax_bfloat16(c, k, t):
 
 
 def test_packed_weights_are_cached_and_repacked_after_an_update():
-    w = torch.nn.Conv1d(64, 64, 7).weight
+    w = torch.nn.Conv1d(64, 64, 7).to(torch.bfloat16).weight
     first = mrf.packed_weights(w)
     assert mrf.packed_weights(w) is first
     with torch.no_grad():
@@ -145,7 +145,7 @@ def test_packed_weights_are_cached_and_repacked_after_an_update():
     assert torch.equal(second, mrf.pack_mrf_weights(w))
     assert torch.equal(_unpack(second), w.detach().bfloat16())
     with torch.inference_mode():
-        frozen = torch.randn(32, 32, 3)
+        frozen = torch.randn(32, 32, 3, dtype=torch.bfloat16)
     assert torch.equal(mrf.packed_weights(frozen),
                        mrf.pack_mrf_weights(frozen))
 
