@@ -192,7 +192,23 @@ Phases:
      mean within 1e-5 relative; JAX's log, val and save steps); (f)
      ``train()`` in float32 under matmul_precision "high": TF32 on for its
      steps and off after, its first loss within 1e-2 of "highest"'s, both
-     step times.
+     step times;
+  13. data-parallel training (``parallel/``), each rank a process on the
+     one card (``python3 chip_smoke.py --dp-worker``, killed after
+     DP_TIMEOUT): at ``Config()`` width under "flash", float32, a global
+     batch of 8 at the bucket (128, 1000) from phase 5's corpus, 6 steps
+     on 1 rank and on 2 gloo ranks (4 rows each) over the same global
+     batches: steps 1-3 within 2e-4 relative, all 6 within 5e-2, the
+     parameters' sum within 5e-3, evaluation at the initial parameters
+     within 2e-4 (tests/test_distributed.py's bounds), the 2 ranks
+     bit-equal, their rows disjoint and tiling the 1-rank run's, each
+     rank's flash forward, dQ and dK/dV launches as expected; the step
+     times, 1 rank and 2 ranks time-sharing the card; ``efs2-torch-train
+     --coordinator --num-processes 2 --process-id i --backend gloo`` for
+     4 steps on the Quick-start corpus (one checkpoint directory, both
+     ranks at the last step with the same parameter sum); ``train()`` in
+     a world of one over NCCL (3 steps, its checkpoint, its flash
+     launches). The ranks' flash launches join the ``kernels`` line's.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -509,26 +525,17 @@ def random_resblock(c: int, k: int, gen, device, dtype):
     return weights
 
 
-def f32_counter(mrf) -> str:
-    """The name of the float32 MRF kernel's launch count: ``f32_launch_count``
-    (``fma_launch_count`` in an older checkout, which phase 4's comparison
-    drives through --root)."""
-    return ("f32_launch_count" if hasattr(mrf, "f32_launch_count")
-            else "fma_launch_count")
-
-
 def mrf_counts() -> tuple[int, int]:
     """Launches of the MRF bf16 and float32 kernels."""
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
 
-    return mrf.tc_launch_count, getattr(mrf, f32_counter(mrf))
+    return mrf.tc_launch_count, mrf.f32_launch_count
 
 
 def reset_mrf_counts() -> None:
     from expressive_fastspeech2_mandarin_tpu_torch.ops import mrf_resblock as mrf
 
-    mrf.launch_count = mrf.tc_launch_count = 0
-    setattr(mrf, f32_counter(mrf), 0)
+    mrf.launch_count = mrf.tc_launch_count = mrf.f32_launch_count = 0
 
 
 def phase_kernel_vs_plain(smoke: Smoke, device, shapes, batch,
@@ -4331,8 +4338,391 @@ def phase_front_ends(smoke: Smoke, device):
     return {"launches": launches, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: data-parallel training over processes (parallel/).
+
+DP_STEPS = 6
+DP_BATCH = 8            # the global batch: 4 rows a rank on 2 ranks
+DP_BUCKET = (128, 1000)  # (S, T): every batch padded to it
+DP_NCCL_STEPS = 3
+DP_CLI_STEPS = 4
+DP_TIMEOUT = 300        # seconds a group of ranks may take
+DP_WARM_UP = 10         # Noam warm-up steps: the 6 steps move the weights
+DP_REDUCE_REPEATS = 5   # untimed-step all-reduces of the gradients' size
+# tests/test_distributed.py's bounds for 2 ranks against 1 over the same
+# global batches: the first 3 losses, all 6 (reduction-order noise grows
+# through Adam and BatchNorm), the parameters' sum, evaluation at the
+# initial parameters.
+DP_LOSS_RTOL_EARLY, DP_LOSS_RTOL = 2e-4, 5e-2
+DP_PARAM_RTOL, DP_EVAL_RTOL = 5e-3, 2e-4
+# The parameters' change over the 6 steps on 2 ranks against 1 rank,
+# ||d2 - d1|| / ||d1||, and the least change a run must make, ||d1|| /
+# ||p0||, set from the H100's readings (PERF.md section 6): 2.9e-3 to
+# 5.4e-3 over four runs, 0.34 with BatchNorm's moments taken per rank and
+# 0.75 with dropout masks drawn per rank (which the bounds above let
+# through); the weights move by 0.25.
+DP_DELTA_RTOL, DP_MIN_MOVE = 5e-2, 1e-3
+
+
+def dp_config(corpus: str, out: str, total: int):
+    """Config() width under "flash", float32, a global batch of DP_BATCH
+    at the single bucket DP_BUCKET, a warm-up of DP_WARM_UP steps, losses
+    logged every step."""
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+
+    return C.Config(
+        preprocess=C.PreprocessConfig(
+            path=C.PathConfig(preprocessed_path=corpus)),
+        model=C.ModelConfig(
+            transformer=C.TransformerConfig(attention_impl="flash")),
+        train=C.TrainConfig(
+            path=C.PathConfig(ckpt_path=os.path.join(out, "ckpt"),
+                              log_path=os.path.join(out, "log"),
+                              result_path=os.path.join(out, "result")),
+            optimizer=C.OptimizerConfig(batch_size=DP_BATCH,
+                                        warm_up_step=DP_WARM_UP),
+            buckets=C.BucketConfig(src_buckets=DP_BUCKET[:1],
+                                   mel_buckets=DP_BUCKET[1:]),
+            step=C.StepConfig(total_step=total, log_step=1, val_step=1000,
+                              synth_step=1000, save_step=1000)))
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of phase 13, in its own process on cuda:0: ``steps`` runs
+    DP_STEPS train steps by hand over the row-sharded batches (evaluation
+    before and after, each step timed), then, on more than one rank, times
+    the gradients' all-reduce alone on tensors of their sizes; ``nccl``
+    runs ``train()`` in a world of one over NCCL. Writes its result as
+    JSON, and the flat parameters before and after the steps
+    (``torch.save``, not named .pt: the phase counts the checkpoints by
+    that suffix)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, spec["root"])
+    import torch
+    import torch.distributed as dist
+
+    from expressive_fastspeech2_mandarin_tpu_torch import parallel
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        loop,
+        train,
+        train_step,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.state import (
+        broadcast_state,
+    )
+
+    def flat_params(state):
+        return torch.cat([p.detach().reshape(-1)
+                          for p in state.model.parameters()]).cpu()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    n, rank = spec["num_processes"], spec["rank"]
+    if spec["mode"] == "nccl":
+        dist.init_process_group("nccl", init_method=f"tcp://{spec['coord']}",
+                                world_size=1, rank=0)
+    else:
+        parallel.initialize_distributed(spec["coord"], n, rank, "gloo")
+    result = {"rank": rank,
+              "backend": dist.get_backend() if dist.is_initialized()
+              else None}
+    reset_flash_counts()
+    if spec["mode"] == "nccl":
+        cfg = dp_config(spec["corpus"], spec["out"], DP_NCCL_STEPS)
+        state = train(cfg, device=device)
+        torch.cuda.synchronize()
+        result.update(step=state.step,
+                      checkpoints=sorted(os.listdir(
+                          os.path.join(spec["out"], "ckpt"))))
+    else:
+        cfg = dp_config(spec["corpus"], spec["out"], DP_STEPS)
+        tc = cfg.train
+        layout = parallel.make_layout()
+        corpus = PreprocessedCorpus(spec["corpus"])
+        shards = dict(seed=tc.seed, num_shards=n,
+                      shard_index=layout.data_index if layout else 0)
+        ds_args = (DP_BATCH, tc.buckets, cfg.model.max_seq_len)
+        train_ds = BucketedDataset(corpus, "train.txt", *ds_args,
+                                   drop_last=True, **shards)
+        val_ds = BucketedDataset(corpus, "val.txt", *ds_args, **shards)
+        state = create_train_state(cfg, corpus.stats, device, layout)
+        if layout is not None:
+            broadcast_state(state)
+        torch.save(flat_params(state), spec["result"] + ".p0")
+        losses, ms, shapes = [], [], set()
+        eval0 = loop.evaluate(state.model, val_ds, cfg, device, layout)
+        epoch = 0
+        while len(losses) < DP_STEPS:
+            for raw in train_ds.epoch(epoch):
+                shapes.add((raw["texts"].shape[1],
+                            raw["mels"].shape[1], len(raw["mels"])))
+                batch = loop.stage_batch(raw, device, tc.transfer_dtype)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                report = train_step(state, batch, cfg)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(report.total))
+                if len(losses) == DP_STEPS:
+                    break
+            epoch += 1
+        evals = loop.evaluate(state.model, val_ds, cfg, device, layout)
+        torch.save(flat_params(state), spec["result"] + ".p1")
+        reduce_ms = []  # outside the timed steps
+        if layout is not None:
+            grads = [torch.ones_like(p) for p in state.model.parameters()]
+            for _ in range(DP_REDUCE_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                parallel.all_reduce_(grads)
+                torch.cuda.synchronize()
+                reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        result.update(losses=losses, ms=ms, reduce_ms=reduce_ms,
+                      eval0=eval0, eval=evals,
+                      shapes=sorted(shapes),
+                      host_rows=train_ds.host_rows(0))
+    params = list(state.model.parameters())
+    result["param_sum"] = sum(p.double().abs().sum() for p in params).item()
+    result["grad_mb"] = sum(p.numel() for p in params) * 4 / 1e6
+    result["flash"] = flash_counts()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with open(spec["result"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(commands: list[list[str]], logs: list[Path],
+              root: Path) -> list[int]:
+    """Start the commands together from ``root`` (output to ``logs``); on
+    DP_TIMEOUT kill them all. Returns the exit codes (-9 for a killed
+    process)."""
+    procs = []
+    for cmd, log in zip(commands, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(root))))
+    deadline = time.monotonic() + DP_TIMEOUT
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(1.0,
+                                            deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            for q in procs:
+                q.wait()
+            return [-9] * len(procs)
+    return codes
+
+
+def dp_run(tmp: Path, name: str, mode: str, n: int, corpus: str,
+           root: Path) -> list[dict] | None:
+    """``n`` ranks of ``dp_worker`` (``python3 chip_smoke.py --dp-worker``);
+    their results, or None (the logs' tails printed) when one failed."""
+    coord = f"127.0.0.1:{free_port()}"
+    commands, logs, results = [], [], []
+    for rank in range(n):
+        spec = tmp / f"{name}_{rank}.json"
+        results.append(tmp / f"{name}_{rank}.result.json")
+        spec.write_text(json.dumps({
+            "root": str(root), "mode": mode, "num_processes": n,
+            "rank": rank, "coord": coord, "corpus": corpus,
+            "out": str(tmp / name), "result": str(results[-1])}))
+        commands.append([sys.executable, str(Path(__file__).resolve()),
+                         "--dp-worker", str(spec)])
+        logs.append(tmp / f"{name}_{rank}.log")
+    codes = run_ranks(commands, logs, root)
+    if any(codes):
+        for log in logs:
+            print(f"  {log.name}:\n" + log.read_text()[-3000:])
+        return None
+    return [json.loads(r.read_text()) for r in results]
+
+
+def phase_data_parallel(smoke: Smoke, device, root: Path):
+    """Phase 13: 1 rank against 2 gloo ranks sharing the card over the same
+    global batches; ``efs2-torch-train --coordinator`` on 2 processes on the
+    Quick-start corpus; ``train()`` in a world of one over NCCL. Returns
+    the flash launches (forward, dQ, dK/dV) the ranks counted, and the
+    step times."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch import align
+    from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
+
+    card = nvidia_smi_line()
+    build.build_all(["flash_mha", "flash_mha_bwd"])  # before the ranks
+    torch.cuda.empty_cache()
+    launches = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        corpus = write_training_corpus(str(tmp / "corpus"), 0)
+        runs = {}
+        for name, n in (("one", 1), ("two", 2)):
+            t0 = time.perf_counter()
+            runs[name] = dp_run(tmp, name, "steps", n, corpus, root)
+            smoke.check(runs[name] is not None,
+                        f"{n} rank(s), {DP_STEPS} steps: the ranks ran in "
+                        f"{time.perf_counter() - t0:.1f} s")
+        if runs["one"] and runs["two"]:
+            (one,), two = runs["one"], runs["two"]
+            t = dp_config(corpus, str(tmp), DP_STEPS).model.transformer
+            n_blocks = t.encoder_layer + t.decoder_layer
+            forwards = DP_STEPS + 2 * math.ceil(N_VAL_UTTS / DP_BATCH)
+            expected = [n_blocks * forwards, n_blocks * DP_STEPS,
+                        n_blocks * DP_STEPS]
+            for r in runs["one"] + two:
+                launches = [a + b for a, b in zip(launches, r["flash"])]
+            smoke.check(all(r["flash"] == expected for r in [one, *two])
+                        and two[0]["backend"] == "gloo"
+                        and one["shapes"] == [[*DP_BUCKET, DP_BATCH]]
+                        and all(r["shapes"] == [[*DP_BUCKET, DP_BATCH // 2]]
+                                for r in two),
+                        f"flash launches (forward, dQ, dK/dV): 1 rank "
+                        f"{one['flash']}, 2 ranks {[r['flash'] for r in two]}"
+                        f" (expected {expected} each: {n_blocks} a step, "
+                        f"{n_blocks} forward an evaluation batch); (S, T, "
+                        f"rows) of the batches: 1 rank {one['shapes']}, "
+                        f"each of 2 {[r['shapes'] for r in two]}; backend "
+                        f"{two[0]['backend']}")
+            smoke.check(two[0]["losses"] == two[1]["losses"]
+                        and two[0]["param_sum"] == two[1]["param_sum"]
+                        and two[0]["eval"] == two[1]["eval"],
+                        f"the 2 ranks bit-equal: parameter sums "
+                        f"{two[0]['param_sum']!r}, {two[1]['param_sum']!r}")
+            a, b = np.array(one["losses"]), np.array(two[0]["losses"])
+            rel = np.abs(a - b) / np.abs(a)
+            p_rel = (abs(one["param_sum"] - two[0]["param_sum"])
+                     / one["param_sum"])
+            e_rel = max(abs(one["eval0"][k] - two[0]["eval0"][k])
+                        / abs(one["eval0"][k]) for k in one["eval0"])
+            smoke.check(rel[:3].max() <= DP_LOSS_RTOL_EARLY
+                        and rel.max() <= DP_LOSS_RTOL
+                        and p_rel <= DP_PARAM_RTOL and e_rel <= DP_EVAL_RTOL,
+                        f"2 ranks against 1: losses 1 rank {one['losses']}, "
+                        f"2 ranks {two[0]['losses']}, rel diff "
+                        f"{[f'{x:.1e}' for x in rel]} (bounds "
+                        f"{DP_LOSS_RTOL_EARLY:.0e} for steps 1-3, "
+                        f"{DP_LOSS_RTOL:.0e}); parameter sum rel diff "
+                        f"{p_rel:.2e} (bound {DP_PARAM_RTOL:.0e}); "
+                        f"evaluation at the initial parameters rel diff "
+                        f"{e_rel:.2e} (bound {DP_EVAL_RTOL:.0e})")
+            flat = {(k, v): torch.load(
+                tmp / f"{k}.result.json.{v}").double()
+                for k in ("one_0", "two_0") for v in ("p0", "p1")}
+            p0 = flat["one_0", "p0"]
+            d1 = flat["one_0", "p1"] - p0
+            move = float(d1.norm() / p0.norm())
+            d_rel = float((flat["two_0", "p1"] - flat["one_0", "p1"]).norm()
+                          / d1.norm())
+            smoke.check(torch.equal(flat["two_0", "p0"], p0)
+                        and move >= DP_MIN_MOVE and d_rel <= DP_DELTA_RTOL,
+                        f"the parameters' change over {DP_STEPS} steps: "
+                        f"||d1|| / ||p0|| = {move:.3e} (at least "
+                        f"{DP_MIN_MOVE:.0e}); 2 ranks against 1 "
+                        f"||d2 - d1|| / ||d1|| = {d_rel:.3e} (bound "
+                        f"{DP_DELTA_RTOL:.0e}); the same initial parameters")
+            del flat, p0, d1
+            r0, r1 = two[0]["host_rows"], two[1]["host_rows"]
+            smoke.check(not set(r0) & set(r1)
+                        and set(r0) | set(r1) == set(one["host_rows"]),
+                        f"the ranks' rows ({len(r0)} and {len(r1)} in epoch "
+                        f"0) are disjoint and tile the 1-rank run's "
+                        f"{len(one['host_rows'])}")
+            step_ms = {"train step, 1 rank, B = 8": one["ms"][1:],
+                       "train step, 2 ranks on one card, B = 4 each":
+                       two[0]["ms"][1:],
+                       f"the gradients' all-reduce alone, outside the "
+                       f"steps (gloo, {two[0]['grad_mb']:.1f} MB, 2 ranks)":
+                       two[0]["reduce_ms"][1:]}
+            for what, ms in step_ms.items():
+                print(f"  ms, {what} (all but the first): "
+                      f"median {float(np.median(ms)):.1f}, "
+                      f"{[round(x, 1) for x in ms]} [{card}]")
+
+        # The command line on 2 processes, on the Quick-start corpus.
+        esd = write_esd_corpus(str(tmp / "esd"), 10, E2E_SECONDS)
+        y = e2e_configs(tmp / "qs", esd)
+        cfg = ["-p", y["preprocess"], "-m", y["model"], "-t", y["train"]]
+        run_cli("preprocess", ["esd", "--esd-root", esd, "--raw-path",
+                               tmp / "qs" / "raw"])
+        align.ensure_built()
+        run_cli("align", ["--corpus", tmp / "qs" / "raw", "--out",
+                          tmp / "qs" / "pre" / "TextGrid"])
+        run_cli("preprocess", ["features", *cfg, "--device", str(device)])
+        coord = f"127.0.0.1:{free_port()}"
+        logs = [tmp / f"cli_{i}.log" for i in range(2)]
+        t0 = time.perf_counter()
+        codes = run_ranks([[sys.executable, "-m", f"{PKG}.cli.train", *cfg,
+                            "--total_steps", str(DP_CLI_STEPS),
+                            "--coordinator", coord, "--num-processes", "2",
+                            "--process-id", str(i), "--backend", "gloo",
+                            "--device", str(device)] for i in range(2)],
+                          logs, root)
+        seconds = time.perf_counter() - t0
+        finals = []
+        for log in logs:
+            lines = [s for s in log.read_text().splitlines()
+                     if " of 2: step " in s]
+            finals.append(lines[-1] if lines else "")
+        sums = [s.split("parameter sum ")[-1] for s in finals]
+        ckpt_dirs = sorted({str(p.parent.relative_to(tmp))
+                            for p in tmp.rglob("*.pt")})
+        if any(codes):
+            for log in logs:
+                print(f"  {log.name}:\n" + log.read_text()[-3000:])
+        smoke.check(not any(codes)
+                    and [s.split(":")[0] for s in finals] == [
+                        "rank 0 of 2", "rank 1 of 2"]
+                    and all(f" step {DP_CLI_STEPS}," in s for s in finals)
+                    and sums[0] == sums[1]
+                    and ckpt_dirs == ["qs/ckpt"]
+                    and sorted(os.listdir(tmp / "qs" / "ckpt")) == [
+                        f"{DP_CLI_STEPS}.pt"],
+                    f"efs2-torch-train --coordinator {coord} "
+                    f"--num-processes 2 --backend gloo, {DP_CLI_STEPS} "
+                    f"steps in {seconds:.1f} s (exit codes {codes}): "
+                    f"{finals}; checkpoint directories {ckpt_dirs} "
+                    f"[{card}]")
+
+        nccl = dp_run(tmp, "nccl", "nccl", 1, corpus, root)
+        if smoke.check(nccl is not None, "train() over NCCL, world of 1"):
+            r = nccl[0]
+            launches = [a + b for a, b in zip(launches, r["flash"])]
+            smoke.check(r["backend"] == "nccl" and r["step"] == DP_NCCL_STEPS
+                        and r["checkpoints"] == [f"{DP_NCCL_STEPS}.pt"]
+                        and r["flash"] == [10 * DP_NCCL_STEPS] * 3,
+                        f"train() in a world of 1, backend {r['backend']}: "
+                        f"step {r['step']}, checkpoints {r['checkpoints']}, "
+                        f"flash launches {r['flash']}")
+    smoke.check(all(n > 0 for n in launches),
+                f"flash launches (forward, dQ, dK/dV) the ranks counted over "
+                f"phase 13: {launches}")
+    return {"launches": launches}
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
-          "7", "8", "8b", "9", "10", "11", "11b", "12")
+          "7", "8", "8b", "9", "10", "11", "11b", "12", "13")
 
 
 def main(argv=None) -> int:
@@ -4344,7 +4734,10 @@ def main(argv=None) -> int:
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="checkout whose package to drive (default: "
                              "this script's)")
+    parser.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dp_worker:  # one rank of phase 13
+        return dp_worker(args.dp_worker)
     chosen = args.phases.split(",")
     whole = tuple(chosen) == PHASES
     unknown = sorted(set(chosen) - set(PHASES))
@@ -4420,6 +4813,8 @@ def main(argv=None) -> int:
                     "train step", phase_bf16_times, device)
     fronts = run("12", "the multilingual front end and corpora through the "
                  "CLIs", phase_front_ends, smoke, device)
+    dp = run("13", "data-parallel training: efs2-torch-train --coordinator "
+             "on two ranks", phase_data_parallel, smoke, device, root)
     print(f"== done in {time.time() - t_start:.1f} s")
     if smoke.failures or any(results.get(key) is None for key in chosen):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
@@ -4437,7 +4832,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": f"{PKG}/csrc/mrf_resblock.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
-                    "mrf_resblock.py:185",
+                    "mrf_resblock.py:186",
         "launches": (launches + entry["launches"]["mrf_resblock"]
                      + fronts["launches"]["mrf_resblock"]),
         "max_abs_err": max(worst[0], worst_long[0]),
@@ -4479,7 +4874,7 @@ def main(argv=None) -> int:
                     "flash_mha.py:53",
         "launches": (train_launches[0] + features["launches"]["flash_mha"]
                      + entry["launches"]["flash_mha"] + tuned["float32"][0]
-                     + fronts["launches"]["flash_mha"]),
+                     + fronts["launches"]["flash_mha"] + dp["launches"][0]),
         "max_abs_err": worst_flash,
         **flash_row,
     }, {
@@ -4488,7 +4883,8 @@ def main(argv=None) -> int:
         "source": f"{PKG}/csrc/flash_mha_bwd.cu",
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
         "launches": (train_launches[1] + entry["launches"]["flash_mha_bwd_dq"]
-                     + fronts["launches"]["flash_mha_bwd_dq"]),
+                     + fronts["launches"]["flash_mha_bwd_dq"]
+                     + dp["launches"][1]),
         "max_abs_err": worst_bwd[0],
         **bwd_rows["dq"],
     }, {
@@ -4498,7 +4894,8 @@ def main(argv=None) -> int:
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
         "launches": (train_launches[2]
                      + entry["launches"]["flash_mha_bwd_dkv"]
-                     + fronts["launches"]["flash_mha_bwd_dkv"]),
+                     + fronts["launches"]["flash_mha_bwd_dkv"]
+                     + dp["launches"][2]),
         "max_abs_err": worst_bwd[1],
         **bwd_rows["dkv"],
     }, {

@@ -10,9 +10,9 @@ packages. ``matmul_precision`` maps XLA's precision names onto the card's
 TF32 switches (``train.loop.matmul_precision``); the profiler window
 writes a ``torch.profiler`` trace; the vocoder's scan chunks run as eager
 chunks; ``packed_generator``, a TPU lane-packing layout with the plain
-generator's semantics, trains the plain generator. A model-parallel mesh
-(``mesh.model_parallel_size`` > 1) raises ``ValueError``: the port trains
-on one card.
+generator's semantics, trains the plain generator. The mesh
+(``mesh.model_parallel_size``) lays out the training processes
+(``parallel.make_layout``).
 
 ``load_config(p, m, t)`` reads the reference's three YAML files (``-p/-m/
 -t``) through ``utils.yaml_reader``, which resolves their scalars as
@@ -201,8 +201,12 @@ class BucketConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh; the port trains on one card, so only
-    ``model_parallel_size=1`` is accepted."""
+    """The JAX package's ('data', 'model') mesh over the training processes
+    (``parallel.make_layout``): the ``model_parallel_size`` ranks of one
+    model group collate the same rows and compute them alike (nothing is
+    split over ``model``, as in the JAX package); the batch is split over
+    the world size ÷ ``model_parallel_size`` data ranks. ``train()``
+    raises when it does not divide the world size."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -248,11 +252,6 @@ class TrainConfig:
     profile_stop_step: int = -1
 
     def __post_init__(self):
-        if self.mesh.model_parallel_size > 1:
-            raise ValueError(
-                f"mesh.model_parallel_size={self.mesh.model_parallel_size} "
-                f"(a model-parallel TPU mesh) is a TPU setting the PyTorch "
-                f"port does not take; leave it at its default")
         if self.matmul_precision not in MATMUL_PRECISIONS:
             raise ValueError(f"matmul_precision must be one of "
                              f"{sorted(MATMUL_PRECISIONS)}, got "

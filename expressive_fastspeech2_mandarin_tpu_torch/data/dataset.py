@@ -1,5 +1,4 @@
-"""Length-bucketed training batches; the JAX package's ``data/dataset.py``
-on one host.
+"""Length-bucketed training batches; the JAX package's ``data/dataset.py``.
 
 Batches are padded to a small fixed set of (src, mel) bucket sizes
 (``BucketConfig``). An epoch shuffles with ``seed + epoch``, sorts each
@@ -8,6 +7,12 @@ length-grouped batching) and cuts it into batches; a short tail batch is
 dropped (``drop_last``) or filled by repeating its first example.
 Durations are clamped from the end so that they sum to the mel frames
 kept.
+
+Sharded over ``num_shards`` processes (the JAX package's row mode,
+``shard_rows=True``), every process lists the same batches, takes the
+bucket shapes from the whole (global) batch and collates only its
+contiguous slice of the rows, ``shard_index``-th of ``num_shards``;
+``batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -46,13 +51,20 @@ class BucketedDataset:
     def __init__(self, corpus: PreprocessedCorpus, filename: str,
                  batch_size: int, buckets: BucketConfig,
                  max_seq_len: int = 2000, drop_last: bool = False,
-                 seed: int = 1234, symbol_table: str = "pinyin"):
+                 seed: int = 1234, symbol_table: str = "pinyin",
+                 num_shards: int = 1, shard_index: int = 0):
         self.corpus = corpus
         self.batch_size = batch_size
         self.buckets = buckets
         self.drop_last = drop_last
         self.seed = seed
         self.symbol_table = symbol_table
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        if batch_size % num_shards:
+            raise ValueError(
+                f"global batch_size {batch_size} not divisible by "
+                f"{num_shards} shards (row sharding)")
         lengths = corpus.lengths(filename)
         self.examples: list[Example] = []
         for utt in corpus.metadata(filename):
@@ -94,11 +106,25 @@ class BucketedDataset:
             batches.append([self.examples[j] for j in idx])
         return batches
 
+    def _rows(self, batch: list[Example]) -> list[Example]:
+        """This process's contiguous slice of a batch's rows."""
+        n = len(batch) // self.num_shards
+        return batch[self.shard_index * n:(self.shard_index + 1) * n]
+
+    def host_rows(self, epoch: int = 0, shuffle: bool = True) -> list[str]:
+        """Basenames of the rows this process collates in ``epoch``, in
+        order (the shards' disjointness and coverage)."""
+        return [e.utt.basename for batch in self._batches(epoch, shuffle)
+                for e in self._rows(batch)]
+
     def _collate(self, batch: list[Example]) -> dict[str, np.ndarray]:
+        # The buckets come from the whole batch, so that every process
+        # pads its rows to the same shapes.
         src_bucket = pick_bucket(max(e.src_len for e in batch),
                                  self.buckets.src_buckets)
         mel_bucket = pick_bucket(max(e.mel_len for e in batch),
                                  self.buckets.mel_buckets)
+        batch = self._rows(batch)
         b = len(batch)
         out = {
             "speakers": np.array([e.speaker_id for e in batch], np.int32),

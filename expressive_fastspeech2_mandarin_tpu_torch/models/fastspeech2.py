@@ -2,8 +2,11 @@
 conditioning. At inference (the default) it is deterministic: no dropout,
 BatchNorm on running statistics. With ``training=True`` and a dropout
 generator it applies dropout and the postnet's BatchNorm takes batch
-statistics, updating its running ones in place. With duration (and pitch,
-energy) targets it is teacher-forced, as in training and evaluation.
+statistics, updating its running ones in place; under a data-parallel
+``layout`` (``parallel.Layout``) the batch holds the rank's rows, and
+dropout and BatchNorm act as on the global batch. With duration (and
+pitch, energy) targets it is teacher-forced, as in training and
+evaluation.
 
 encoder → +speaker_emb → +relu(emotion_linear(cat(emotion, arousal,
 valence))) → variance adaptor → decoder → mel_linear → postnet (+residual);
@@ -78,7 +81,7 @@ class FastSpeech2(nn.Module):
                 d_targets: torch.Tensor | None = None,
                 p_control: float = 1.0, e_control: float = 1.0,
                 d_control: float = 1.0, training: bool = False,
-                generator: torch.Generator | None = None
+                generator: torch.Generator | None = None, layout=None
                 ) -> FastSpeech2Output:
         cfg = self.cfg
         if training and generator is None:
@@ -89,7 +92,7 @@ class FastSpeech2(nn.Module):
         src_masks = mask_from_lengths(src_lens, texts.shape[1])
         mel_masks = (mask_from_lengths(mel_lens, max_mel_len)
                      if mel_lens is not None else None)
-        x = self.encoder(texts, src_masks, gen)
+        x = self.encoder(texts, src_masks, gen, layout)
         if cfg.multi_speaker:
             x = x + self.speaker_emb(speakers)[:, None, :]
         if cfg.multi_emotion:
@@ -104,17 +107,17 @@ class FastSpeech2(nn.Module):
          mel_masks) = self.variance_adaptor(
             x, src_masks, max_mel_len, p_control, e_control, d_control,
             mel_mask=mel_masks, p_targets=p_targets, e_targets=e_targets,
-            d_targets=d_targets, generator=gen)
+            d_targets=d_targets, generator=gen, layout=layout)
         if d_targets is not None:
             mel_lens_out = mel_lens
 
-        frames = self.decoder(frames, mel_masks, gen)
+        frames = self.decoder(frames, mel_masks, gen, layout)
         mel = self.mel_linear(frames)
         if cfg.padding_inert:
             mel = mel.masked_fill(mel_masks[..., None], 0.0)
         residual = self.postnet(
             mel, mask=mel_masks if cfg.padding_inert else None,
-            generator=gen)
+            generator=gen, layout=layout)
         return FastSpeech2Output(
             mel=mel,
             postnet_mel=mel + residual,

@@ -21,8 +21,8 @@ class WrappedConv1d(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm1d over the last axis of (B, T, C): affine parameters and
     running statistics. ``forward`` normalizes with the running statistics;
-    ``forward_train`` with the batch's, updating the running ones in
-    place."""
+    ``forward_train`` with the batch's (the global batch's under a
+    data-parallel ``layout``), updating the running ones in place."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -37,10 +37,11 @@ class BatchNorm(nn.Module):
                                     self.running_mean, self.running_var,
                                     self.eps)
 
-    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, layout=None) -> torch.Tensor:
         out, mean, var = batch_norm_train(x, self.weight, self.bias,
                                           self.running_mean,
-                                          self.running_var, eps=self.eps)
+                                          self.running_var, eps=self.eps,
+                                          layout=layout)
         with torch.no_grad():
             self.running_mean.copy_(mean)
             self.running_var.copy_(var)

@@ -31,18 +31,19 @@ class PostNet(nn.Module):
             for c_in, c_out in dims])
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                layout=None) -> torch.Tensor:
         """(B, T, n_mels) → (B, T, n_mels) residual. ``mask`` (True at
         padded frames) zeroes each layer's output there. A ``generator``
-        selects training mode."""
+        selects training mode; ``layout`` is its data-parallel layout."""
         pad = (self.kernel_size - 1) // 2
         n = len(self.convolutions)
         for i, (wrapped, bn) in enumerate(self.convolutions):
             x = conv1d(x, wrapped.conv.weight, wrapped.conv.bias, padding=pad)
-            x = bn(x) if generator is None else bn.forward_train(x)
+            x = bn(x) if generator is None else bn.forward_train(x, layout)
             if i < n - 1:
                 x = torch.tanh(x)
-            x = dropout(x, POSTNET_DROPOUT, generator)
+            x = dropout(x, POSTNET_DROPOUT, generator, layout)
             if mask is not None:
                 x = x.masked_fill(mask[..., None], 0.0)
         return x

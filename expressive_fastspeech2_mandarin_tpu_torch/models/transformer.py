@@ -62,15 +62,17 @@ class FFTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 dropout_rate: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                layout=None) -> torch.Tensor:
         """(B, T, D) → (B, T, D); ``pad_mask`` (B, T) True at padding. With
-        a ``generator`` (training), dropout at ``dropout_rate``."""
+        a ``generator`` (training), dropout at ``dropout_rate``, over
+        ``layout``'s rows of the global batch when one is given."""
         a = self.slf_attn
         out = multi_head_attention(
             x, a.w_qs.weight, a.w_qs.bias, a.w_ks.weight, a.w_ks.bias,
             a.w_vs.weight, a.w_vs.bias, a.n_head, pad_mask,
             impl=self.attention_impl)
-        out = dropout(a.fc(out), dropout_rate, generator)
+        out = dropout(a.fc(out), dropout_rate, generator, layout)
         out = layer_norm(out + x, a.layer_norm.weight, a.layer_norm.bias)
         out = out.masked_fill(pad_mask[..., None], 0.0)
 
@@ -79,7 +81,7 @@ class FFTBlock(nn.Module):
         h = conv1d(out, f.w_1.weight, f.w_1.bias, padding=(k0 - 1) // 2)
         h = F.relu(h)
         h = conv1d(h, f.w_2.weight, f.w_2.bias, padding=(k1 - 1) // 2)
-        h = dropout(h, dropout_rate, generator)
+        h = dropout(h, dropout_rate, generator, layout)
         h = layer_norm(h + out, f.layer_norm.weight, f.layer_norm.bias)
         return h.masked_fill(pad_mask[..., None], 0.0)
 
@@ -119,10 +121,11 @@ class _Stack(nn.Module):
         return table[:t].to(like.dtype)
 
     def run_layers(self, x: torch.Tensor, pad_mask: torch.Tensor,
-                   generator: torch.Generator | None) -> torch.Tensor:
+                   generator: torch.Generator | None,
+                   layout=None) -> torch.Tensor:
         x = x + self.positions(x.shape[1], x)[None]
         for layer in self.layer_stack:
-            x = layer(x, pad_mask, self.dropout_rate, generator)
+            x = layer(x, pad_mask, self.dropout_rate, generator, layout)
         return x
 
 
@@ -135,9 +138,11 @@ class Encoder(_Stack):
                                          padding_idx=0)
 
     def forward(self, texts: torch.Tensor, pad_mask: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                layout=None) -> torch.Tensor:
         """(B, S) phoneme IDs → (B, S, D)."""
-        return self.run_layers(self.src_word_emb(texts), pad_mask, generator)
+        return self.run_layers(self.src_word_emb(texts), pad_mask, generator,
+                               layout)
 
 
 class Decoder(_Stack):
@@ -146,6 +151,7 @@ class Decoder(_Stack):
                          cfg.decoder_head, max_seq_len, cfg.decoder_dropout)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                layout=None) -> torch.Tensor:
         """(B, T, D) frame states → (B, T, D)."""
-        return self.run_layers(x, pad_mask, generator)
+        return self.run_layers(x, pad_mask, generator, layout)

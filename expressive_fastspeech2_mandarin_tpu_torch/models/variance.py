@@ -57,10 +57,12 @@ class VariancePredictor(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, inert: bool,
                 dropout_rate: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                layout=None) -> torch.Tensor:
         """(B, T, D) → (B, T), zero at padding. ``inert`` zeroes the hidden
         rows at padding before the second conv; a ``generator`` (training)
-        applies dropout after each LayerNorm."""
+        applies dropout after each LayerNorm, over ``layout``'s rows of the
+        global batch when one is given."""
         cl = self.conv_layer
         c1, ln1 = cl["conv1d_1"].conv, cl["layer_norm_1"]
         c2, ln2 = cl["conv1d_2"].conv, cl["layer_norm_2"]
@@ -68,11 +70,11 @@ class VariancePredictor(nn.Module):
         h = layer_norm(F.relu(h), ln1.weight, ln1.bias)
         if inert:
             h = h.masked_fill(pad_mask[..., None], 0.0)
-        h = dropout(h, dropout_rate, generator)
+        h = dropout(h, dropout_rate, generator, layout)
         # The reference hard-codes padding=1 for the second conv.
         h = conv1d(h, c2.weight, c2.bias, padding=1)
         h = layer_norm(F.relu(h), ln2.weight, ln2.bias)
-        h = dropout(h, dropout_rate, generator)
+        h = dropout(h, dropout_rate, generator, layout)
         out = self.linear_layer(h)[..., 0]
         return out.masked_fill(pad_mask, 0.0)
 
@@ -123,18 +125,19 @@ class VarianceAdaptor(nn.Module):
                 p_targets: torch.Tensor | None = None,
                 e_targets: torch.Tensor | None = None,
                 d_targets: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, layout=None):
         """Returns (frames, p_pred, e_pred, log_d_pred, d_rounded, mel_lens,
         mel_mask). With ``d_targets`` the frames follow the targets and
         ``mel_mask`` is the caller's; a ``generator`` (training) turns on
-        the predictors' dropout."""
+        the predictors' dropout, under a data-parallel ``layout`` when one
+        is given."""
         inert = self.cfg.padding_inert
         rate = self.cfg.variance_predictor.dropout
         e_ctl = (p_control if self.cfg.replicate_energy_control_bug
                  else e_control)
 
         def predict(predictor, inp, mask):
-            return predictor(inp, mask, inert, rate, generator)
+            return predictor(inp, mask, inert, rate, generator, layout)
 
         log_d_pred = predict(self.duration_predictor, x, src_mask)
 

@@ -68,17 +68,32 @@ def batch_norm_inference(x: torch.Tensor, gamma: torch.Tensor,
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor, *,
-                     momentum: float = 0.1, eps: float = 1e-5
+                     momentum: float = 0.1, eps: float = 1e-5, layout=None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode BatchNorm over the channel (last) axis of (B, T, C):
     returns (out, new_running_mean, new_running_var), as torch's
     BatchNorm1d. Statistics are float32 over every B·T row, padded rows
     included; the biased variance normalizes, the unbiased one enters the
-    running average, and ``momentum`` weighs the new observation."""
+    running average, and ``momentum`` weighs the new observation. With a
+    data-parallel ``layout`` (``parallel.Layout``) the rows are the global
+    batch's: the mean, then the centred variance, each a sum taken over
+    the ranks through autograd (``layout.sum``), as the JAX package's
+    jitted step takes them over a sharded batch."""
     xf = x.float().reshape(-1, x.shape[-1])
-    mean = xf.mean(dim=0)
-    var = (xf - mean).square().mean(dim=0)
     n = xf.shape[0]
+    replicas = 1
+
+    def total(t: torch.Tensor) -> torch.Tensor:
+        t = t.sum(dim=0)
+        return t if layout is None else layout.sum(t)
+
+    if layout is not None:
+        # The sums over the world hold each of the global batch's rows
+        # once per model-parallel replica.
+        n *= layout.data_parallel
+        replicas = layout.model_parallel
+    mean = total(xf) / (n * replicas)
+    var = total((xf - mean).square()) / (n * replicas)
     unbiased = var * (n / max(n - 1, 1))
     out = (((x.float() - mean) * torch.rsqrt(var + eps)).to(x.dtype)
            * gamma + beta)

@@ -37,6 +37,15 @@ mel targets, most of a batch's bytes, are encoded on the host
 (``transfer_dtype``: int16 per-utterance affine quantization, bf16 or
 float32) and every array is copied host → device from pinned memory with
 ``non_blocking``.
+
+In an initialized process group (``parallel.initialize_distributed``) the
+run is data-parallel, as the JAX loop is over processes: ``batch_size`` is
+the global batch and each rank collates its row slice of the train and
+val batches; rank 0 restores the latest checkpoint and its state is
+broadcast at the start; the step takes the run's ``parallel.Layout``;
+the steps, ``evaluate`` and every checkpoint are collective; only rank 0
+logs, profiles and synthesizes samples, none of which holds a collective.
+Every rank prints its final step and parameter checksum.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch
 from ..config import MATMUL_PRECISIONS, Config
 from ..data import BucketedDataset, PreprocessedCorpus
 from ..device import resolve_device
+from ..parallel.mesh import Layout, make_layout
 from ..utils.logging import TrainLogger
 from ..utils.plotting import expand_by_duration, plot_mel, save_mel_plot
 from ..utils.wav import save_wav
@@ -139,14 +149,17 @@ def chunk_report(reports: list[LossReport], spc: int) -> LossReport:
 
 
 def evaluate(model, val_ds: BucketedDataset, cfg: Config,
-             device: torch.device) -> dict[str, float]:
+             device: torch.device,
+             layout: Layout | None = None) -> dict[str, float]:
     """Sample-weighted means of the teacher-forced losses over the whole
-    val set."""
+    val set; under a data-parallel ``layout`` a collective, every batch's
+    losses the global ones (``eval_step``), weighed alike on every
+    rank."""
     sums = np.zeros(len(_LOSS_KEYS))
     count = 0
     for batch in val_ds.epoch(0, shuffle=False):
         b = batch["speakers"].shape[0]
-        report = eval_step(model, stage_batch(batch, device), cfg)
+        report = eval_step(model, stage_batch(batch, device), cfg, layout)
         sums += np.array([float(x) for x in report]) * b
         count += b
     return dict(zip(_LOSS_KEYS, sums / max(count, 1)))
@@ -262,30 +275,42 @@ def train(cfg: Config, restore_step: int | None = None,
     on ``device``, the card unless the caller asks for the CPU."""
     device = resolve_device(device)
     tc = cfg.train
+    layout = make_layout(tc.mesh.model_parallel_size)
+    n_data = layout.data_parallel if layout else 1
+    if tc.optimizer.batch_size % n_data:
+        raise ValueError(
+            f"multi-host: global batch {tc.optimizer.batch_size} must "
+            f"divide evenly over the {n_data}-way data axis")
+    is_main = layout is None or layout.rank == 0
     corpus = PreprocessedCorpus(cfg.preprocess.path.preprocessed_path)
     ds_args = (tc.optimizer.batch_size, tc.buckets, cfg.model.max_seq_len)
+    ds_kwargs = dict(seed=tc.seed, symbol_table=cfg.preprocess.symbol_table,
+                     num_shards=n_data,
+                     shard_index=layout.data_index if layout else 0)
     train_ds = BucketedDataset(corpus, "train.txt", *ds_args, drop_last=True,
-                               seed=tc.seed,
-                               symbol_table=cfg.preprocess.symbol_table)
-    val_ds = BucketedDataset(corpus, "val.txt", *ds_args, seed=tc.seed,
-                             symbol_table=cfg.preprocess.symbol_table)
+                               **ds_kwargs)
+    val_ds = BucketedDataset(corpus, "val.txt", *ds_args, **ds_kwargs)
     if not len(train_ds) // tc.optimizer.batch_size:
         raise ValueError(f"train.txt holds fewer than one batch of "
                          f"{tc.optimizer.batch_size} usable utterances")
 
-    state = create_train_state(cfg, corpus.stats, device)
-    ckpt = CheckpointManager(tc.path.ckpt_path or "output/ckpt")
-    if restore_step is not None or ckpt.latest_step() is not None:
-        ckpt.restore(state, restore_step)
+    state = create_train_state(cfg, corpus.stats, device, layout)
+    ckpt = CheckpointManager(tc.path.ckpt_path or "output/ckpt",
+                             layout=layout)
+    if ckpt.resume(state, restore_step):
         print(f"restored checkpoint at step {state.step}")
 
     total = total_steps or tc.step.total_step
     s = tc.step
     n_params = sum(p.numel() for p in state.model.parameters())
+    where = (f"rank {layout.rank} of {layout.world_size}, data axis "
+             f"{n_data}" if layout else "one process")
     print(f"training: {n_params / 1e6:.1f}M params, {len(train_ds)} "
-          f"utterances, device {device}")
-    sampler = SampleVocoder(cfg, device)
-    print(f"sample vocoder: {sampler.kind}")
+          f"utterances, device {device}, {where}")
+    sampler = None
+    if is_main:
+        sampler = SampleVocoder(cfg, device)
+        print(f"sample vocoder: {sampler.kind}")
 
     def batches() -> Iterator[dict[str, np.ndarray]]:
         epoch = 0
@@ -305,14 +330,20 @@ def train(cfg: Config, restore_step: int | None = None,
             yield [stage_batch(b, device, tc.transfer_dtype) for b in group]
 
     log_dir = tc.path.log_path or "output/log"
-    logger = TrainLogger(os.path.join(log_dir, "train"))
-    val_logger = TrainLogger(os.path.join(log_dir, "val"))
-    profile = ProfileWindow(tc.profile_start_step, tc.profile_stop_step,
-                            os.path.join(log_dir, "profile"), device)
+    # Rank 0 alone logs and profiles (a window that never opens elsewhere).
+    logger = val_logger = None
+    if is_main:
+        logger = TrainLogger(os.path.join(log_dir, "train"))
+        val_logger = TrainLogger(os.path.join(log_dir, "val"))
+    window = ((tc.profile_start_step, tc.profile_stop_step) if is_main
+              else (-1, -1))
+    profile = ProfileWindow(*window, os.path.join(log_dir, "profile"),
+                            device)
     with contextlib.ExitStack() as stack:
         stack.enter_context(matmul_precision(tc.matmul_precision))
-        stack.callback(val_logger.close)
-        stack.callback(logger.close)
+        if is_main:
+            stack.callback(val_logger.close)
+            stack.callback(logger.close)
         stack.callback(lambda: profile.close(state.step))
         stream = staged_groups()
         staged: deque[list[Batch]] = deque()
@@ -328,8 +359,9 @@ def train(cfg: Config, restore_step: int | None = None,
             prev = state.step
             profile.before(prev, len(group))
             reports = [train_step(state, b, cfg) for b in group]
-            for _ in group:
-                logger.tick()
+            if is_main:
+                for _ in group:
+                    logger.tick()
             step = state.step
             profile.after(prev, step)
 
@@ -338,22 +370,31 @@ def train(cfg: Config, restore_step: int | None = None,
                 return step // every > prev // every
 
             if crossed(s.log_step):
+                # The losses are global: every rank sees a non-finite one.
                 losses = _report_dict(chunk_report(
                     reports, tc.steps_per_call))
-                losses["steps_per_sec"] = logger.steps_per_sec
-                logger.log_losses(step, losses)
+                if is_main:
+                    losses["steps_per_sec"] = logger.steps_per_sec
+                    logger.log_losses(step, losses)
                 if not math.isfinite(losses["total_loss"]):
                     ckpt.save(step, state)
                     raise FloatingPointError(
                         f"non-finite loss at step {step}: {losses} "
                         f"(emergency checkpoint saved)")
             if crossed(s.val_step):
-                val_logger.log_losses(
-                    step, evaluate(state.model, val_ds, cfg, device))
-            if crossed(s.synth_step):
+                val_losses = evaluate(state.model, val_ds, cfg, device,
+                                      layout)
+                if is_main:
+                    val_logger.log_losses(step, val_losses)
+            if crossed(s.synth_step) and is_main:
                 save_synth_sample(state.model, val_ds, cfg, device, step,
                                   sampler, corpus.stats, logger)
             if crossed(s.save_step):
                 ckpt.save(step, state)
         ckpt.save(state.step, state)
+    if layout is not None:
+        checksum = sum(p.double().abs().sum() for p in
+                       state.model.parameters()).item()
+        print(f"rank {layout.rank} of {layout.world_size}: step "
+              f"{state.step}, parameter sum {checksum!r}")
     return state

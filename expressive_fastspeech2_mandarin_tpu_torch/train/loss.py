@@ -4,6 +4,11 @@ L1 on the mel and the postnet mel, MSE on pitch, energy and log(d + 1);
 every term a mean over the valid (unmasked) elements, as the reference's
 ``masked_select`` followed by ``L1Loss``/``MSELoss``. Total = the
 unweighted sum.
+
+Under a data-parallel ``layout`` (``parallel.Layout``) each term is the
+rank's masked sum over the valid count summed over the ranks: the
+rank's share of the global mean, so that the ranks' terms, and their
+gradients, sum to the global batch's (``train.step`` sums both).
 """
 
 from __future__ import annotations
@@ -24,10 +29,6 @@ class LossReport(NamedTuple):
     duration: torch.Tensor
 
 
-def _masked_mean(err: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    return (err * valid).sum() / valid.sum().clamp(min=1.0)
-
-
 def fastspeech2_loss(
     out: FastSpeech2Output,
     mel_targets: torch.Tensor,       # (B, T, n_mels) float32
@@ -37,6 +38,7 @@ def fastspeech2_loss(
     *,
     pitch_feature_level: str = "phoneme_level",
     energy_feature_level: str = "phoneme_level",
+    layout=None,
 ) -> LossReport:
     src_valid = (~out.src_masks).float()
     mel_valid = (~out.mel_masks).float()
@@ -47,14 +49,18 @@ def fastspeech2_loss(
 
     mel_t = mel_targets[:, :out.mel.shape[1], :]
     mel_valid3 = mel_valid[..., None].expand(mel_t.shape)
-    mel_loss = _masked_mean((out.mel - mel_t).abs(), mel_valid3)
-    postnet_loss = _masked_mean((out.postnet_mel - mel_t).abs(), mel_valid3)
-    pitch_loss = _masked_mean((out.pitch_predictions - pitch_targets).square(),
-                              p_valid)
-    energy_loss = _masked_mean(
-        (out.energy_predictions - energy_targets).square(), e_valid)
-    duration_loss = _masked_mean(
-        (out.log_duration_predictions - log_d_targets).square(), src_valid)
+    terms = (((out.mel - mel_t).abs(), mel_valid3),
+             ((out.postnet_mel - mel_t).abs(), mel_valid3),
+             ((out.pitch_predictions - pitch_targets).square(), p_valid),
+             ((out.energy_predictions - energy_targets).square(), e_valid),
+             ((out.log_duration_predictions - log_d_targets).square(),
+              src_valid))
+    counts = torch.stack([valid.sum() for _, valid in terms])
+    if layout is not None:
+        counts = layout.sum(counts)
+    mel_loss, postnet_loss, pitch_loss, energy_loss, duration_loss = (
+        (err * valid).sum() / count.clamp(min=1.0)
+        for (err, valid), count in zip(terms, counts))
     total = mel_loss + postnet_loss + duration_loss + pitch_loss + energy_loss
     return LossReport(total, mel_loss, postnet_loss, pitch_loss, energy_loss,
                       duration_loss)

@@ -17,6 +17,13 @@ arousals, valences (B,), texts (B, S), src_lens (B,), mels (B, T, 80) —
 float32, bfloat16, or int16 with per-utterance ``mel_scale`` and
 ``mel_offset`` (B,) — mel_lens (B,), pitches, energies and durations
 (B, S).
+
+Under a data-parallel ``layout`` (``parallel.Layout``) a batch holds the
+rank's rows of the global batch; ``loss_and_grads`` sums the ranks'
+gradients (one flat, bucketed float32 all-reduce) and their loss terms, so
+that every rank holds the global batch's loss and gradient, as the JAX
+package's step on a sharded batch returns them; ``eval_step``'s losses are
+the global ones too.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from torch.func import functional_call
 
 from ..config import Config
 from ..models import FastSpeech2
+from ..parallel.mesh import Layout, all_reduce_
 from .loss import LossReport, fastspeech2_loss
 from .state import TrainState
 
@@ -46,7 +54,8 @@ def _mel_targets(batch: Batch) -> torch.Tensor:
 
 def _loss(model: FastSpeech2, batch: Batch, cfg: Config, *,
           training: bool, generator: torch.Generator | None = None,
-          params: dict[str, torch.Tensor] | None = None) -> LossReport:
+          params: dict[str, torch.Tensor] | None = None,
+          layout: Layout | None = None) -> LossReport:
     """Teacher-forced forward and loss; ``params`` replaces the model's
     parameters (the bf16 copy)."""
     mels = _mel_targets(batch)
@@ -55,21 +64,28 @@ def _loss(model: FastSpeech2, batch: Batch, cfg: Config, *,
     kwargs = dict(max_mel_len=mels.shape[1], mel_lens=batch["mel_lens"],
                   p_targets=batch["pitches"], e_targets=batch["energies"],
                   d_targets=batch["durations"], training=training,
-                  generator=generator)
+                  generator=generator, layout=layout)
     out = (model(*args, **kwargs) if params is None
            else functional_call(model, params, args, kwargs))
     return fastspeech2_loss(
         out, mels, batch["pitches"], batch["energies"], batch["durations"],
         pitch_feature_level=cfg.preprocess.pitch.feature,
-        energy_feature_level=cfg.preprocess.energy.feature)
+        energy_feature_level=cfg.preprocess.energy.feature, layout=layout)
+
+
+def _global(report: LossReport, layout: Layout | None) -> LossReport:
+    """The terms summed over the ranks (as they are without a layout)."""
+    if layout is None:
+        return report
+    return LossReport(*layout.sum(torch.stack(report)).unbind())
 
 
 def loss_and_grads(model: FastSpeech2, batch: Batch, cfg: Config,
-                   generator: torch.Generator
+                   generator: torch.Generator, layout: Layout | None = None
                    ) -> tuple[LossReport, list[torch.Tensor]]:
     """The training-mode loss and the float32 gradient of every parameter,
-    in ``model.named_parameters()`` order. BatchNorm's running statistics
-    are updated in place."""
+    in ``model.named_parameters()`` order, the global batch's under
+    ``layout``. BatchNorm's running statistics are updated in place."""
     amp = getattr(torch, cfg.train.amp_dtype)
     named = dict(model.named_parameters())
     params = None
@@ -77,28 +93,34 @@ def loss_and_grads(model: FastSpeech2, batch: Batch, cfg: Config,
         params = {n: p.to(amp) if p.is_floating_point() else p
                   for n, p in named.items()}
     report = _loss(model, batch, cfg, training=True, generator=generator,
-                   params=params)
+                   params=params, layout=layout)
     grads = torch.autograd.grad(report.total, list(named.values()),
                                 allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, named.values())]
-    return LossReport(*(x.detach() for x in report)), grads
+    if layout is not None:
+        all_reduce_(grads)
+    return _global(LossReport(*(x.detach() for x in report)), layout), grads
 
 
 def train_step(state: TrainState, batch: Batch, cfg: Config) -> LossReport:
     """One call = one micro-step: gradients, then the optimizer (which
     updates on every ``grad_acc_step``-th call); ``state.step`` counts
-    calls, as the JAX package's ``TrainState.step``."""
-    report, grads = loss_and_grads(state.model, batch, cfg, state.generator)
+    calls, as the JAX package's ``TrainState.step``; data-parallel under
+    ``state.layout``."""
+    report, grads = loss_and_grads(state.model, batch, cfg, state.generator,
+                                   state.layout)
     state.optimizer.step(grads)
     state.step += 1
     return report
 
 
 @torch.no_grad()
-def eval_step(model: FastSpeech2, batch: Batch, cfg: Config) -> LossReport:
+def eval_step(model: FastSpeech2, batch: Batch, cfg: Config,
+              layout: Layout | None = None) -> LossReport:
     """Teacher-forced deterministic forward and loss."""
-    return _loss(model, batch, cfg, training=False)
+    return _global(_loss(model, batch, cfg, training=False, layout=layout),
+                   layout)
 
 
 @torch.no_grad()

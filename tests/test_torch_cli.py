@@ -43,10 +43,13 @@ from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import (
     save_wav,
 )
 
+from .corpus_util import make_synthetic_corpus
 from .test_aligner import _render
+from .torch_parallel_worker import free_port, launch
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
+PORT = "expressive_fastspeech2_mandarin_tpu_torch"
 CONFIGS = ROOT / "configs" / "ESD-Chinese-Singing-MFA"
 EMOTIONS = ("Angry", "Happy", "Neutral", "Sad", "Surprise")
 ESD_SR = 16000
@@ -304,10 +307,25 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(
 
 
 def test_train_refuses_multi_process_flags(tmp_path):
-    p, m, t = write_configs(tmp_path, tmp_path / "esd")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        cli_train.main(["-p", p, "-m", m, "-t", t, "--num-processes", "2",
-                        "--device", "cpu"])
+    """``efs2-torch-train --coordinator … --num-processes 2 --process-id i
+    --device cpu`` trains on two processes over gloo (the test's name is
+    the one it had when the port refused the flags): one checkpoint
+    directory, written by rank 0, and both ranks at the last step with
+    the same parameters."""
+    p, m, t = write_configs(tmp_path, tmp_path / "esd", batch_size=4)
+    make_synthetic_corpus(str(tmp_path / "pre"), n_utts=24, seed=1)
+    coord = f"127.0.0.1:{free_port()}"
+    outs = launch([[sys.executable, "-m", f"{PORT}.cli.train", "-p", p,
+                    "-m", m, "-t", t, "--coordinator", coord,
+                    "--num-processes", "2", "--process-id", str(i),
+                    "--device", "cpu"] for i in range(2)])
+    finals = [re.search(r"rank (\d) of 2: step (\d+), parameter sum (\S+)",
+                        out).groups() for out in outs]
+    assert [f[:2] for f in finals] == [("0", "4"), ("1", "4")]
+    assert finals[0][2] == finals[1][2]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["2.pt", "4.pt"]
+    with open(tmp_path / "log" / "train" / "metrics.jsonl") as f:
+        assert [json.loads(line)["step"] for line in f] == [2, 4]
 
 
 def _stage1_call(tmp_path, monkeypatch, dataset: str, prep: str) -> tuple:

@@ -16,6 +16,7 @@ import yaml
 
 from expressive_fastspeech2_mandarin_tpu import config as jcfg
 from expressive_fastspeech2_mandarin_tpu_torch import config as tcfg
+from expressive_fastspeech2_mandarin_tpu_torch.parallel import make_layout
 from expressive_fastspeech2_mandarin_tpu_torch.utils import yaml_reader
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -159,11 +160,16 @@ def test_tpu_only_values_in_yaml_raise_naming_the_key(extra, key, tmp_path):
     (dict(profile_start_step=5), "profile_start_step"),
 ])
 def test_tpu_only_train_fields_raise_naming_the_key(kwargs, key):
-    """A model-parallel mesh still raises, naming its key; the profiler
-    window is taken (``train.loop.ProfileWindow``)."""
+    """Both are taken (the test's name is the one it had when the port
+    refused them): the profiler window (``train.loop.ProfileWindow``), and
+    the model-parallel mesh, which lays out the training processes; a
+    size that does not divide the world (here one process) raises, naming
+    the key."""
     if key == "mesh.model_parallel_size":
-        with pytest.raises(ValueError, match=f"{key}=.*TPU setting"):
-            tcfg.TrainConfig(**kwargs)
+        cfg = tcfg.TrainConfig(**kwargs)
+        assert cfg.mesh.model_parallel_size == 2
+        with pytest.raises(ValueError, match=f"{key}=2 does not divide"):
+            make_layout(cfg.mesh.model_parallel_size)
     else:
         assert tcfg.TrainConfig(**kwargs).profile_start_step == 5
 

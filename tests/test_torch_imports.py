@@ -148,16 +148,18 @@ def test_walk_covers_every_slice_module():
                 "cli.train_vocoder", "cli.validate", "text.cleaners",
                 "text.numbers_en", "text.english", "text.korean",
                 "text.normalizer_zh", "text.lexicon", "preprocess.iemocap",
-                "preprocess.aihub_mmv", "utils.plotting"):
+                "preprocess.aihub_mmv", "utils.plotting", "parallel",
+                "parallel.mesh"):
         assert f"{port.__name__}.{mod}" in names, mod
 
 
 # The JAX package's modules without a module of the same path in the
-# port: the multi-process mesh (ROADMAP queue 1), JAX parameter init (the
-# port's nn.Modules and interop.from_jax stand in for it) and the Pallas
-# kernels (ported as csrc/*.cu behind ops.mrf_resblock and ops.flash_mha).
-NOT_PORTED = {"parallel", "parallel.mesh", "models.init",
-              "ops.pallas.flash_mha", "ops.pallas.mrf_resblock"}
+# port: JAX parameter init (the port's nn.Modules and interop.from_jax
+# stand in for it) and the Pallas kernels (ported as csrc/*.cu behind
+# ops.mrf_resblock and ops.flash_mha). The multi-process mesh is ported
+# (parallel.mesh), so the test's name is historical.
+NOT_PORTED = {"models.init", "ops.pallas.flash_mha",
+              "ops.pallas.mrf_resblock"}
 
 
 def test_port_has_every_jax_module_but_parallel():

@@ -122,15 +122,19 @@ def test_nan_loss_writes_emergency_checkpoint_and_raises(tmp_path):
     ("matmul_precision", "highest"),
     ("profile_start_step", 10),
     ("mesh", tcfg.MeshConfig(model_parallel_size=2))])
-def test_tpu_only_train_settings_raise(field, value):
-    """Of the settings once refused as TPU-only (hence the name), only the
-    model-parallel mesh still raises; matmul precision and the profiler
-    window are taken (run by the tests below)."""
+def test_tpu_only_train_settings_raise(field, value, tmp_path):
+    """The settings once refused as TPU-only (hence the name) are taken:
+    matmul precision and the profiler window (run by the tests below), and
+    the model-parallel mesh, whose size must divide the world size, so
+    that a one-process ``train()`` raises, naming the key
+    (tests/test_torch_parallel.py runs it on two processes)."""
+    cfg = tcfg.TrainConfig(**{field: value})
+    assert getattr(cfg, field) == value
     if field == "mesh":
-        with pytest.raises(ValueError, match="TPU setting"):
-            tcfg.TrainConfig(**{field: value})
-    else:
-        assert getattr(tcfg.TrainConfig(**{field: value}), field) == value
+        corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=12)
+        run = _cfg(corpus, str(tmp_path / "out"), mesh=value)
+        with pytest.raises(ValueError, match="mesh.model_parallel_size=2"):
+            train(run, device="cpu")
 
 
 def test_train_entry_point_needs_the_card_unless_asked_for_cpu(tmp_path):
