@@ -155,10 +155,11 @@ Phases:
      amp, steps_per_call 10) with the ESD preprocess.yaml and model.yaml,
      ``attention_impl: "flash"``, phase 5's corpus, its paths and
      cadences moved inside the run: 20 steps in two chunks of 10, each
-     train step 10 launches of each bf16 kernel and none of the float32
-     kernels, the val and synth steps (float32, as the JAX package's) 10
-     float32 forward launches each and nothing else; the chunk-mean loss
-     falls;
+     chunk one replay of the compiled multi step (a shorter group the
+     compiled single step), each train step 10 launches of each bf16
+     kernel and none of the float32 kernels, the val and synth steps
+     (float32, as the JAX package's) 10 float32 forward launches each and
+     nothing else; the chunk-mean loss falls;
   11b. times: the bf16 kernels against their bounds (bf16 rate), plain
      versions and SDPA in bf16 with the bool mask, its backend named
      (forward at B = 4, T = 2300 and 4096, and where the tuned recipe
@@ -209,6 +210,26 @@ Phases:
      ranks at the last step with the same parameter sum); ``train()`` in
      a world of one over NCCL (3 steps, its checkpoint, its flash
      launches). The ranks' flash launches join the ``kernels`` line's.
+     The 1-rank configuration again, and at B = 4 with grad_acc_step 2
+     over the 2-rank run's row halves: their parameters' change against
+     the first 1-rank run's, read and printed;
+  14. the compiled steps, CUDA graphs against the eager bodies from the
+     same weights and state, at ``Config()`` width: ``synthesize`` short
+     (4 utterances, mel bucket 250) and long-form (``max_mel_len=4096``)
+     with the bf16 and the float32 vocoder (durations equal, mel and wav
+     within GRAPH_MEL_REL and GRAPH_WAV_*, the flash and MRF launches of a
+     call those of an eager call whether it captured or replayed), the
+     median of 5 calls after 2 eager and graphed, text -> mel alone, the
+     first graphed call, the device busy share over 5 calls of each from
+     torch.profiler; ``synthesize_streaming`` with its full windows from
+     one graph against eager; the float32 "flash" train step at B = 4,
+     bucket (128, 1000): 20 steps graphed one a replay and ten a replay
+     against 20 eager steps from one state (each loss within
+     GRAPH_LOSS_RTOL, the parameters' change within GRAPH_DELTA_RTOL, 10
+     launches of each flash kernel a step), the eager run's step-10
+     checkpoint loaded into the graphed state and 10 more graphed steps
+     against the eager run's, step ms, busy share and peak memory; the
+     amp bf16 recipe's step at B = 32, eager and graphed in turns.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -220,6 +241,8 @@ names the shape its times were taken at (``shape``), and the result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
@@ -405,6 +428,10 @@ def phase_environment(smoke: Smoke):
     print(f"  nvidia-smi: {nvidia_smi_line()}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
+    smoke.check(hasattr(torch.cuda.CUDAGraph, "register_generator_state"),
+                "torch.cuda.CUDAGraph.register_generator_state exists (the "
+                "graphed train step draws its dropout from the state's "
+                "generator)")
     t0 = time.time()
     libs = build.build_all()
     print(f"  built {sorted(libs)} in {time.time() - t0:.1f} s")
@@ -1559,12 +1586,13 @@ def phase_training(smoke: Smoke, device):
                     f"checkpoints at steps {ckpt.steps()}; sample files "
                     f"{sorted(samples)}")
         resumed = train(cfg, total_steps=TRAIN_STEPS + 2, device=device)
-        lr = resumed.optimizer.schedule(TRAIN_STEPS + 2)
+        lr = float(resumed.optimizer.schedule(
+            torch.tensor(TRAIN_STEPS + 2, device=device)))
         smoke.check(resumed.step == TRAIN_STEPS + 2
-                    and resumed.optimizer.count == TRAIN_STEPS + 2
+                    and int(resumed.optimizer.count) == TRAIN_STEPS + 2
                     and resumed.optimizer.lr == lr,
                     f"resumed from step {TRAIN_STEPS}: step {resumed.step}, "
-                    f"updates {resumed.optimizer.count}, next lr "
+                    f"updates {int(resumed.optimizer.count)}, next lr "
                     f"{resumed.optimizer.lr:.6e}")
         del state, resumed
 
@@ -3195,6 +3223,23 @@ def shown_rows(rows) -> str:
     return f"key lengths {len(rows)} seeded in [{min(lens)}, {max(lens)}]"
 
 
+@contextlib.contextmanager
+def collector_off():
+    """Python's cyclic garbage collector off, around a capture: a
+    collection may free a dead Synthesizer's or train state's CUDA graph,
+    which invalidates a capture under way (``graphs.capturing``; this
+    script keeps its own, for a ``--root`` package without it)."""
+    import gc
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def graph_time_ms(fn, iters: int = GRAPH_LAUNCHES) -> tuple[float, str]:
     """Device time of one call of ``fn``, without the host's launch time:
     ``iters`` calls captured in one CUDA graph, replayed between CUDA
@@ -3206,7 +3251,7 @@ def graph_time_ms(fn, iters: int = GRAPH_LAUNCHES) -> tuple[float, str]:
     torch.cuda.synchronize()
     try:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with collector_off(), torch.cuda.graph(graph):
             for _ in range(iters):
                 fn()
         graph.replay()
@@ -3433,36 +3478,62 @@ def tuned_configs(root: Path, corpus: str) -> dict[str, str]:
     return out
 
 
+@contextlib.contextmanager
+def compiled_step_calls(on_call):
+    """``train.loop``'s compiled-step makers patched so that every call of
+    a step they make (the single step, or the multi step's chunk) goes
+    through ``on_call(n_steps, step, batch)``, which returns the report:
+    on the card ``train()`` takes its steps from them."""
+    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
+
+    originals = {name: getattr(loop, name)
+                 for name in ("make_train_step", "make_train_multi_step")}
+
+    def patched(name):
+        def make(state, cfg, *n_steps):
+            step = originals[name](state, cfg, *n_steps)
+            steps = n_steps[0] if n_steps else 1
+            return lambda batch: on_call(steps, step, batch)
+
+        return make
+
+    for name in originals:
+        setattr(loop, name, patched(name))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(loop, name, fn)
+
+
 def phase_tuned_training(smoke: Smoke, device):
     """Phase 11: efs2-torch-train on train_tuned.yaml under "flash", 20
-    steps in two chunks of 10 on phase 5's corpus. Every train step must
-    launch each bf16 kernel once per FFT block (10) and no float32 kernel;
-    the val and synth steps run the float32 model, so the float32 forward
-    only (10 a forward) and no bf16 kernel. Returns the launches over the
-    run."""
+    steps on phase 5's corpus, replayed from CUDA graphs: a full chunk of
+    10 same-bucket steps one replay of the multi step, a shorter group the
+    single step. Every train step must launch each bf16 kernel once per
+    FFT block (10) and no float32 kernel; the val and synth steps run the
+    float32 model, so the float32 forward only (10 a forward) and no bf16
+    kernel. Returns the launches over the run."""
     from expressive_fastspeech2_mandarin_tpu_torch import config as C
     from expressive_fastspeech2_mandarin_tpu_torch.train import loop
 
     card = nvidia_smi_line()
+    # Per call of each compiled step or inference step: (steps, launches);
+    # each compiled call's report (a chunk's mean for the multi step).
     calls: dict[str, list] = {"train_step": [], "eval_step": [],
                               "synth_step": []}
-    losses: list[float] = []  # each train step's total loss
-    originals = {name: getattr(loop, name) for name in calls}
+    losses: list[float] = []
+    originals = {name: getattr(loop, name)
+                 for name in ("eval_step", "synth_step")}
 
-    def counted(name):
-        fn = originals[name]
-
-        def wrapper(*args, **kwargs):
-            before = bf16_counts() + flash_counts()
-            out = fn(*args, **kwargs)
-            calls[name].append(tuple(
-                a - b for a, b in zip(bf16_counts() + flash_counts(),
-                                      before)))
-            if name == "train_step":
-                losses.append(float(out.total))
-            return out
-
-        return wrapper
+    def counting(key, steps, fn, *args, **kwargs):
+        before = bf16_counts() + flash_counts()
+        out = fn(*args, **kwargs)
+        calls[key].append((steps, tuple(
+            a - b for a, b in zip(bf16_counts() + flash_counts(), before))))
+        if key == "train_step":
+            losses.append(float(out.total))
+        return out
 
     with tempfile.TemporaryDirectory() as tmp_dir:
         tmp = Path(tmp_dir)
@@ -3473,47 +3544,61 @@ def phase_tuned_training(smoke: Smoke, device):
         n_blocks = t.encoder_layer + t.decoder_layer
         reset_flash_counts()
         reset_bf16_counts()
-        for name in calls:
-            setattr(loop, name, counted(name))
+        for name, fn in originals.items():
+            setattr(loop, name, functools.partial(counting, name, 1, fn))
         try:
-            _, seconds = run_cli("train", [
-                "-p", y["preprocess"], "-m", y["model"], "-t", y["train"],
-                "--total_steps", TUNED_STEPS, "--device", str(device)])
+            with compiled_step_calls(functools.partial(counting,
+                                                       "train_step")):
+                _, seconds = run_cli("train", [
+                    "-p", y["preprocess"], "-m", y["model"], "-t",
+                    y["train"], "--total_steps", TUNED_STEPS, "--device",
+                    str(device)])
         finally:
             for name, fn in originals.items():
                 setattr(loop, name, fn)
         launches = bf16_counts() + flash_counts()
         log = _metrics(tmp / "log" / "train" / "metrics.jsonl")
         means = [r["total_loss"] for r in log]
-        first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
-        inference = calls["eval_step"] + calls["synth_step"]
-        train_ok = all(c == (n_blocks,) * 3 + (0, 0, 0)
-                       for c in calls["train_step"])
+        per_step = (n_blocks,) * 3 + (0, 0, 0)
+        train_calls = calls["train_step"]
+        n_steps = sum(n for n, _ in train_calls)
+        chunked = sum(1 for n, _ in train_calls if n > 1)
+        inference = [c for _, c in calls["eval_step"] + calls["synth_step"]]
+        train_ok = all(c == tuple(n * x for x in per_step)
+                       for n, c in train_calls)
         eval_ok = all(c == (0, 0, 0, n_blocks, 0, 0) for c in inference)
         smoke.check(
             cfg.train.amp_dtype == "bfloat16" and t.attention_impl == "flash"
             and cfg.train.steps_per_call == 10
             and cfg.train.optimizer.batch_size == 32
-            and len(calls["train_step"]) == TUNED_STEPS and train_ok
+            and n_steps == TUNED_STEPS and train_ok
             and calls["eval_step"] and calls["synth_step"] and eval_ok,
             f"efs2-torch-train, train_tuned.yaml (batch "
             f"{cfg.train.optimizer.batch_size}, amp {cfg.train.amp_dtype}, "
             f"steps_per_call {cfg.train.steps_per_call}) under "
-            f"{t.attention_impl!r}: {len(calls['train_step'])} train steps "
-            f"in {seconds:.2f} s, each launching (bf16 forward, dQ, dK/dV; "
-            f"float32 forward, dQ, dK/dV) {sorted(set(calls['train_step']))}"
-            f" (expected {(n_blocks,) * 3 + (0, 0, 0)}); "
+            f"{t.attention_impl!r}: {n_steps} train steps in "
+            f"{len(train_calls)} compiled calls ({chunked} of the multi "
+            f"step) in {seconds:.2f} s, each step launching (bf16 forward,"
+            f" dQ, dK/dV; float32 forward, dQ, dK/dV) "
+            f"{sorted({tuple(x // n for x in c) for n, c in train_calls})}"
+            f" (expected {per_step}; calls {train_calls}); "
             f"{len(calls['eval_step'])} val and {len(calls['synth_step'])} "
             f"synth steps, each {sorted(set(inference))}"
             f" (expected {(0, 0, 0, n_blocks, 0, 0)}); over the run "
             f"{launches} [{card}]")
+        # Each step's loss, a chunk's steps its mean.
+        series = [x for (n, _), x in zip(train_calls, losses)
+                  for _ in range(n)]
+        first, last = sum(series[:5]) / 5, sum(series[-5:]) / 5
         smoke.check([r["step"] for r in log] == [10, 20]
                     and all(math.isfinite(x) for x in losses + means)
                     and last < first
                     and sorted(os.listdir(tmp / "ckpt")) == ["20.pt"],
-                    f"total loss, mean of the first and the last 5 steps: "
-                    f"{first:.4f} -> {last:.4f} (falling); logged chunk "
-                    f"means at steps {[r['step'] for r in log]}: {means}; "
+                    f"total loss, mean of the first and the last 5 steps "
+                    f"(a chunk's steps at its mean): {first:.4f} -> "
+                    f"{last:.4f} (falling); each compiled call's "
+                    f"{[round(x, 4) for x in losses]}; logged chunk means "
+                    f"at steps {[r['step'] for r in log]}: {means}; "
                     f"checkpoints {sorted(os.listdir(tmp / 'ckpt'))}")
     return {"bf16": launches[:3], "float32": launches[3:],
             "seconds": seconds}
@@ -3998,32 +4083,30 @@ def phase12_iemocap(smoke: Smoke, device, tmp: Path) -> dict:
 
     calls: dict[str, list] = {"train_step": [], "eval_step": [],
                               "synth_step": []}
-    originals = {name: getattr(loop, name) for name in calls}
+    originals = {name: getattr(loop, name)
+                 for name in ("eval_step", "synth_step")}
 
-    def counted(name):
-        fn = originals[name]
-
-        def wrapper(*args, **kwargs):
-            before = bf16_counts() + flash_counts()
-            out = fn(*args, **kwargs)
-            calls[name].append(tuple(
-                a - b for a, b in zip(bf16_counts() + flash_counts(),
-                                      before)))
-            return out
-
-        return wrapper
+    def counting(name, steps, fn, *args, **kwargs):
+        before = bf16_counts() + flash_counts()
+        out = fn(*args, **kwargs)
+        calls[name].append(tuple(
+            (a - b) // steps for a, b in zip(bf16_counts() + flash_counts(),
+                                             before)))
+        calls[name].extend(calls[name][-1:] * (steps - 1))
+        return out
 
     skips: list[str] = []
     handler = logging.Handler()
     handler.emit = lambda record: skips.append(record.getMessage())
     logging.getLogger(plotting.__name__).addHandler(handler)
     flash0, mrf0 = flash_counts(), mrf_counts()
-    for name in calls:
-        setattr(loop, name, counted(name))
+    for name, fn in originals.items():
+        setattr(loop, name, functools.partial(counting, name, 1, fn))
     try:
-        text, seconds = run_cli("pipeline", [
-            *argv, "--total_steps", IEMOCAP_TRAIN_STEPS, "--device",
-            str(device)])
+        with compiled_step_calls(functools.partial(counting, "train_step")):
+            text, seconds = run_cli("pipeline", [
+                *argv, "--total_steps", IEMOCAP_TRAIN_STEPS, "--device",
+                str(device)])
     finally:
         for name, fn in originals.items():
             setattr(loop, name, fn)
@@ -4233,6 +4316,7 @@ def phase12_tf32(smoke: Smoke, device, tmp: Path) -> None:
     from expressive_fastspeech2_mandarin_tpu_torch.train import (
         create_train_state,
         loop,
+        train_step,
     )
     from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
         matmul_precision,
@@ -4244,25 +4328,21 @@ def phase12_tf32(smoke: Smoke, device, tmp: Path) -> None:
     before = (torch.backends.cuda.matmul.allow_tf32,
               torch.backends.cudnn.allow_tf32)
     seen: dict[str, list] = {}
-    real = loop.train_step
     for name in ("high", "highest"):
         base = training_config(corpus, str(tmp / name), "auto")
         cfg = dataclasses.replace(base, train=dataclasses.replace(
             base.train, matmul_precision=name))
         seen[name] = []
 
-        def step(state, batch, cfg, rows=seen[name]):
-            rows.append((torch.backends.cuda.matmul.allow_tf32,
-                         torch.backends.cudnn.allow_tf32))
-            report = real(state, batch, cfg)
-            rows[-1] += (float(report.total),)
+        def call(n_steps, step, batch, rows=seen[name]):
+            flags = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+            report = step(batch)
+            rows.extend([(*flags, float(report.total))] * n_steps)
             return report
 
-        loop.train_step = step
-        try:
+        with compiled_step_calls(call):
             loop.train(cfg, total_steps=TF32_STEPS, device=device)
-        finally:
-            loop.train_step = real
     after = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     high, highest = seen["high"][0][2], seen["highest"][0][2]
@@ -4290,7 +4370,7 @@ def phase12_tf32(smoke: Smoke, device, tmp: Path) -> None:
             with matmul_precision(name):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                loop.train_step(state, batch, cfg)
+                train_step(state, batch, cfg)
                 torch.cuda.synchronize()
             if i >= 3:
                 ms[name].append(1e3 * (time.perf_counter() - t0))
@@ -4357,17 +4437,18 @@ DP_LOSS_RTOL_EARLY, DP_LOSS_RTOL = 2e-4, 5e-2
 DP_PARAM_RTOL, DP_EVAL_RTOL = 5e-3, 2e-4
 # The parameters' change over the 6 steps on 2 ranks against 1 rank,
 # ||d2 - d1|| / ||d1||, and the least change a run must make, ||d1|| /
-# ||p0||, set from the H100's readings (PERF.md section 6): 2.9e-3 to
-# 5.4e-3 over four runs, 0.34 with BatchNorm's moments taken per rank and
-# 0.75 with dropout masks drawn per rank (which the bounds above let
-# through); the weights move by 0.25.
-DP_DELTA_RTOL, DP_MIN_MOVE = 5e-2, 1e-3
+# ||p0||, set from the H100's readings (PERF.md section 6): 2.7e-3 to
+# 5.4e-3 over five runs, and 4.6e-3 for 1 rank against itself (the noise:
+# the length regulator's gather backward sums with atomics); 0.34 with
+# BatchNorm's moments taken per rank and 0.75 with dropout masks drawn per
+# rank (which the bounds above let through); the weights move by 0.25.
+DP_DELTA_RTOL, DP_MIN_MOVE = 2e-2, 1e-3
 
 
-def dp_config(corpus: str, out: str, total: int):
+def dp_config(corpus: str, out: str, total: int, grad_acc_step: int = 1):
     """Config() width under "flash", float32, a global batch of DP_BATCH
     at the single bucket DP_BUCKET, a warm-up of DP_WARM_UP steps, losses
-    logged every step."""
+    logged every step; ``grad_acc_step`` micro-steps an update."""
     from expressive_fastspeech2_mandarin_tpu_torch import config as C
 
     return C.Config(
@@ -4380,7 +4461,8 @@ def dp_config(corpus: str, out: str, total: int):
                               log_path=os.path.join(out, "log"),
                               result_path=os.path.join(out, "result")),
             optimizer=C.OptimizerConfig(batch_size=DP_BATCH,
-                                        warm_up_step=DP_WARM_UP),
+                                        warm_up_step=DP_WARM_UP,
+                                        grad_acc_step=grad_acc_step),
             buckets=C.BucketConfig(src_buckets=DP_BUCKET[:1],
                                    mel_buckets=DP_BUCKET[1:]),
             step=C.StepConfig(total_step=total, log_step=1, val_step=1000,
@@ -4390,7 +4472,10 @@ def dp_config(corpus: str, out: str, total: int):
 def dp_worker(spec_path: str) -> int:
     """One rank of phase 13, in its own process on cuda:0: ``steps`` runs
     DP_STEPS train steps by hand over the row-sharded batches (evaluation
-    before and after, each step timed), then, on more than one rank, times
+    before and after, each step timed; with ``grad_acc_step`` k in the
+    spec, one process takes each batch as k micro-steps over its row
+    slices, the slices the ranks of a k-rank run take), then, on more than
+    one rank, times
     the gradients' all-reduce alone on tensors of their sizes; ``nccl``
     runs ``train()`` in a world of one over NCCL. Writes its result as
     JSON, and the flat parameters before and after the steps
@@ -4443,7 +4528,8 @@ def dp_worker(spec_path: str) -> int:
                       checkpoints=sorted(os.listdir(
                           os.path.join(spec["out"], "ckpt"))))
     else:
-        cfg = dp_config(spec["corpus"], spec["out"], DP_STEPS)
+        acc = spec.get("grad_acc_step", 1)
+        cfg = dp_config(spec["corpus"], spec["out"], DP_STEPS, acc)
         tc = cfg.train
         layout = parallel.make_layout()
         corpus = PreprocessedCorpus(spec["corpus"])
@@ -4462,15 +4548,18 @@ def dp_worker(spec_path: str) -> int:
         epoch = 0
         while len(losses) < DP_STEPS:
             for raw in train_ds.epoch(epoch):
+                rows = len(raw["mels"]) // acc
+                parts = [loop.stage_batch(
+                    {k: v[i * rows:(i + 1) * rows] for k, v in raw.items()},
+                    device, tc.transfer_dtype) for i in range(acc)]
                 shapes.add((raw["texts"].shape[1],
-                            raw["mels"].shape[1], len(raw["mels"])))
-                batch = loop.stage_batch(raw, device, tc.transfer_dtype)
+                            raw["mels"].shape[1], rows))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                report = train_step(state, batch, cfg)
+                totals = [train_step(state, b, cfg).total for b in parts]
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(report.total))
+                losses.append(sum(float(x) for x in totals) / acc)
                 if len(losses) == DP_STEPS:
                     break
             epoch += 1
@@ -4534,28 +4623,43 @@ def run_ranks(commands: list[list[str]], logs: list[Path],
     return codes
 
 
+def dp_runs(tmp: Path, mode: str, groups: dict[str, tuple[int, dict]],
+            corpus: str, root: Path) -> dict[str, list[dict] | None]:
+    """Groups of ranks of ``dp_worker`` (``python3 chip_smoke.py
+    --dp-worker``), started together: per group name its number of ranks
+    and what to add to their specs. Each group's results, or None (the
+    logs' tails printed) when one of its ranks failed."""
+    commands, logs, results = [], [], {}
+    for name, (n, extra) in groups.items():
+        coord = f"127.0.0.1:{free_port()}"
+        results[name] = []
+        for rank in range(n):
+            spec = tmp / f"{name}_{rank}.json"
+            results[name].append(tmp / f"{name}_{rank}.result.json")
+            spec.write_text(json.dumps({
+                "root": str(root), "mode": mode, "num_processes": n,
+                "rank": rank, "coord": coord, "corpus": corpus,
+                "out": str(tmp / name), "result": str(results[name][-1]),
+                **extra}))
+            commands.append([sys.executable, str(Path(__file__).resolve()),
+                             "--dp-worker", str(spec)])
+            logs.append((name, tmp / f"{name}_{rank}.log"))
+    codes = run_ranks(commands, [log for _, log in logs], root)
+    out = {}
+    for name, paths in results.items():
+        failed = [log for (group, log), code in zip(logs, codes)
+                  if group == name and code]
+        for log in failed:
+            print(f"  {log.name}:\n" + log.read_text()[-3000:])
+        out[name] = (None if failed
+                     else [json.loads(r.read_text()) for r in paths])
+    return out
+
+
 def dp_run(tmp: Path, name: str, mode: str, n: int, corpus: str,
            root: Path) -> list[dict] | None:
-    """``n`` ranks of ``dp_worker`` (``python3 chip_smoke.py --dp-worker``);
-    their results, or None (the logs' tails printed) when one failed."""
-    coord = f"127.0.0.1:{free_port()}"
-    commands, logs, results = [], [], []
-    for rank in range(n):
-        spec = tmp / f"{name}_{rank}.json"
-        results.append(tmp / f"{name}_{rank}.result.json")
-        spec.write_text(json.dumps({
-            "root": str(root), "mode": mode, "num_processes": n,
-            "rank": rank, "coord": coord, "corpus": corpus,
-            "out": str(tmp / name), "result": str(results[-1])}))
-        commands.append([sys.executable, str(Path(__file__).resolve()),
-                         "--dp-worker", str(spec)])
-        logs.append(tmp / f"{name}_{rank}.log")
-    codes = run_ranks(commands, logs, root)
-    if any(codes):
-        for log in logs:
-            print(f"  {log.name}:\n" + log.read_text()[-3000:])
-        return None
-    return [json.loads(r.read_text()) for r in results]
+    """``n`` ranks of ``dp_worker``; their results, or None."""
+    return dp_runs(tmp, mode, {name: (n, {})}, corpus, root)[name]
 
 
 def phase_data_parallel(smoke: Smoke, device, root: Path):
@@ -4578,12 +4682,18 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
         tmp = Path(tmp_dir)
         corpus = write_training_corpus(str(tmp / "corpus"), 0)
         runs = {}
-        for name, n in (("one", 1), ("two", 2)):
+        # The 1-rank run again, and at the 2-rank run's shapes (B = 4 a
+        # micro-step, two an update), both at once: the noise in the
+        # parameters' change.
+        for groups in ({"one": (1, {})}, {"two": (2, {})},
+                       {"again": (1, {}),
+                        "acc2": (1, {"grad_acc_step": 2})}):
             t0 = time.perf_counter()
-            runs[name] = dp_run(tmp, name, "steps", n, corpus, root)
-            smoke.check(runs[name] is not None,
-                        f"{n} rank(s), {DP_STEPS} steps: the ranks ran in "
-                        f"{time.perf_counter() - t0:.1f} s")
+            runs.update(dp_runs(tmp, "steps", groups, corpus, root))
+            for name, (n, _) in groups.items():
+                smoke.check(runs[name] is not None,
+                            f"{name}: {n} rank(s), {DP_STEPS} updates: the "
+                            f"ranks ran in {time.perf_counter() - t0:.1f} s")
         if runs["one"] and runs["two"]:
             (one,), two = runs["one"], runs["two"]
             t = dp_config(corpus, str(tmp), DP_STEPS).model.transformer
@@ -4627,14 +4737,26 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
                         f"{p_rel:.2e} (bound {DP_PARAM_RTOL:.0e}); "
                         f"evaluation at the initial parameters rel diff "
                         f"{e_rel:.2e} (bound {DP_EVAL_RTOL:.0e})")
+            names = [k for k in ("one_0", "two_0", "again_0", "acc2_0")
+                     if runs[k.split("_")[0]]]
             flat = {(k, v): torch.load(
                 tmp / f"{k}.result.json.{v}").double()
-                for k in ("one_0", "two_0") for v in ("p0", "p1")}
+                for k in names for v in ("p0", "p1")}
             p0 = flat["one_0", "p0"]
             d1 = flat["one_0", "p1"] - p0
             move = float(d1.norm() / p0.norm())
             d_rel = float((flat["two_0", "p1"] - flat["one_0", "p1"]).norm()
                           / d1.norm())
+            for k, what in (("again_0", "1 rank again"),
+                            ("acc2_0", "1 rank, B = 4 a micro-step, "
+                             "grad_acc_step 2 (masks drawn per micro-step, "
+                             "the loss a mean of the halves' means)")):
+                if (k, "p1") in flat:
+                    r = float((flat[k, "p1"] - flat["one_0", "p1"]).norm()
+                              / d1.norm())
+                    print(f"  ||d - d1|| / ||d1||, {what}: {r:.3e}; losses "
+                          f"{runs[k.split('_')[0]][0]['losses']} against "
+                          f"{one['losses']} [{card}]", flush=True)
             smoke.check(torch.equal(flat["two_0", "p0"], p0)
                         and move >= DP_MIN_MOVE and d_rel <= DP_DELTA_RTOL,
                         f"the parameters' change over {DP_STEPS} steps: "
@@ -4721,8 +4843,541 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the compiled steps (CUDA graphs) against the eager path.
+
+GRAPH_WARM, GRAPH_REPEATS = 2, 5   # untimed, then timed calls
+GRAPH_PROFILED = 5                 # calls or steps a profiler window holds
+GRAPH_STEPS, GRAPH_SPC, GRAPH_RESUME_AT = 20, 10, 10
+GRAPH_TUNED_STEPS = 10             # timed B = 32 steps, after 3 untimed
+# Graphed against eager from the same weights and state (PERF.md section
+# 6, written before the first run): the mel within 1e-5 of max(1,
+# max|mel|); the waveform within 1e-5 (float32 vocoder) or 5e-2 of its
+# peak (bf16, phase 8's kernel-path bound); each train step's loss within
+# 1e-5 relative (phase 5's); the parameters' change over 20 steps,
+# ||dp_graph - dp_eager|| / ||dp_eager||, within 1e-2.
+GRAPH_MEL_REL, GRAPH_WAV_F32, GRAPH_WAV_BF16 = 1e-5, 1e-5, 5e-2
+GRAPH_LOSS_RTOL, GRAPH_DELTA_RTOL = 1e-5, 1e-2
+
+
+def eager_synthesize(synth, *args, **kwargs):
+    """``synth.synthesize`` (or another entry, ``entry=``) with the
+    compiled functions' eager bodies: the same code, no graph."""
+    entry = kwargs.pop("entry", "synthesize")
+    compiled = synth._synth_fn, synth._vocoder_fn
+    synth._synth_fn = lambda *key: synth._compile_synth(*key).fn
+    synth._vocoder_fn = lambda kind: synth._compile_vocoder(kind).fn
+    try:
+        out = getattr(synth, entry)(*args, **kwargs)
+        return list(out) if entry == "synthesize_streaming" else out
+    finally:
+        synth._synth_fn, synth._vocoder_fn = compiled
+
+
+def synced_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def profiled_busy(fn, calls: int, path: str):
+    """``trace_busy_share`` of a torch.profiler window over ``calls``
+    calls of ``fn``, then the port's kernels over the window as the
+    launch counters count them and as the trace shows them
+    (``trace_kernel_counts``), in ``all_counts``' order."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    before = all_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(all_counts(), before))
+    prof.export_chrome_trace(path)
+    return trace_busy_share(path), counted, trace_kernel_counts(path)
+
+
+# The port's kernels by their names on the card, in all_counts()' order.
+PORT_KERNELS = ("flash_mha_fwd_kernel", "flash_mha_bwd_dq_kernel",
+                "flash_mha_bwd_dkv_kernel", "flash_mha_fwd_bf16_kernel",
+                "flash_mha_bwd_dq_bf16_kernel",
+                "flash_mha_bwd_dkv_bf16_kernel", "mrf_conv_tc_kernel",
+                "mrf_conv_f32_tc_kernel")
+
+
+def trace_kernel_counts(path: str) -> tuple[int, ...]:
+    """Launches of each of ``PORT_KERNELS`` that a torch.profiler Chrome
+    trace holds (a graph's kernels each appear as launched). A name is
+    found in the event's, which may carry a namespace, the signature or
+    the mangling; none of the names is a part of another."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return tuple(sum(k in name for name in names) for k in PORT_KERNELS)
+
+
+def all_counts() -> tuple[int, ...]:
+    """Flash (float32 forward, dQ, dK/dV; bf16 forward, dQ, dK/dV) and MRF
+    (bf16, float32) launches."""
+    return flash_counts() + bf16_counts() + mrf_counts()
+
+
+def check_traced_launches(smoke: Smoke, what: str, kernels: dict) -> None:
+    """Each profiled window's launches as the counters counted them (a
+    replay adds what its capture counted) against the kernels its trace
+    holds, kernel by kernel. A trace may lack a record (in a whole run,
+    one flash forward of the 50 in each B = 4 train window, eager and
+    graphed alike) but never holds more; ``check_graph_launches`` holds
+    the graphs' counts exactly."""
+    names = ", ".join(k.removesuffix("_kernel") for k in PORT_KERNELS)
+    smoke.check(
+        all(all(t <= c for t, c in zip(traced, counted))
+            for counted, traced in kernels.values()),
+        f"{what}: the port's kernels ({names}) over each profiled window, "
+        f"counted / traced: " + "; ".join(
+            f"{name} {c} / {t}" for name, (c, t) in kernels.items()))
+
+
+# PORT_KERNELS' launch counters (module, name), as ``graphs.COUNTERS``
+# names them.
+KERNEL_COUNTERS = (
+    ("flash_mha", "launch_count"), ("flash_mha", "bwd_dq_launch_count"),
+    ("flash_mha", "bwd_dkv_launch_count"), ("flash_mha", "bf16_launch_count"),
+    ("flash_mha", "bf16_bwd_dq_launch_count"),
+    ("flash_mha", "bf16_bwd_dkv_launch_count"),
+    ("mrf_resblock", "tc_launch_count"), ("mrf_resblock", "f32_launch_count"))
+
+
+@contextlib.contextmanager
+def dumpable_graphs():
+    """``torch.cuda.CUDAGraph()`` made with ``keep_graph=True`` in debug
+    mode while the block runs, so that ``CUDAGraph.debug_dump`` can write
+    each graph captured in it (``check_graph_launches``)."""
+    import torch
+
+    cls = torch.cuda.CUDAGraph
+
+    def make():
+        graph = cls(keep_graph=True)
+        graph.enable_debug_mode()
+        return graph
+
+    torch.cuda.CUDAGraph = make
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = cls
+
+
+def check_graph_launches(smoke: Smoke, what: str, owner, tmp: Path) -> None:
+    """Each graph of ``owner`` (``graphs.Graphs``, captured under
+    ``dumpable_graphs``): the launches its capture counted, which each
+    replay adds to the counters, against the kernel nodes of the graph
+    itself (``cudaGraphDebugDotPrint``: one ``{ID | ...}`` line a node,
+    the kernel's mangled name in it), kernel by kernel."""
+    import warnings
+
+    from expressive_fastspeech2_mandarin_tpu_torch import graphs
+
+    index = {(module.__name__.rsplit(".", 1)[-1], name): i
+             for i, (module, name) in enumerate(graphs.COUNTERS)}
+    rows = []
+    for compiled in owner.compiled:
+        for g in compiled.graphs.values():
+            path = tmp / f"graph_{len(rows)}.dot"
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # debug_dump's notices
+                g.graph.debug_dump(str(path))
+            with open(path) as f:
+                nodes = [line for line in f
+                         if line.lstrip().startswith("| {ID |")]
+            rows.append((tuple(g.launches[index[k]] for k in KERNEL_COUNTERS),
+                         tuple(sum(k in n for n in nodes)
+                               for k in PORT_KERNELS)))
+    smoke.check(bool(rows) and all(a == b for a, b in rows),
+                f"{what}: each graph's counted launches against its kernel "
+                f"nodes (in the order of PORT_KERNELS): "
+                + "; ".join(f"{a} / {b}" for a, b in rows))
+
+
+def phase_graphs_synthesis(smoke: Smoke, device, tmp: Path) -> None:
+    """Phase 14a: ``synthesize`` (short and long-form) and
+    ``synthesize_streaming`` replayed from CUDA graphs against the same
+    calls through the eager bodies, with the bf16 and the float32
+    vocoder."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.config import Config
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+    from expressive_fastspeech2_mandarin_tpu_torch.text import text_to_ids
+
+    card = nvidia_smi_line()
+    base = Config()
+    fs2, voc = seeded_states(base)
+    n_dec = base.model.transformer.decoder_layer
+    long_kw = dict(duration_control=LONG_DURATION_CONTROL,
+                   max_mel_len=LONG_MAX_MEL)
+    for dtype, cfg in (("bfloat16", base), ("float32",
+                                            float32_vocoder(base))):
+        synth = Synthesizer(cfg, fs2, voc, emotion_maps=EMOTION_MAPS,
+                            device=device)
+        per_call = 2 * len(DILATIONS) * len(synth.vocoder.resblocks)
+        mrf_want = (per_call, 0) if dtype == "bfloat16" else (0, per_call)
+        cases = {"short": ((TEXTS, list(range(len(TEXTS))), EMOTIONS), {}),
+                 "long-form": ((LONG_TEXTS, list(range(len(LONG_TEXTS))),
+                                EMOTIONS), long_kw)}
+        for case, (args, kw) in cases.items():
+            flash_want = (0, 0, 0) if case == "short" else (n_dec, 0, 0)
+            want = flash_want + (0, 0, 0) + mrf_want
+            counts = {}
+
+            def counted(name, fn):
+                reset_flash_counts()
+                reset_bf16_counts()
+                reset_mrf_counts()
+                out = fn()
+                counts[name] = all_counts()
+                return out
+
+            eager = counted("eager", lambda: eager_synthesize(
+                synth, *args, vocoder="hifigan", **kw))
+            synth.drop_graphs()
+            t0 = time.perf_counter()
+            first = counted("capture", lambda: synth.synthesize(
+                *args, vocoder="hifigan", **kw))
+            torch.cuda.synchronize()
+            capture_ms = 1e3 * (time.perf_counter() - t0)
+            graphed = counted("replay", lambda: synth.synthesize(
+                *args, vocoder="hifigan", **kw))
+            same_dur = all(np.array_equal(a.durations, b.durations)
+                           for a, b in zip(eager, graphed))
+            mel_diff = max(float(np.abs(a.mel - b.mel).max())
+                           for a, b in zip(eager, graphed))
+            wav_diff = max(float(np.abs(a.wav - b.wav).max())
+                           for a, b in zip(eager, graphed))
+            peak_mel = max(1.0, max(float(np.abs(a.mel).max())
+                                    for a in eager))
+            peak_wav = max(float(np.abs(a.wav).max()) for a in eager)
+            wav_bound = (GRAPH_WAV_F32 if dtype == "float32"
+                         else GRAPH_WAV_BF16 * peak_wav)
+            replays_equal = all(np.array_equal(a.wav, b.wav)
+                                for a, b in zip(first, graphed))
+            smoke.check(
+                same_dur and mel_diff <= GRAPH_MEL_REL * peak_mel
+                and wav_diff <= wav_bound and replays_equal,
+                f"{case}, {dtype} vocoder, graphed vs eager: durations "
+                f"equal {same_dur}, mel max|diff| {mel_diff:.3e} (bound "
+                f"{GRAPH_MEL_REL * peak_mel:.3e}), wav max|diff| "
+                f"{wav_diff:.3e} (bound {wav_bound:.3e}); the capturing "
+                f"call and a replay equal: {replays_equal}")
+            smoke.check(all(c == want for c in counts.values()),
+                        f"{case}, {dtype}: launches a call (flash f32 fwd, "
+                        f"dQ, dK/dV; bf16 fwd, dQ, dK/dV; MRF bf16, f32) "
+                        f"{counts} (expected {want} each)")
+            paths = (
+                ("eager", lambda: eager_synthesize(
+                    synth, *args, vocoder="hifigan", **kw)),
+                ("graphed", lambda: synth.synthesize(
+                    *args, vocoder="hifigan", **kw)),
+                ("eager text -> mel", lambda: eager_synthesize(
+                    synth, *args, vocoder="none", **kw)),
+                ("graphed text -> mel", lambda: synth.synthesize(
+                    *args, vocoder="none", **kw)))
+            if dtype != "bfloat16":
+                paths = paths[:2]  # text -> mel is the same model
+            ms = {}
+            for name, fn in paths:
+                for _ in range(GRAPH_WARM):
+                    fn()
+                ms[name] = [synced_ms(fn) for _ in range(GRAPH_REPEATS)]
+            line = ", ".join(f"{k} {float(np.median(v)):.3f} ms "
+                             f"({min(v):.3f}-{max(v):.3f})"
+                             for k, v in ms.items())
+            print(f"  {case}, {dtype} vocoder, median of {GRAPH_REPEATS} "
+                  f"after {GRAPH_WARM}: {line}; the first graphed call "
+                  f"(warm-up, capture, replay) {capture_ms:.1f} ms "
+                  f"[{card}]", flush=True)
+            if dtype != "bfloat16":
+                continue
+            # Host spans a graphed call still runs: the front end, and
+            # the weights' fingerprint (each compiled call takes one).
+            front = [synced_ms(lambda: [text_to_ids(
+                x, cfg.preprocess.symbol_table) for x in args[0]])
+                for _ in range(GRAPH_REPEATS)]
+            check = [synced_ms(synth._graphs.check)
+                     for _ in range(GRAPH_REPEATS)]
+            print(f"  {case}: host spans, median of {GRAPH_REPEATS}: "
+                  f"text_to_ids of the batch {float(np.median(front)):.3f}"
+                  f" ms, the Synthesizer's weight fingerprint "
+                  f"{float(np.median(check)):.3f} ms [{card}]", flush=True)
+            busy, kernels = {}, {}
+            for name, fn in paths:
+                busy[name], *kernels[name] = profiled_busy(
+                    fn, GRAPH_PROFILED,
+                    str(tmp / f"synth_{case}_{len(busy)}.json"))
+            print("  " + f"{case}, bf16 vocoder, device busy share over "
+                  f"{GRAPH_PROFILED} calls (busy, window ms, kernels): "
+                  + "; ".join(f"{k} {b:.3f}, {w:.1f}, {n}"
+                              for k, (b, w, n) in busy.items())
+                  + f" [{card}]", flush=True)
+            smoke.check(all(b > 0 for b, _, _ in busy.values()),
+                        f"{case}: the profiler saw device time in every "
+                        f"window")
+            check_traced_launches(smoke, f"{case} synthesis", kernels)
+        # Streaming: the full windows from one graph, against the same
+        # windows eagerly.
+        i = 0
+        one = (LONG_TEXTS[i], 0, EMOTIONS[i])
+        reset_mrf_counts()
+        stream = synth.synthesize_streaming(*one, chunk_frames=STREAM_CHUNK,
+                                            **long_kw)
+        chunks = list(stream)
+        graphed_counts = mrf_counts()
+        eager_chunks = eager_synthesize(synth, *one,
+                                        entry="synthesize_streaming",
+                                        chunk_frames=STREAM_CHUNK, **long_kw)
+        a, b = np.concatenate(chunks), np.concatenate(eager_chunks)
+        diff = float(np.abs(a - b).max()) if a.shape == b.shape else math.inf
+        bound = (GRAPH_WAV_F32 if dtype == "float32"
+                 else GRAPH_WAV_BF16 * float(np.abs(b).max()))
+        windows = len(chunks)
+        smoke.check(diff <= bound and sum(graphed_counts) == per_call
+                    * windows,
+                    f"{dtype} synthesize_streaming, {windows} windows, the "
+                    f"full ones from one graph, vs eager: max|diff| "
+                    f"{diff:.3e} (bound {bound:.3e}); MRF launches "
+                    f"{graphed_counts} ({per_call} a window)")
+        print(f"  {dtype}: graphs held by the Synthesizer "
+              f"{synth._graphs.count()}")
+        check_graph_launches(smoke, f"{dtype} Synthesizer", synth._graphs,
+                             tmp)
+        del synth
+
+
+def phase_graphs_training(smoke: Smoke, device, tmp: Path) -> None:
+    """Phase 14b: the float32 "flash" train step at B = 4, bucket
+    (128, 1000): 20 steps graphed one a replay and ten a replay, against
+    20 eager steps from one state; a checkpoint of the eager run at step
+    10 loaded into the graphed state, which goes on graphed; the amp bf16
+    recipe's step at B = 32 eager and graphed."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        train_step,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.state import (
+        load_checkpoint,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.step import (
+        make_train_multi_step,
+        make_train_step,
+        stack_batches,
+    )
+
+    card = nvidia_smi_line()
+    b, s, t = TRAIN_TIMED
+    cfg = training_config(str(tmp), str(tmp), "flash")
+    n_blocks = (cfg.model.transformer.encoder_layer
+                + cfg.model.transformer.decoder_layer)
+    batches = [stage_batch(synthetic_train_batch(b, s, t, seed=100 + i),
+                           device) for i in range(GRAPH_STEPS)]
+
+    def flat(state):
+        return torch.cat([p.detach().reshape(-1).double()
+                          for p in state.model.parameters()])
+
+    def step_counts(fn):
+        reset_flash_counts()
+        out = fn()
+        return out, flash_counts()
+
+    eager = create_train_state(cfg, None, device)
+    p0 = flat(eager)
+    e_losses, e_ms, e_counts, ckpt = [], [], set(), None
+    for i, batch in enumerate(batches):
+        if i == GRAPH_RESUME_AT:
+            ckpt = {"model": {k: v.clone() for k, v in
+                              eager.model.state_dict().items()},
+                    "optimizer": eager.optimizer.state_dict(),
+                    "step": eager.step,
+                    "generator": eager.generator.get_state()}
+        holder = {}
+        e_ms.append(synced_ms(lambda: holder.update(
+            r=step_counts(lambda: train_step(eager, batch, cfg)))))
+        report, counts = holder["r"]
+        e_counts.add(counts)
+        e_losses.append(float(report.total))
+    d_eager = flat(eager) - p0
+
+    one = create_train_state(cfg, None, device)
+    step = make_train_step(one, cfg)
+    g_losses, g_ms, g_counts = [], [], set()
+    for batch in batches:
+        holder = {}
+        g_ms.append(synced_ms(lambda: holder.update(
+            r=step_counts(lambda: step(batch)))))
+        report, counts = holder["r"]
+        g_counts.add(counts)
+        g_losses.append(float(report.total))
+    d_one = flat(one) - p0
+
+    ten = create_train_state(cfg, None, device)
+    multi = make_train_multi_step(ten, cfg, GRAPH_SPC)
+    m_losses, m_ms, m_counts = [], [], set()
+    for c in range(0, GRAPH_STEPS, GRAPH_SPC):
+        stacked = stack_batches(batches[c:c + GRAPH_SPC])
+        holder = {}
+        m_ms.append(synced_ms(lambda: holder.update(
+            r=step_counts(lambda: multi(stacked)))))
+        report, counts = holder["r"]
+        m_counts.add(counts)
+        m_losses.append(float(report.total))
+    d_ten = flat(ten) - p0
+    chunk_means = [float(np.mean(e_losses[c:c + GRAPH_SPC]))
+                   for c in range(0, GRAPH_STEPS, GRAPH_SPC)]
+
+    def rel(d):
+        return float((d - d_eager).norm() / d_eager.norm())
+
+    def loss_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    per_step = (n_blocks,) * 3
+    smoke.check(e_counts == g_counts == {per_step}
+                and m_counts == {tuple(GRAPH_SPC * n for n in per_step)},
+                f"flash launches (forward, dQ, dK/dV): eager steps "
+                f"{e_counts}, graphed steps {g_counts}, graphed chunks of "
+                f"{GRAPH_SPC} {m_counts} (expected {per_step} a step)")
+    smoke.check(loss_rel(g_losses, e_losses) <= GRAPH_LOSS_RTOL
+                and loss_rel(m_losses, chunk_means) <= GRAPH_LOSS_RTOL
+                and rel(d_one) <= GRAPH_DELTA_RTOL
+                and rel(d_ten) <= GRAPH_DELTA_RTOL,
+                f"{GRAPH_STEPS} steps, float32 'flash', B = {b}, bucket "
+                f"({s}, {t}): losses eager {[f'{x:.6f}' for x in e_losses]};"
+                f" graphed one a replay, rel diff "
+                f"{loss_rel(g_losses, e_losses):.2e}; {GRAPH_SPC} a replay, "
+                f"chunk means {m_losses} against {chunk_means}, rel diff "
+                f"{loss_rel(m_losses, chunk_means):.2e} (bound "
+                f"{GRAPH_LOSS_RTOL:.0e}); ||dp - dp_eager|| / ||dp_eager||"
+                f" {rel(d_one):.3e} and {rel(d_ten):.3e} (bound "
+                f"{GRAPH_DELTA_RTOL:.0e}), ||dp_eager|| / ||p0|| "
+                f"{float(d_eager.norm() / p0.norm()):.3e}")
+    print(f"  step ms, float32 'flash', B = {b} (all but the first): eager "
+          f"median {float(np.median(e_ms[1:])):.3f} "
+          f"({min(e_ms[1:]):.3f}-{max(e_ms[1:]):.3f}), graphed one a "
+          f"replay {float(np.median(g_ms[1:])):.3f} "
+          f"({min(g_ms[1:]):.3f}-{max(g_ms[1:]):.3f}), {GRAPH_SPC} a replay"
+          f" {m_ms[1] / GRAPH_SPC:.3f} a step; first calls (warm-up, "
+          f"capture, replay) {g_ms[0]:.1f} and {m_ms[0]:.1f} ms [{card}]",
+          flush=True)
+
+    # Resume: the eager run's step-10 checkpoint into the graphed state.
+    load_checkpoint(one, ckpt)
+    r_losses = [float(step(batch).total)
+                for batch in batches[GRAPH_RESUME_AT:]]
+    d_resumed = flat(one) - p0
+    smoke.check(one.step == GRAPH_STEPS
+                and int(one.optimizer.count) == GRAPH_STEPS
+                and loss_rel(r_losses, e_losses[GRAPH_RESUME_AT:])
+                <= GRAPH_LOSS_RTOL and rel(d_resumed) <= GRAPH_DELTA_RTOL,
+                f"resumed at step {GRAPH_RESUME_AT} (load_checkpoint into "
+                f"the graphed state), {GRAPH_STEPS - GRAPH_RESUME_AT} "
+                f"graphed steps: step {one.step}, updates "
+                f"{int(one.optimizer.count)}, losses rel diff "
+                f"{loss_rel(r_losses, e_losses[GRAPH_RESUME_AT:]):.2e}, "
+                f"||dp - dp_eager|| / ||dp_eager|| {rel(d_resumed):.3e}")
+    for name, state in (("one a replay", one), ("ten a replay", ten)):
+        check_graph_launches(smoke, f"train step B = {b}, {name}",
+                             state.graphs, tmp)
+    del d_eager, d_one, d_ten, d_resumed, p0, ten, multi
+
+    busy, peak, kernels = {}, {}, {}
+    for name, fn in (("eager", lambda: train_step(eager, batches[0], cfg)),
+                     ("graphed", lambda: step(batches[0]))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        busy[name], *kernels[name] = profiled_busy(
+            fn, GRAPH_PROFILED, str(tmp / f"train_{name}.json"))
+        peak[name] = ((torch.cuda.max_memory_allocated() - base) / 2**20,
+                      base / 2**20, torch.cuda.memory_reserved() / 2**20)
+    print("  " + f"train step B = {b}, device busy share over "
+          f"{GRAPH_PROFILED} steps (busy, window ms, kernels); "
+          f"max_memory_allocated in the window above what was allocated "
+          f"before it (a graph's activations sit in its pool, reserved at "
+          f"capture), and memory_reserved after it: " + "; ".join(
+              f"{k} {v[0]:.3f}, {v[1]:.1f}, {v[2]}; {peak[k][0]:.1f} MiB "
+              f"above {peak[k][1]:.1f}, reserved {peak[k][2]:.1f}"
+              for k, v in busy.items()) + f" [{card}]", flush=True)
+    smoke.check(all(v[0] > 0 for v in busy.values()),
+                "the profiler saw device time in both train windows")
+    check_traced_launches(smoke, f"train step B = {b}", kernels)
+    del eager, one, step, batches
+    gc.collect()  # a state and its graphs hold each other
+    torch.cuda.empty_cache()
+
+    # The tuned recipe's step: amp bf16 "flash" at B = 32, in turns.
+    tuned = C.Config(model=C.ModelConfig(
+        transformer=C.TransformerConfig(attention_impl="flash")),
+        train=C.TrainConfig(amp_dtype="bfloat16"))
+    batch = stage_batch(synthetic_train_batch(32, s, t, seed=5), device)
+    e_state = create_train_state(tuned, None, device)
+    g_state = create_train_state(tuned, None, device)
+    g_step = make_train_step(g_state, tuned)
+    runs = {"eager": lambda: train_step(e_state, batch, tuned),
+            "graphed": lambda: g_step(batch)}
+    first = synced_ms(runs["graphed"])
+    for _ in range(3):
+        for fn in runs.values():
+            fn()
+    ms = {k: [] for k in runs}
+    for _ in range(GRAPH_TUNED_STEPS):
+        for k, fn in runs.items():
+            ms[k].append(synced_ms(fn))
+    reset_flash_counts()
+    reset_bf16_counts()
+    runs["graphed"]()
+    tuned_counts = bf16_counts() + flash_counts()
+    print("  " + f"amp bf16 'flash' step, B = 32, bucket ({s}, {t}), "
+          f"{GRAPH_TUNED_STEPS} steps after 3, in turns: " + "; ".join(
+              f"{k} median {float(np.median(v)):.3f} ms "
+              f"({min(v):.3f}-{max(v):.3f})" for k, v in ms.items())
+          + f"; the first graphed call {first:.1f} ms [{card}]", flush=True)
+    smoke.check(tuned_counts == (n_blocks,) * 3 + (0, 0, 0),
+                f"a graphed amp bf16 step's launches (bf16 forward, dQ, "
+                f"dK/dV; float32 forward, dQ, dK/dV): {tuned_counts} "
+                f"(expected {(n_blocks,) * 3 + (0, 0, 0)})")
+    check_graph_launches(smoke, "amp bf16 step B = 32", g_state.graphs, tmp)
+
+
+def phase_compiled_steps(smoke: Smoke, device):
+    """Phase 14: synthesis and training from CUDA graphs against eager."""
+    with tempfile.TemporaryDirectory() as tmp_dir, dumpable_graphs():
+        tmp = Path(tmp_dir)
+        phase_graphs_synthesis(smoke, device, tmp)
+        phase_graphs_training(smoke, device, tmp)
+    return True
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
-          "7", "8", "8b", "9", "10", "11", "11b", "12", "13")
+          "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14")
 
 
 def main(argv=None) -> int:
@@ -4815,6 +5470,8 @@ def main(argv=None) -> int:
                  "CLIs", phase_front_ends, smoke, device)
     dp = run("13", "data-parallel training: efs2-torch-train --coordinator "
              "on two ranks", phase_data_parallel, smoke, device, root)
+    run("14", "compiled steps: synthesis and training replayed from CUDA "
+        "graphs against eager", phase_compiled_steps, smoke, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if smoke.failures or any(results.get(key) is None for key in chosen):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),

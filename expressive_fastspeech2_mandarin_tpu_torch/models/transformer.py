@@ -100,7 +100,9 @@ class _Stack(nn.Module):
             torch.from_numpy(sinusoid_encoding_table(max_seq_len + 1,
                                                      d_model)),
             persistent=False)
-        self._regrown: torch.Tensor | None = None
+        # A buffer, so that its owner's CUDA graphs see it replaced
+        # (``graphs.Graphs``).
+        self.register_buffer("_regrown", None, persistent=False)
         self.layer_stack = nn.ModuleList([
             FFTBlock(d_model, n_head, cfg.conv_filter_size,
                      cfg.conv_kernel_size, cfg.attention_impl)

@@ -62,6 +62,10 @@ bwd_dkv_launch_count = 0
 bf16_launch_count = 0
 bf16_bwd_dq_launch_count = 0
 bf16_bwd_dkv_launch_count = 0
+# Their names, for what counts launches in bulk (``graphs``' replays).
+COUNTERS = ("launch_count", "bwd_dq_launch_count", "bwd_dkv_launch_count",
+            "bf16_launch_count", "bf16_bwd_dq_launch_count",
+            "bf16_bwd_dkv_launch_count")
 
 # flash_mha_fwd_{f32,bf16}(q, k, v, mask, out, lse, B, H, T, scale, stream)
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3

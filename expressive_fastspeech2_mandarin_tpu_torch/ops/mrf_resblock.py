@@ -60,6 +60,8 @@ KERNEL_SIZES = (3, 7, 11)
 launch_count = 0
 tc_launch_count = 0
 f32_launch_count = 0
+# Their names, for what counts launches in bulk (``graphs``' replays).
+COUNTERS = ("launch_count", "tc_launch_count", "f32_launch_count")
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _lib = None

@@ -16,7 +16,7 @@ so on the card every resblock of every window runs the MRF kernel.
 from __future__ import annotations
 
 import math
-from collections.abc import Iterator
+from collections.abc import Callable, Iterator
 
 import torch
 
@@ -44,19 +44,27 @@ def generator_receptive_radius_frames(cfg: VocoderConfig) -> int:
 
 def vocode_streaming(generator: Generator, mel: torch.Tensor, *,
                      chunk_frames: int = 100,
-                     halo_frames: int | None = None
-                     ) -> Iterator[torch.Tensor]:
+                     halo_frames: int | None = None,
+                     full_window: Callable[[torch.Tensor], torch.Tensor]
+                     | None = None) -> Iterator[torch.Tensor]:
     """Yield waveform chunks for ``mel`` (B, T, n_mels), in the generator's
     device and dtype. Each chunk is (B, chunk_frames * hop) samples except
-    perhaps the last; their concatenation equals ``generator(mel)``."""
+    perhaps the last; their concatenation equals ``generator(mel)``.
+    ``full_window``, where given, vocodes the windows of the full width
+    (``chunk_frames`` + 2 halos; the Synthesizer's compiled generator,
+    one CUDA graph) and the generator the clipped ones at the ends."""
     if halo_frames is None:
         halo_frames = generator_receptive_radius_frames(generator.cfg)
     t = mel.shape[1]
     up = math.prod(generator.cfg.upsample_rates)
+    full = chunk_frames + 2 * halo_frames
     for a in range(0, t, chunk_frames):
         b = min(a + chunk_frames, t)
         w0 = max(a - halo_frames, 0)
         w1 = min(b + halo_frames, t)
+        run = generator
+        if full_window is not None and w1 - w0 == full:
+            run = full_window
         with torch.inference_mode():
-            wav = generator(mel[:, w0:w1, :])
+            wav = run(mel[:, w0:w1, :])
         yield wav[:, (a - w0) * up: (b - w0) * up]

@@ -8,6 +8,15 @@ bucket guessed from the text length, or to ``max_mel_len``. Past 2048
 frames the decoder's attention goes through the flash kernel on the card
 (``attention_impl="auto"``).
 
+On the card the FastSpeech2 forward and the vocoders replay CUDA graphs
+(``graphs.Graphs``), as the JAX package jits them: ``_synth_fn`` per
+(source bucket, mel bucket, controls), an LRU of 32 as the JAX package's
+``lru_cache``, each with a graph per batch size; ``_vocoder_fn`` per
+vocoder, a graph per mel shape and compute dtype; streaming's full
+windows one graph. Griffin-Lim runs eagerly. The graphs read the weights
+at the addresses they were captured with: loading MelGAN drops them, and
+so does any weight written in place, before the next call.
+
 Vocoders (``synthesize(vocoder=...)``):
 * ``"hifigan"``, the default when HiFi-GAN weights are loaded: in
   ``VocoderConfig.compute_dtype`` (bfloat16 by default), every MRF
@@ -23,6 +32,7 @@ Vocoders (``synthesize(vocoder=...)``):
 
 from __future__ import annotations
 
+import functools
 import os
 from collections.abc import Iterator
 from dataclasses import dataclass
@@ -34,6 +44,7 @@ from ..config import Config
 from ..data import EMOTION_AROUSAL_VALENCE, PreprocessedCorpus, pick_bucket
 from ..device import resolve_device
 from ..dsp.stft import MelSTFT
+from ..graphs import Compiled, Graphs, module_tensors
 from ..interop.torch_ckpt import (
     fastspeech2_checkpoint_state,
     load_torch_state_dict,
@@ -50,6 +61,10 @@ MEL_BUCKETS = (250, 500, 1000, 2000)
 VOCODERS = ("hifigan", "griffin_lim", "melgan", "none")
 GRIFFIN_LIM_ITERS = 60
 GRIFFIN_LIM_PEAK = 0.95
+# Compiled FastSpeech2 forwards kept, and vocoders, as the JAX package's
+# lru_cache sizes (synth/synthesizer.py:193, :204 there).
+SYNTH_FN_CACHE = 32
+VOCODER_FN_CACHE = 8
 
 
 def rescale_peaks(wavs: np.ndarray, peak: float = GRIFFIN_LIM_PEAK
@@ -100,17 +115,21 @@ class Synthesizer:
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._graphs = Graphs(state=self._weights)
+        self._synth_fn = functools.lru_cache(SYNTH_FN_CACHE)(
+            self._compile_synth)
+        self._vocoder_fn = functools.lru_cache(VOCODER_FN_CACHE)(
+            self._compile_vocoder)
+        self.vocoder = self.melgan = None
         model = FastSpeech2(cfg.model, cfg.preprocess, stats)
         model.load_state_dict(fs2_state, strict=True)
         self.model = model.to(self.device).eval()
-        self.vocoder = None
         if vocoder_state is not None:
             gen = Generator(cfg.model.vocoder,
                             cfg.preprocess.mel.n_mel_channels)
             gen.load_state_dict(vocoder_state, strict=True)
             dtype = getattr(torch, cfg.model.vocoder.compute_dtype)
             self.vocoder = gen.to(self.device, dtype).eval()
-        self.melgan = None
         if melgan_state is not None:
             self._set_melgan(melgan_state)
         pre = cfg.preprocess
@@ -118,6 +137,44 @@ class Synthesizer:
                             self.device)
         self.speaker_map = speaker_map or {}
         self.emotion_maps = emotion_maps or {}
+
+    def _weights(self) -> list[torch.Tensor]:
+        """What the graphs read besides their inputs: every parameter and
+        buffer of the models."""
+        return module_tensors(*(m for m in (self.model, self.vocoder,
+                                            self.melgan) if m is not None))
+
+    def drop_graphs(self) -> None:
+        """Forget every compiled function and its graphs."""
+        self._graphs.drop()
+        self._synth_fn.cache_clear()
+        self._vocoder_fn.cache_clear()
+
+    def _compile_synth(self, max_src: int, max_mel: int, p_c: float,
+                       e_c: float, d_c: float) -> Compiled:
+        """The FastSpeech2 inference forward at a source bucket, a mel
+        bucket and controls, compiled: (speakers, emotions, arousals,
+        valences, texts, src_lens) → (postnet mel, mel_lens, durations).
+        ``max_src`` is the texts' width, in the key as the JAX package's."""
+
+        def forward(spk, emo, aro, val, texts, src_lens):
+            out = self.model(spk, emo, aro, val, texts, src_lens,
+                             max_mel_len=max_mel, p_control=p_c,
+                             e_control=e_c, d_control=d_c)
+            return out.postnet_mel, out.mel_lens, out.durations_rounded
+
+        return self._graphs.jit(forward)
+
+    def _compile_vocoder(self, kind: str) -> Compiled:
+        """``kind``'s vocoder ("hifigan" or "melgan"), compiled: (mel,
+        dtype=compute dtype) → the float32 waveform of the mel cast to the
+        compute dtype."""
+        module = self.vocoder if kind == "hifigan" else self.melgan
+
+        def vocode(mel, dtype):
+            return module(mel.to(dtype)).float()
+
+        return self._graphs.jit(vocode)
 
     @classmethod
     def from_torch_checkpoint(
@@ -169,6 +226,7 @@ class Synthesizer:
         melgan = MelGAN(self.cfg.preprocess.mel.n_mel_channels)
         melgan.load_state_dict(state, strict=True)
         self.melgan = melgan.to(self.device).eval()
+        self.drop_graphs()
 
     def load_melgan(self, ckpt_path: str) -> None:
         """Load a melgan-neurips generator checkpoint (a torch state dict
@@ -237,18 +295,19 @@ class Synthesizer:
         spk, emo, aro, val = (torch.from_numpy(ids4[:, j]).to(self.device)
                               for j in range(4))
 
-        out = self.model(
+        mel, mel_lens, durations = self._synth_fn(
+            max_src, max_mel, pitch_control, energy_control,
+            duration_control)(
             spk, emo, aro, val, torch.from_numpy(texts_arr).to(self.device),
-            torch.from_numpy(src_lens).to(self.device),
-            max_mel_len=max_mel, p_control=pitch_control,
-            e_control=energy_control, d_control=duration_control)
-        mel = out.postnet_mel
+            torch.from_numpy(src_lens).to(self.device))
 
         if vocoder == "hifigan":
             dtype = next(self.vocoder.parameters()).dtype
-            wavs = self.vocoder(mel.to(dtype)).float().cpu().numpy()
+            wavs = self._vocoder_fn("hifigan")(mel, dtype=dtype)
+            wavs = wavs.cpu().numpy()
         elif vocoder == "melgan":
-            wavs = self.melgan(mel.float()).cpu().numpy()
+            wavs = self._vocoder_fn("melgan")(mel, dtype=torch.float32)
+            wavs = wavs.cpu().numpy()
         elif vocoder == "griffin_lim":
             wavs = rescale_peaks(self.stft.mel_to_audio(
                 mel.float(), n_iters=GRIFFIN_LIM_ITERS).cpu().numpy())
@@ -257,8 +316,8 @@ class Synthesizer:
             wavs = np.zeros((n, mel.shape[1] * hop), np.float32)
 
         mel_np = mel.float().cpu().numpy()
-        lens_np = out.mel_lens.cpu().numpy()
-        dur_np = out.durations_rounded.cpu().numpy()
+        lens_np = mel_lens.cpu().numpy()
+        dur_np = durations.cpu().numpy()
         results = []
         for i in range(n):
             t = int(lens_np[i])
@@ -298,8 +357,10 @@ class Synthesizer:
         mel = torch.from_numpy(result.mel)[None].to(self.device, dtype)
         total = result.mel.shape[0] * hop
         emitted = 0
-        for chunk in vocode_streaming(self.vocoder, mel,
-                                      chunk_frames=chunk_frames):
+        for chunk in vocode_streaming(
+                self.vocoder, mel, chunk_frames=chunk_frames,
+                full_window=functools.partial(self._vocoder_fn("hifigan"),
+                                              dtype=dtype)):
             wav = chunk[0].float().cpu().numpy()
             take = min(len(wav), max(total - emitted, 0))
             emitted += take

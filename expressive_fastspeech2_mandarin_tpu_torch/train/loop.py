@@ -25,12 +25,18 @@ when it returns. ``profile_start_step``/``profile_stop_step`` record a
 the group that reaches the start step to the one that reaches the stop
 step, written as a Chrome trace under ``<log_path>/profile``.
 
-With ``steps_per_call`` > 1, consecutive batches of one bucket run as
-chunks of that many steps (``chunks``), as the JAX package's scanned
-steps do: each step stays one eager step, the cadences are checked when a
-chunk ends (a crossing, since a chunk may step past a multiple), a chunk
-logs its steps' mean losses, and the last group is cut so the run stops
-at ``total_steps``.
+The steps are the compiled ones, as the JAX loop takes its jitted steps
+(``train/loop.py:121-124`` there): ``train.step.make_train_step``, a CUDA
+graph per bucket on the card in one process, eager on the CPU and under a
+data-parallel layout (gloo's collectives cannot be captured). With
+``steps_per_call`` > 1, consecutive batches of one bucket run as chunks of
+that many steps (``chunks``), as the JAX package's scanned steps do: a
+full chunk is one call of the multi step (``make_train_multi_step``, one
+replay on the card) over the stacked batches and logs its steps' mean
+losses, a shorter group (a bucket change, the trimmed end) runs the single
+step batch by batch and logs its last; the cadences are checked when a
+group ends (a crossing, since a chunk may step past a multiple), and the
+last group is cut so the run stops at ``total_steps``.
 
 Each group is staged ahead of the running one (``prefetch_chunks``): the
 mel targets, most of a batch's bytes, are encoded on the host
@@ -69,7 +75,14 @@ from ..utils.wav import save_wav
 from .loss import LossReport
 from .sampling import SampleVocoder
 from .state import CheckpointManager, TrainState, create_train_state
-from .step import Batch, eval_step, synth_step, train_step
+from .step import (
+    Batch,
+    eval_step,
+    make_train_multi_step,
+    make_train_step,
+    stack_batches,
+    synth_step,
+)
 
 _LOSS_KEYS = ("total_loss", "mel_loss", "mel_postnet_loss", "pitch_loss",
               "energy_loss", "duration_loss")
@@ -137,15 +150,6 @@ def chunks(batches: Iterable[dict], spc: int) -> Iterator[list[dict]]:
     while pending:
         yield pending[:1]
         pending = pending[1:]
-
-
-def chunk_report(reports: list[LossReport], spc: int) -> LossReport:
-    """The report a group logs: a whole chunk's mean, as the JAX package's
-    scanned step returns it; a group of one (a bucket change or the
-    trimmed end) its own."""
-    if spc > 1 and len(reports) == spc:
-        return LossReport(*(torch.stack(xs).mean() for xs in zip(*reports)))
-    return reports[-1]
 
 
 def evaluate(model, val_ds: BucketedDataset, cfg: Config,
@@ -339,6 +343,18 @@ def train(cfg: Config, restore_step: int | None = None,
               else (-1, -1))
     profile = ProfileWindow(*window, os.path.join(log_dir, "profile"),
                             device)
+    spc = tc.steps_per_call
+    single_step = make_train_step(state, cfg)
+    multi_step = make_train_multi_step(state, cfg, spc) if spc > 1 else None
+
+    def run_group(group: list[Batch]) -> LossReport:
+        """The group's steps and the report it logs: a full chunk's mean,
+        as the JAX package's scanned step returns it, else the last
+        step's."""
+        if multi_step is not None and len(group) == spc:
+            return multi_step(stack_batches(group))
+        return [single_step(b) for b in group][-1]
+
     with contextlib.ExitStack() as stack:
         stack.enter_context(matmul_precision(tc.matmul_precision))
         if is_main:
@@ -358,7 +374,7 @@ def train(cfg: Config, restore_step: int | None = None,
             group = staged.popleft()
             prev = state.step
             profile.before(prev, len(group))
-            reports = [train_step(state, b, cfg) for b in group]
+            report = run_group(group)
             if is_main:
                 for _ in group:
                     logger.tick()
@@ -371,8 +387,7 @@ def train(cfg: Config, restore_step: int | None = None,
 
             if crossed(s.log_step):
                 # The losses are global: every rank sees a non-finite one.
-                losses = _report_dict(chunk_report(
-                    reports, tc.steps_per_call))
+                losses = _report_dict(report)
                 if is_main:
                     losses["steps_per_sec"] = logger.steps_per_sec
                     logger.log_losses(step, losses)

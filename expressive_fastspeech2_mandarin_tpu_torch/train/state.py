@@ -19,12 +19,13 @@ directory holds no checkpoint, or another one, resumes alike.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
 
 from ..config import Config
+from ..graphs import Graphs
 from ..models import FastSpeech2
 from ..parallel.mesh import Layout, replicated
 from .schedule import Optimizer
@@ -37,6 +38,8 @@ class TrainState:
     generator: torch.Generator  # dropout draws, on the model's device
     step: int = 0
     layout: Layout | None = None  # data parallelism: the step's collectives
+    # The compiled steps' CUDA graphs (``train.step.make_train_step``).
+    graphs: Graphs | None = field(default=None, repr=False)
 
 
 def create_train_state(cfg: Config, stats: dict | None,
@@ -143,11 +146,14 @@ def broadcast_state(state: TrainState, restored: bool = False,
     rank 0 reports ``failed`` (rank 0 raises its own error)."""
     opt = state.optimizer
     device = state.generator.device
-    meta = torch.tensor([failed, restored, state.step, opt.count,
-                         opt.mini_step], dtype=torch.int64, device=device)
+    meta = torch.tensor([failed, restored, state.step, int(opt.count),
+                         int(opt.mini_step)], dtype=torch.int64,
+                        device=device)
     dist.broadcast(meta, src=0)
-    failed, restored, state.step, opt.count, opt.mini_step = (
+    failed, restored, state.step, count, mini_step = (
         int(v) for v in meta.tolist())
+    opt.count.fill_(count)
+    opt.mini_step.fill_(mini_step)
     if failed:
         if dist.get_rank() == 0:
             return False

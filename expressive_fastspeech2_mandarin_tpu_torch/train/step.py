@@ -24,6 +24,13 @@ gradients (one flat, bucketed float32 all-reduce) and their loss terms, so
 that every rank holds the global batch's loss and gradient, as the JAX
 package's step on a sharded batch returns them; ``eval_step``'s losses are
 the global ones too.
+
+``make_train_step`` and ``make_train_multi_step`` are the JAX package's
+compiled steps (``train/step.py:93-120`` there): on the card one CUDA graph
+per bucket (``graphs.Graphs``), the multi step ``n_steps`` optimizer steps
+over a stacked batch in one replay, as JAX's ``lax.scan``; on the CPU, and
+under a data-parallel layout (gloo's collectives cannot be captured), the
+same steps eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from torch.func import functional_call
 
 from ..config import Config
+from ..graphs import Graphs, module_tensors
 from ..models import FastSpeech2
 from ..parallel.mesh import Layout, all_reduce_
 from .loss import LossReport, fastspeech2_loss
@@ -103,16 +111,87 @@ def loss_and_grads(model: FastSpeech2, batch: Batch, cfg: Config,
     return _global(LossReport(*(x.detach() for x in report)), layout), grads
 
 
+def _update(state: TrainState, batch: Batch, cfg: Config) -> LossReport:
+    report, grads = loss_and_grads(state.model, batch, cfg, state.generator,
+                                   state.layout)
+    state.optimizer.step(grads)
+    return report
+
+
 def train_step(state: TrainState, batch: Batch, cfg: Config) -> LossReport:
     """One call = one micro-step: gradients, then the optimizer (which
     updates on every ``grad_acc_step``-th call); ``state.step`` counts
     calls, as the JAX package's ``TrainState.step``; data-parallel under
-    ``state.layout``."""
-    report, grads = loss_and_grads(state.model, batch, cfg, state.generator,
-                                   state.layout)
-    state.optimizer.step(grads)
+    ``state.layout``. Eager: ``make_train_step`` compiles it."""
+    report = _update(state, batch, cfg)
     state.step += 1
     return report
+
+
+def stack_batches(batches: list[Batch]) -> Batch:
+    """Same-bucket batches stacked on a leading (n, ...) axis, the multi
+    step's input."""
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def mean_report(reports: list[LossReport]) -> LossReport:
+    """Each loss term's mean over steps, as the JAX package's scanned step
+    returns a chunk's report."""
+    return LossReport(*(torch.stack(xs).mean() for xs in zip(*reports)))
+
+
+def train_graphs(state: TrainState) -> Graphs:
+    """The state's graphs: they read and write its parameters, buffers and
+    optimizer state and draw from its dropout generator."""
+    if state.graphs is None:
+        state.graphs = Graphs(
+            state=lambda: [*module_tensors(state.model),
+                           *state.optimizer.tensors()],
+            generators=lambda: [state.generator])
+    return state.graphs
+
+
+def make_train_step(state: TrainState, cfg: Config):
+    """``step(batch) -> LossReport``: ``train_step`` on ``state`` (the JAX
+    package's ``make_train_step``, the state updated in place). On the
+    card one CUDA graph per bucket replays the forward, the backward and
+    the optimizer; on CPU tensors, and under a data-parallel layout, the
+    eager step runs."""
+    if state.layout is not None:
+        return lambda batch: train_step(state, batch, cfg)
+    compiled = train_graphs(state).jit(
+        lambda batch: _update(state, batch, cfg), mutates=True)
+
+    def step(batch: Batch) -> LossReport:
+        report = compiled(batch)
+        state.step += 1
+        return report
+
+    return step
+
+
+def make_train_multi_step(state: TrainState, cfg: Config, n_steps: int):
+    """``multi_step(batches) -> LossReport``: ``n_steps`` train steps over
+    a batch stacked on a leading (n_steps, ...) axis (``stack_batches``),
+    returning their mean report on the device (the JAX package's
+    ``make_train_multi_step``, a ``lax.scan`` there). On the card the
+    chunk is one replay of one CUDA graph per bucket; on CPU tensors, and
+    under a data-parallel layout, the steps run eagerly one by one."""
+
+    def body(batches: Batch) -> LossReport:
+        return mean_report([
+            _update(state, {k: v[i] for k, v in batches.items()}, cfg)
+            for i in range(n_steps)])
+
+    run = (body if state.layout is not None
+           else train_graphs(state).jit(body, mutates=True))
+
+    def multi_step(batches: Batch) -> LossReport:
+        report = run(batches)
+        state.step += n_steps
+        return report
+
+    return multi_step
 
 
 @torch.no_grad()

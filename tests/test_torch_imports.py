@@ -149,7 +149,7 @@ def test_walk_covers_every_slice_module():
                 "text.numbers_en", "text.english", "text.korean",
                 "text.normalizer_zh", "text.lexicon", "preprocess.iemocap",
                 "preprocess.aihub_mmv", "utils.plotting", "parallel",
-                "parallel.mesh"):
+                "parallel.mesh", "graphs"):
         assert f"{port.__name__}.{mod}" in names, mod
 
 

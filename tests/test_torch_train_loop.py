@@ -350,18 +350,24 @@ def test_matmul_precision_maps_jax_names_to_tf32_and_restores(name, tf32):
 def test_train_sets_tf32_while_it_runs_and_restores_it(tmp_path,
                                                        monkeypatch):
     """matmul_precision "high" turns TF32 on for train()'s steps; when
-    train() returns the switches are as they were."""
+    train() returns the switches are as they were. The steps are read
+    through the step ``loop.make_train_step`` makes, which train() calls."""
     from expressive_fastspeech2_mandarin_tpu_torch.train import loop
 
     seen = []
-    real_step = loop.train_step
+    real_make = loop.make_train_step
 
-    def step(state, batch, cfg):
-        seen.append((torch.backends.cuda.matmul.allow_tf32,
-                     torch.backends.cudnn.allow_tf32))
-        return real_step(state, batch, cfg)
+    def make(state, cfg):
+        real_step = real_make(state, cfg)
 
-    monkeypatch.setattr(loop, "train_step", step)
+        def step(batch):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            return real_step(batch)
+
+        return step
+
+    monkeypatch.setattr(loop, "make_train_step", make)
     corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=12)
     flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
     saved = [f.allow_tf32 for f in flags]

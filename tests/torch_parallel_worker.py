@@ -11,7 +11,8 @@ Modes:
   ``--steps`` train steps and ``evaluate`` again;
 * ``train``: the whole ``train()`` loop (``--steps-per-call`` chunks,
   evaluation, samples on rank 0, checkpoints), each step's losses read by
-  wrapping ``train.loop.train_step``; with ``--resume-from`` rank 0 alone
+  wrapping ``train.step._update``, the one optimizer step that the single
+  and the multi step both run; with ``--resume-from`` rank 0 alone
   first copies a checkpoint into its own directory (each rank writes
   under ``<outdir>/rank<i>``), and ``--restore-step`` is passed on; with
   ``--expect-error`` the error ``train()`` raises is the result;
@@ -206,6 +207,9 @@ def main() -> None:
         train,
         train_step,
     )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        step as step_mod,
+    )
     from expressive_fastspeech2_mandarin_tpu_torch.train.state import (
         broadcast_state,
         load_checkpoint,
@@ -226,14 +230,14 @@ def main() -> None:
                           args.steps, args.steps_per_call,
                           args.model_parallel)
         losses = []
-        inner = loop.train_step
+        inner = step_mod._update
 
         def recording_step(state, batch, cfg):
             report = inner(state, batch, cfg)
             losses.append(float(report.total))
             return report
 
-        loop.train_step = recording_step
+        step_mod._update = recording_step
         try:
             state = train(cfg, restore_step=args.restore_step, device=cpu)
         except Exception as e:
