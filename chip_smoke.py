@@ -118,7 +118,8 @@ Phases:
      MRF tensor-core launches a call; the kernel path against the plain
      generator on the card); one GAN step at batch 2 on the card against
      the CPU from one state and batch (losses 1e-5 relative, each gradient
-     1e-3 · max|g|); 8b: the GAN step's time at batch 16 in float32 and
+     1e-3 · max|g|); 8b: the eager GAN step's time (a step timed with
+     ``mark`` runs eagerly) at batch 16 in float32 and
      bf16 amp (median of 10 after 3 warm-ups) with its generator-forward,
      discriminator-update and generator-update spans (CUDA events) and
      peak memory;
@@ -229,7 +230,24 @@ Phases:
      launches of each flash kernel a step), the eager run's step-10
      checkpoint loaded into the graphed state and 10 more graphed steps
      against the eager run's, step ms, busy share and peak memory; the
-     amp bf16 recipe's step at B = 32, eager and graphed in turns.
+     amp bf16 recipe's step at B = 32, eager and graphed in turns;
+  14c. the vocoder trainer's compiled steps at ``Config()`` width, batch
+     16 × 8192, float32 (TF32 off) and bf16 amp: 13 GAN steps from one
+     state eager, eager again (cuDNN's backward sums with atomics),
+     graphed one a replay and four a replay (each loss within
+     GAN_LOSS_RTOL, the parameters' change within GAN_DELTA_RTOL of
+     eager's, the AdamW counts on the card), and in float32 the mutant,
+     its capture restoring the modules alone (the warm-up's moments and
+     counts left in place, as a lazily made optimizer state leaves them:
+     more than 10× the bound); the median of 10 after 3, the first call,
+     the busy share over 2 steps and peak memory of each, and a chunk's
+     time a step; ``train_vocoder`` with steps_per_call 4 (one replay a
+     chunk, the val batches one graph, JAX's log, val and save steps) and
+     its resume; ``evaluate`` over phase 5's val set and the sample
+     synthesis step under "flash", ``export_gta_mels``, the vocoder's val
+     step and ``SampleVocoder`` on a float32 generator.npz, graphed
+     against eager (bit-equal; 10 flash forwards a batch, 72 float32 MRF
+     launches a call, counted once a call).
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -2189,15 +2207,16 @@ def phase_vocoder_training(smoke: Smoke, device, texts, emotions):
             os.path.join(out, "ckpt")) if n.endswith(".pt"))
         resumed = tv.train_vocoder(cfg, wavs, out, total_steps=VOC_RESUME_TO,
                                    device=device, log=lambda *_: None)
-        p0 = next(resumed.gen.parameters())
-        lr = resumed.opt_g.param_groups[0]["lr"]
+        counts = (int(resumed.opt_g.count), int(resumed.opt_d.count))
+        lr = resumed.opt_g.lr
         smoke.check(steps == [10, 20] and resumed.step == VOC_RESUME_TO
-                    and int(resumed.opt_g.state[p0]["step"]) == VOC_RESUME_TO
-                    and lr == tv.vocoder_lr(cfg, VOC_RESUME_TO - 1),
+                    and counts == (VOC_RESUME_TO,) * 2
+                    and resumed.opt_g.count.device.type == "cuda"
+                    and lr == float(tv.vocoder_lr(cfg, VOC_RESUME_TO)),
                     f"checkpoints at {steps}; resumed to step "
-                    f"{resumed.step}, AdamW updates "
-                    f"{int(resumed.opt_g.state[p0]['step'])}, last lr "
-                    f"{lr:.6e}")
+                    f"{resumed.step}, AdamW updates (generator, "
+                    f"discriminators) {counts} on "
+                    f"{resumed.opt_g.count.device}, next lr {lr:.6e}")
         del state, resumed
         npz = os.path.join(out, "generator.npz")
 
@@ -2302,7 +2321,8 @@ def phase_vocoder_training(smoke: Smoke, device, texts, emotions):
 def phase_vocoder_times(device):
     """Phase 8's times: the GAN step at batch 16, float32 (TF32 off) and
     bf16 amp, median of 10 after 3 warm-ups, with its three spans (CUDA
-    events) and peak memory."""
+    events) and peak memory: the eager step, as a step made with ``mark``
+    is (phase 14c times the graphed one)."""
     import numpy as np
     import torch
 
@@ -2344,7 +2364,8 @@ def phase_vocoder_times(device):
         ms.sort()
         med = {k: float(np.median(v)) for k, v in spans.items()}
         rows[amp] = {"ms": (ms[4] + ms[5]) / 2, **med}
-        print(f"  GAN step {amp}, batch {VOC_TIMED_BATCH} × "
+        print(f"  GAN step {amp}, eager (the step timed with mark runs "
+              f"eagerly), batch {VOC_TIMED_BATCH} × "
               f"{cfg.vocoder_train.segment_size} samples, Config() width: "
               f"median {rows[amp]['ms']:.3f} ms (host clock, synchronized), "
               f"min {ms[0]:.3f}, max {ms[-1]:.3f} over 10 steps after 3 "
@@ -2359,39 +2380,50 @@ def phase_vocoder_times(device):
     return rows
 
 
-def profile_gan_steps(step, state, batches, amp: str) -> float:
+def profile_gan_steps(step, state, batches, amp: str,
+                      cpu: bool = True) -> float:
     """``torch.profiler`` over two GAN steps: the device's busy share of
     the window (the union of the kernels' device intervals over the wall
     time; the profiler's own cost on the host is in the wall time) and the
-    ten kernels with the most device time. Returns the busy share."""
+    ten kernels with the most device time, read from the profiler's raw
+    events (building its event tree takes tens of seconds for a step's
+    ~20,000 launches). Returns the busy share. With ``cpu`` False the
+    profiler records the CUDA activity alone, which costs the host less
+    (no operator records)."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def is_kernel(e) -> bool:
-        return (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for b in batches:
             step(state, b)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_us, end = 0.0, -math.inf
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events() if is_kernel(e)):
-        busy_us += max(0.0, b - max(a, end))
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation()]
+    busy_ns, end = 0, -math.inf
+    for a, b in sorted((e.start_ns(), e.end_ns()) for e in kernels):
+        busy_ns += max(0, b - max(a, end))
         end = max(end, b)
-    busy = busy_us / 1e3 / wall_ms
-    top = sorted((e for e in prof.key_averages() if is_kernel(e)),
-                 key=lambda e: -e.self_device_time_total)[:10]
-    print(f"  profile of {len(batches)} GAN steps ({amp}): {wall_ms:.1f} ms "
-          f"wall, kernels busy {busy_us / 1e3:.1f} ms, busy share "
+    busy = busy_ns / 1e6 / wall_ms
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for e in kernels:
+        by_name[e.name()][0] += e.duration_ns()
+        by_name[e.name()][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    print(f"  profile of {len(batches)} GAN steps ({amp}"
+          f"{'' if cpu else ', CUDA activity alone'}): {wall_ms:.1f} ms "
+          f"wall, kernels busy {busy_ns / 1e6:.1f} ms, busy share "
           f"{busy:.3f}; top kernels by device time: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
-              f"×{e.count}" for e in top), flush=True)
+              f"{name[:60]} {ns / 1e6:.2f} ms ×{n}"
+              for name, (ns, n) in top), flush=True)
     return busy
 
 
@@ -2767,7 +2799,7 @@ def phase_features_gta(smoke: Smoke, device, texts, emotions):
         times.sort()
         paired_ms = (times[4] + times[5]) / 2
         print(f"  paired GAN step, batch {VOC_TIMED_BATCH} × "
-              f"{vcfg.vocoder_train.segment_size}, float32: median "
+              f"{vcfg.vocoder_train.segment_size}, float32, graphed: median "
               f"{paired_ms:.3f} ms, min {times[0]:.3f}, max {times[-1]:.3f}"
               f" (host clock, synchronized, 10 steps after 3 warm-ups) "
               f"[{card_line}]", flush=True)
@@ -3506,6 +3538,34 @@ def compiled_step_calls(on_call):
             setattr(loop, name, fn)
 
 
+@contextlib.contextmanager
+def inference_step_calls(on_call):
+    """``train.loop``'s makers of the compiled eval and synth steps
+    patched so that every call of a step they make goes through
+    ``on_call(name, step, *args)`` ("eval_step" or "synth_step"), which
+    returns its output: on the card ``train()`` evaluates and synthesizes
+    through them."""
+    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
+
+    names = {"make_eval_step": "eval_step", "make_synth_step": "synth_step"}
+    originals = {maker: getattr(loop, maker) for maker in names}
+
+    def patched(maker):
+        def make(*args):
+            step = originals[maker](*args)
+            return lambda *a: on_call(names[maker], step, *a)
+
+        return make
+
+    for maker in originals:
+        setattr(loop, maker, patched(maker))
+    try:
+        yield
+    finally:
+        for maker, fn in originals.items():
+            setattr(loop, maker, fn)
+
+
 def phase_tuned_training(smoke: Smoke, device):
     """Phase 11: efs2-torch-train on train_tuned.yaml under "flash", 20
     steps on phase 5's corpus, replayed from CUDA graphs: a full chunk of
@@ -3515,7 +3575,6 @@ def phase_tuned_training(smoke: Smoke, device):
     float32 model, so the float32 forward only (10 a forward) and no bf16
     kernel. Returns the launches over the run."""
     from expressive_fastspeech2_mandarin_tpu_torch import config as C
-    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
 
     card = nvidia_smi_line()
     # Per call of each compiled step or inference step: (steps, launches);
@@ -3523,8 +3582,6 @@ def phase_tuned_training(smoke: Smoke, device):
     calls: dict[str, list] = {"train_step": [], "eval_step": [],
                               "synth_step": []}
     losses: list[float] = []
-    originals = {name: getattr(loop, name)
-                 for name in ("eval_step", "synth_step")}
 
     def counting(key, steps, fn, *args, **kwargs):
         before = bf16_counts() + flash_counts()
@@ -3544,18 +3601,13 @@ def phase_tuned_training(smoke: Smoke, device):
         n_blocks = t.encoder_layer + t.decoder_layer
         reset_flash_counts()
         reset_bf16_counts()
-        for name, fn in originals.items():
-            setattr(loop, name, functools.partial(counting, name, 1, fn))
-        try:
-            with compiled_step_calls(functools.partial(counting,
-                                                       "train_step")):
-                _, seconds = run_cli("train", [
-                    "-p", y["preprocess"], "-m", y["model"], "-t",
-                    y["train"], "--total_steps", TUNED_STEPS, "--device",
-                    str(device)])
-        finally:
-            for name, fn in originals.items():
-                setattr(loop, name, fn)
+        with compiled_step_calls(functools.partial(
+                counting, "train_step")), inference_step_calls(
+                lambda name, fn, *a: counting(name, 1, fn, *a)):
+            _, seconds = run_cli("train", [
+                "-p", y["preprocess"], "-m", y["model"], "-t",
+                y["train"], "--total_steps", TUNED_STEPS, "--device",
+                str(device)])
         launches = bf16_counts() + flash_counts()
         log = _metrics(tmp / "log" / "train" / "metrics.jsonl")
         means = [r["total_loss"] for r in log]
@@ -4065,7 +4117,6 @@ def phase12_iemocap(smoke: Smoke, device, tmp: Path) -> dict:
         save_generator_npz,
     )
     from expressive_fastspeech2_mandarin_tpu_torch.text import clean_text
-    from expressive_fastspeech2_mandarin_tpu_torch.train import loop
     from expressive_fastspeech2_mandarin_tpu_torch.utils import plotting
     from expressive_fastspeech2_mandarin_tpu_torch.utils.wav import load_wav
 
@@ -4083,8 +4134,6 @@ def phase12_iemocap(smoke: Smoke, device, tmp: Path) -> dict:
 
     calls: dict[str, list] = {"train_step": [], "eval_step": [],
                               "synth_step": []}
-    originals = {name: getattr(loop, name)
-                 for name in ("eval_step", "synth_step")}
 
     def counting(name, steps, fn, *args, **kwargs):
         before = bf16_counts() + flash_counts()
@@ -4100,16 +4149,14 @@ def phase12_iemocap(smoke: Smoke, device, tmp: Path) -> dict:
     handler.emit = lambda record: skips.append(record.getMessage())
     logging.getLogger(plotting.__name__).addHandler(handler)
     flash0, mrf0 = flash_counts(), mrf_counts()
-    for name, fn in originals.items():
-        setattr(loop, name, functools.partial(counting, name, 1, fn))
     try:
-        with compiled_step_calls(functools.partial(counting, "train_step")):
+        with compiled_step_calls(functools.partial(
+                counting, "train_step")), inference_step_calls(
+                lambda name, fn, *a: counting(name, 1, fn, *a)):
             text, seconds = run_cli("pipeline", [
                 *argv, "--total_steps", IEMOCAP_TRAIN_STEPS, "--device",
                 str(device)])
     finally:
-        for name, fn in originals.items():
-            setattr(loop, name, fn)
         logging.getLogger(plotting.__name__).removeHandler(handler)
     train_flash = [a - b for a, b in zip(flash_counts(), flash0)]
     train_mrf = sum(mrf_counts()) - sum(mrf0)
@@ -4544,7 +4591,8 @@ def dp_worker(spec_path: str) -> int:
             broadcast_state(state)
         torch.save(flat_params(state), spec["result"] + ".p0")
         losses, ms, shapes = [], [], set()
-        eval0 = loop.evaluate(state.model, val_ds, cfg, device, layout)
+        eval0 = loop.evaluate(loop.make_eval_step(state, cfg), val_ds,
+                              device)
         epoch = 0
         while len(losses) < DP_STEPS:
             for raw in train_ds.epoch(epoch):
@@ -4563,7 +4611,8 @@ def dp_worker(spec_path: str) -> int:
                 if len(losses) == DP_STEPS:
                     break
             epoch += 1
-        evals = loop.evaluate(state.model, val_ds, cfg, device, layout)
+        evals = loop.evaluate(loop.make_eval_step(state, cfg), val_ds,
+                              device)
         torch.save(flat_params(state), spec["result"] + ".p1")
         reduce_ms = []  # outside the timed steps
         if layout is not None:
@@ -5376,8 +5425,502 @@ def phase_compiled_steps(smoke: Smoke, device):
     return True
 
 
+# ---------------------------------------------------------------------------
+# Phase 14c: the vocoder trainer's compiled steps, evaluation, samples and
+# the GTA forward replayed from CUDA graphs against eager.
+
+GAN_WARM, GAN_TIMED = 3, 10        # untimed, then timed steps
+GAN_CHUNK = 4                      # steps a replay of the multi step
+GAN_SHORT = 8                      # steps of the eager-again and mutant runs
+GAN_LOOP_STEPS, GAN_LOOP_RESUME, GAN_LOOP_BATCH = 8, 12, 4
+# Graphed against eager from one state and the same batches (PERF.md
+# section 6, set from eager against itself before the run that holds
+# them: float32 3.95e-3 and 3.60e-3, bf16 0 and 0): each step's
+# losses within GAN_LOSS_RTOL relative, the parameters' change
+# ||dp - dp_eager|| / ||dp_eager|| within GAN_DELTA_RTOL; the mutant
+# more than 10x past it (it read 0.213-0.253). The inference forwards
+# bit-equal.
+GAN_LOSS_RTOL = GAN_DELTA_RTOL = 1e-2
+
+
+class EagerGraphs:
+    """``graphs.Graphs`` whose ``jit`` returns the function itself: a
+    compiled path's eager body, for comparison."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def jit(self, fn, *args, **kwargs):
+        return fn
+
+
+def gan_params(state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).double()
+                      for m in (state.gen, state.mpd, state.msd)
+                      for p in m.parameters()])
+
+
+def gan_batches(cfg, device, n: int, seed: int):
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+
+    rng = np.random.default_rng(seed)
+    wavs = [harmonic_signal(rng.uniform(1.5, 4.0), rng)
+            for _ in range(N_VOC_WAVS)]
+    sampler = tv.SegmentSampler(cfg, wavs, seed=seed)
+    return [torch.from_numpy(sampler.sample(cfg.vocoder_train.batch_size))
+            .to(device) for _ in range(n)]
+
+
+def gan_run(cfg, device, batches, kind: str, profile: bool = False):
+    """``len(batches)`` GAN steps from ``init_vocoder_train_state``: eager
+    (the ``mark`` path, no events), graphed one a replay, graphed
+    ``GAN_CHUNK`` a replay, or the mutant (graphed, its capture saving and
+    restoring the modules alone, so that the warm-up's moments and counts
+    stay, as a lazily made optimizer state would). Returns each call's ms
+    and report (a chunk's mean), the parameters' change after each whole
+    chunk and at the end, peak memory and, with ``profile``, the busy
+    share over 2 more steps."""
+    import gc
+
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.graphs import (
+        Graphs,
+        module_tensors,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+
+    t_run = time.perf_counter()
+    state = tv.init_vocoder_train_state(cfg, device)
+    p0 = gan_params(state)
+    ends = {*range(GAN_CHUNK, len(batches) + 1, GAN_CHUNK), len(batches)}
+    if kind == "mutant":
+        state.graphs = Graphs(state=lambda: module_tensors(
+            state.gen, state.mpd, state.msd))
+    if kind == "eager":
+        step = tv.make_vocoder_train_step(cfg, device,
+                                          mark=lambda _name: None)
+    elif kind == "chunk":
+        multi = tv.make_vocoder_multi_step(state, cfg, device, GAN_CHUNK)
+        batches = [torch.stack(batches[i:i + GAN_CHUNK])
+                   for i in range(0, len(batches) - GAN_CHUNK + 1,
+                                  GAN_CHUNK)]
+        step = lambda _state, b: multi(b)  # noqa: E731
+    else:
+        step = tv.make_vocoder_train_step(cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, reports, deltas = [], [], {}
+    for b in batches:
+        holder = {}
+        ms.append(synced_ms(lambda: holder.update(r=step(state, b))))
+        reports.append(holder["r"].as_dict())
+        if state.step in ends:
+            deltas[state.step] = gan_params(state) - p0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    reserved = torch.cuda.memory_reserved() / 2**20
+    busy = (profile_gan_steps(step, state, batches[-2:],
+                              f"{cfg.vocoder_train.amp_dtype}, {kind}",
+                              cpu=False)
+            if profile else None)
+    out = {"ms": ms, "reports": reports, "deltas": deltas, "peak": peak,
+           "reserved": reserved, "busy": busy, "step": state.step,
+           "counts": (int(state.opt_g.count), int(state.opt_d.count)),
+           "graphs": state.graphs.count() if state.graphs else 0,
+           "seconds": time.perf_counter() - t_run}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graphs_gan(smoke: Smoke, device, tmp: Path) -> None:
+    """14c, the GAN step at phase 8b's batch (16 × 8192, Config() width),
+    float32 (TF32 off) and bf16 amp: eager, graphed one a replay, graphed
+    four a replay and, in float32, eager again over the first 8 batches
+    (the yardstick: cuDNN's float32 backward sums with atomics; bf16's
+    read 0) and the mutant; times, busy shares, peak memory; losses and
+    the parameters' change against eager."""
+    import numpy as np
+
+    card = nvidia_smi_line()
+    n = GAN_WARM + GAN_TIMED
+    for amp in ("float32", "bfloat16"):
+        cfg = vocoder_config(VOC_TIMED_BATCH, amp)
+        batches = gan_batches(cfg, device, n, seed=4)
+        kinds = ["eager", "graphed", "chunk"]
+        if amp == "float32":
+            kinds += ["eager again", "mutant"]
+        runs = {k: gan_run(cfg, device,
+                           batches[:GAN_SHORT] if k in (
+                               "eager again", "mutant") else batches,
+                           "eager" if k == "eager again" else k,
+                           profile=k in ("eager", "graphed"))
+                for k in kinds}
+        eager = runs["eager"]
+
+        def loss_rel(run):
+            if run is runs["chunk"]:
+                want = [{k: float(np.mean([r[k] for r in eager["reports"][
+                    i:i + GAN_CHUNK]])) for k in run["reports"][0]}
+                    for i in range(0, n - GAN_CHUNK + 1, GAN_CHUNK)]
+            else:
+                want = eager["reports"][:len(run["reports"])]
+            return max(abs(a[k] - b[k]) / abs(b[k])
+                       for a, b in zip(run["reports"], want) for k in a)
+
+        def dp_rel(run):
+            # At the run's last step (a chunk run stops at a multiple of
+            # GAN_CHUNK, the short runs at GAN_SHORT); eager's there too.
+            at = max(run["deltas"])
+            d = eager["deltas"][at]
+            return float((run["deltas"][at] - d).norm() / d.norm())
+
+        rel = {k: (loss_rel(r), dp_rel(r)) for k, r in runs.items()
+               if k != "eager"}
+        d_eager = eager["deltas"][n]
+        short = f" over the first {GAN_SHORT} for eager again and the mutant"
+        lines = "; ".join(f"{k}: losses rel {a:.2e}, dp rel {b:.3e}"
+                          for k, (a, b) in rel.items())
+        lines += "; each run's seconds " + ", ".join(
+            f"{k} {r['seconds']:.1f}" for k, r in runs.items())
+        print(f"  GAN step {amp}, {n} steps from one state"
+              f"{short if amp == 'float32' else ''}, against eager "
+              f"(||dp_eager|| {float(d_eager.norm()):.4e}): {lines}",
+              flush=True)
+        held = [k for k in rel if k in ("graphed", "chunk")]
+        smoke.check(
+            all(rel[k][0] <= GAN_LOSS_RTOL and rel[k][1] <= GAN_DELTA_RTOL
+                for k in held)
+            and all(runs[k]["counts"] == (runs[k]["step"],) * 2
+                    for k in ("graphed", "chunk")),
+            f"{amp}: graphed against eager within losses "
+            f"{GAN_LOSS_RTOL:.0e} and dp {GAN_DELTA_RTOL:.0e}; AdamW "
+            f"counts (generator, discriminators) on the device, after "
+            f"the profiled steps: "
+            f"{[runs[k]['counts'] for k in ('graphed', 'chunk')]}")
+        if "mutant" in rel:
+            smoke.check(rel["mutant"][1] > 10 * GAN_DELTA_RTOL,
+                        f"{amp}: the mutant (warm-up moments and counts "
+                        f"left in the captured state) dp rel "
+                        f"{rel['mutant'][1]:.3e}, losses rel "
+                        f"{rel['mutant'][0]:.2e}: outside the bound "
+                        f"{GAN_DELTA_RTOL:.0e} by more than 10x")
+        for k in ("eager", "graphed", "chunk"):
+            r = runs[k]
+            timed = r["ms"][1:] if k == "chunk" else r["ms"][GAN_WARM:]
+            per = GAN_CHUNK if k == "chunk" else 1
+            timed = [t / per for t in timed]
+            print(f"  GAN step {amp}, batch {VOC_TIMED_BATCH} x "
+                  f"{cfg.vocoder_train.segment_size}, {k}"
+                  + (f" ({GAN_CHUNK} a replay, per step)" if per > 1 else "")
+                  + f": median {float(np.median(timed)):.3f} ms (min "
+                  f"{min(timed):.3f}, max {max(timed):.3f}, "
+                  f"{len(timed)} calls after the first"
+                  + ("" if per > 1 else f" {GAN_WARM}") + "); first call "
+                  f"{r['ms'][0]:.1f} ms"
+                  + (f"; busy share over 2 steps {r['busy']:.3f}"
+                     if r["busy"] is not None else "")
+                  + f"; max_memory_allocated {r['peak']:.1f} MiB above "
+                  f"what was allocated before, reserved {r['reserved']:.1f}"
+                  f" MiB; graphs {r['graphs']} [{card}]", flush=True)
+
+
+def phase_graphs_gan_loop(smoke: Smoke, device, tmp: Path) -> None:
+    """14c, ``train_vocoder`` at Config() width, batch 4, steps_per_call
+    4: each chunk one replay of the multi step's graph, the val batches
+    one graph, the JAX loop's log, val and save steps; then resumed from
+    its checkpoint to step 12, the counts on the device."""
+    import dataclasses
+
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch import graphs
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+
+    card = nvidia_smi_line()
+    rng = np.random.default_rng(6)
+    wavs = [harmonic_signal(rng.uniform(1.5, 4.0), rng)
+            for _ in range(N_VOC_WAVS)]
+    cfg = C.Config(vocoder_train=dataclasses.replace(
+        C.VocoderTrainConfig(), batch_size=GAN_LOOP_BATCH,
+        steps_per_call=GAN_CHUNK, log_step=4, val_step=8, save_step=4))
+    out = tmp / "voc_loop"
+    calls = {"captures": 0, "replays": 0, "chunks": 0}
+    capture, replay = graphs.Compiled._capture, graphs.Compiled._replay
+    maker = tv.make_vocoder_multi_step
+
+    def counted_capture(self, *args):
+        calls["captures"] += 1
+        return capture(self, *args)
+
+    def counted_replay(g, tensors):
+        calls["replays"] += 1
+        return replay(g, tensors)
+
+    def counted_maker(*args):
+        multi = maker(*args)
+
+        def call(batches):
+            calls["chunks"] += 1
+            return multi(batches)
+
+        return call
+
+    graphs.Compiled._capture = counted_capture
+    graphs.Compiled._replay = staticmethod(counted_replay)
+    tv.make_vocoder_multi_step = counted_maker
+    runs = {}
+    try:
+        for total in (GAN_LOOP_STEPS, GAN_LOOP_RESUME):
+            before = dict(calls)
+            t0 = time.perf_counter()
+            state = tv.train_vocoder(cfg, wavs, str(out), total_steps=total,
+                                     device=device, log=lambda *_: None)
+            runs[total] = (state.step, int(state.opt_g.count),
+                           int(state.opt_d.count), state.opt_g.count.device,
+                           {k: calls[k] - before[k] for k in calls},
+                           time.perf_counter() - t0)
+            del state
+    finally:
+        graphs.Compiled._capture = capture
+        graphs.Compiled._replay = staticmethod(replay)
+        tv.make_vocoder_multi_step = maker
+    records = _metrics(out / "metrics.jsonl")
+    got = {"log": [r["step"] for r in records if "mel_l1" in r],
+           "val": [r["step"] for r in records if "val_mel_l1" in r],
+           "save": sorted(int(p.name[:-3]) for p in (out / "ckpt").glob(
+               "*.pt"))}
+    want = {"log": [4, 8, 12], "val": [8], "save": [4, 8, 12]}
+    first, resumed = runs[GAN_LOOP_STEPS], runs[GAN_LOOP_RESUME]
+    # One replay a chunk, plus the four val batches' replays at step 8:
+    # one capture of the chunk and one of the val step, then the resumed
+    # run's chunk.
+    smoke.check(
+        first[:3] == (GAN_LOOP_STEPS,) * 3 and resumed[:3] == (
+            GAN_LOOP_RESUME,) * 3 and first[3].type == "cuda"
+        and first[4] == {"captures": 2, "replays": 2 + 4, "chunks": 2}
+        and resumed[4] == {"captures": 1, "replays": 1, "chunks": 1}
+        and got == want
+        and all(math.isfinite(r["mel_l1"]) for r in records
+                if "mel_l1" in r),
+        f"train_vocoder, steps_per_call {GAN_CHUNK}, batch "
+        f"{cfg.vocoder_train.batch_size}: (step, AdamW counts, count device,"
+        f" calls) {first[:5]} in {first[5]:.2f} s; resumed {resumed[:5]} "
+        f"in {resumed[5]:.2f} s; logged, validated, saved at {got} (the "
+        f"JAX loop's {want}) [{card}]")
+
+
+def phase_graphs_inference(smoke: Smoke, device, tmp: Path) -> dict:
+    """14c, the inference forwards at Config() width, graphed against
+    eager: ``evaluate`` over phase 5's val set under "flash" and the
+    sample synthesis step (10 float32 flash forwards a batch), the
+    vocoder's val step, ``SampleVocoder`` (a float32 generator.npz, 72
+    float32 MRF launches a call) and ``export_gta_mels``. Returns the
+    graphed paths' flash and MRF launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.config import BucketConfig
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.models.hifigan import (
+        save_generator_npz,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        eval_step,
+        synth_step,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import vocoder as tv
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        evaluate,
+        stage_batch,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.sampling import (
+        SampleVocoder,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.state import (
+        CheckpointManager,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.step import (
+        make_eval_step,
+        make_synth_step,
+    )
+
+    card = nvidia_smi_line()
+    corpus_dir = write_training_corpus(str(tmp / "corpus"), 0)
+    cfg = training_config(corpus_dir, str(tmp / "fs2"), "flash")
+    t = cfg.model.transformer
+    n_blocks = t.encoder_layer + t.decoder_layer
+    corpus = PreprocessedCorpus(corpus_dir)
+    state = create_train_state(cfg, corpus.stats, device)
+    val_ds = BucketedDataset(corpus, "val.txt", cfg.train.optimizer.batch_size,
+                             cfg.train.buckets, cfg.model.max_seq_len,
+                             symbol_table=cfg.preprocess.symbol_table)
+    n_batches = sum(1 for _ in val_ds.epoch(0, shuffle=False))
+    launches = {"flash_mha": 0, "mrf_resblock_f32": 0}
+    rows = []
+
+    def flash_of(fn):
+        reset_flash_counts()
+        out = fn()
+        return out, flash_counts()[0]
+
+    eval_step_fn = make_eval_step(state, cfg)
+    ms = {"eager": [], "graphed": []}
+    eager, graphed = [], []
+    for _ in range(GRAPH_WARM + 1):  # graphed: the capturing call first
+        holder = {}
+        ms["eager"].append(synced_ms(lambda: holder.update(r=flash_of(
+            lambda: evaluate(lambda b: eval_step(state.model, b, cfg),
+                             val_ds, device)))))
+        eager.append(holder["r"])
+        ms["graphed"].append(synced_ms(lambda: holder.update(r=flash_of(
+            lambda: evaluate(eval_step_fn, val_ds, device)))))
+        graphed.append(holder["r"])
+        launches["flash_mha"] += graphed[-1][1]
+    diff = max(abs(o[k] - eager[0][0][k]) for o, _ in eager + graphed
+               for k in o)
+    rows.append(("evaluate", diff, eager[0][1], [f for _, f in graphed],
+                 n_blocks * n_batches))
+    print(f"  evaluate over {n_batches} val batch(es), Config() width, "
+          f"'flash': eager {ms['eager']} ms, graphed {ms['graphed']} ms "
+          f"(the first graphed call captures) [{card}]", flush=True)
+
+    batch = next(val_ds.epoch(0, shuffle=False))
+    staged = stage_batch(batch, device)
+    t_mel = batch["mels"].shape[1]
+    synth_fn = make_synth_step(state)
+    (e_mel, e_len, _), f_eager = flash_of(
+        lambda: synth_step(state.model, staged, t_mel))
+    graphed = []
+    for _ in range(2):
+        (g_mel, g_len, _), f = flash_of(lambda: synth_fn(staged, t_mel))
+        graphed.append(f)
+        launches["flash_mha"] += f
+    diff = (float((g_mel - e_mel).abs().max())
+            if torch.equal(g_len, e_len) else math.inf)
+    rows.append(("sample synthesis", diff, f_eager, graphed, n_blocks))
+    check_graph_launches(smoke, "train state's eval and synth graphs",
+                         state.graphs, tmp)
+
+    # The GTA export, from a checkpoint of this state.
+    CheckpointManager(str(tmp / "fs2" / "ckpt")).save(0, state)
+    del state
+    gta = {}
+    for kind in ("eager", "graphed"):
+        saved = tv.Graphs
+        if kind == "eager":
+            tv.Graphs = EagerGraphs
+        try:
+            reset_flash_counts()
+            t0 = time.perf_counter()
+            count = tv.export_gta_mels(cfg, str(tmp / "fs2" / "ckpt"),
+                                       str(tmp / f"gta_{kind}"),
+                                       filenames=("val.txt",), device=device,
+                                       log=lambda *_: None)
+            torch.cuda.synchronize()
+            gta[kind] = (count, flash_counts()[0],
+                         time.perf_counter() - t0)
+        finally:
+            tv.Graphs = saved
+    launches["flash_mha"] += gta["graphed"][1]
+    diff = 0.0
+    for name in sorted(os.listdir(tmp / "gta_eager")):
+        a = np.load(tmp / "gta_eager" / name)
+        b = np.load(tmp / "gta_graphed" / name)
+        diff = max(diff, float(np.abs(a - b).max())
+                   if a.shape == b.shape else math.inf)
+    gta_batches = sum(1 for _ in BucketedDataset(
+        corpus, "val.txt", tv.GTA_BATCH, BucketConfig(),
+        cfg.model.max_seq_len,
+        symbol_table=cfg.preprocess.symbol_table).epoch(0, shuffle=False))
+    rows.append(("GTA export", diff, gta["eager"][1], [gta["graphed"][1]],
+                 n_blocks * gta_batches))
+    print(f"  GTA export of {gta['graphed'][0]} val mels: eager "
+          f"{gta['eager'][2]:.2f} s, graphed {gta['graphed'][2]:.2f} s "
+          f"(captures included) [{card}]", flush=True)
+
+    # The vocoder's val step on a fresh GAN state, four batches.
+    vcfg = vocoder_config(VOC_TIMED_BATCH)
+    vstate = tv.init_vocoder_train_state(vcfg, device)
+    vbatches = gan_batches(vcfg, device, 4, seed=9)
+    plain = tv.make_vocoder_val_step(vcfg, device)
+    compiled = tv.make_vocoder_val_step(vcfg, device, vstate)
+    e_val = [plain(vstate.gen, b) for b in vbatches]
+    g_val = [compiled(vstate.gen, b) for b in vbatches]
+    diff = max(float((a - b).abs()) for a, b in zip(e_val, g_val))
+    rows.append(("vocoder val step", diff, 0, [vstate.graphs.count()], 1))
+    del vstate
+
+    # SampleVocoder on a float32 generator.npz.
+    npz = str(tmp / "generator.npz")
+    save_generator_npz(npz, seeded_states(cfg)[1])
+    scfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, vocoder=dataclasses.replace(cfg.model.vocoder,
+                                               ckpt_path=npz)))
+    sampler = SampleVocoder(scfg, device)
+    mel = np.random.default_rng(2).normal(-4, 2, (t_mel, 80)).astype(
+        np.float32)
+    compiled = sampler._generator
+    reset_mrf_counts()
+    sampler._generator = sampler.generator
+    e_wav = sampler.vocode(mel, t_mel - 13)
+    e_mrf = mrf_counts()[1]
+    sampler._generator = compiled
+    g_wav, g_mrf = [], []
+    for _ in range(2):
+        reset_mrf_counts()
+        g_wav.append(sampler.vocode(mel, t_mel - 13))
+        g_mrf.append(mrf_counts()[1])
+        launches["mrf_resblock_f32"] += g_mrf[-1]
+    diff = max(float(np.abs(w - e_wav).max()) for w in g_wav)
+    per_call = 2 * len(DILATIONS) * len(sampler.generator.resblocks)
+    rows.append(("SampleVocoder", diff, e_mrf, g_mrf, per_call))
+    check_graph_launches(smoke, "SampleVocoder's graphs",
+                         compiled.owner, tmp)
+
+    smoke.check(
+        all(d == 0.0 and e == want and all(f == want for f in g)
+            for name, d, e, g, want in rows if name != "vocoder val step")
+        and rows[3][1] == 0.0 and rows[3][3] == [1],
+        "inference forwards graphed against eager (max|diff|, launches "
+        "eager, graphed calls, expected; flash forwards, or float32 MRF "
+        "for SampleVocoder, or graphs held for the val step): " + "; ".join(
+            f"{name} {d:.3e}, {e}, {g}, {want}"
+            for name, d, e, g, want in rows) + f" [{card}]")
+    return launches
+
+
+def phase_compiled_gan(smoke: Smoke, device):
+    """Phase 14c: the vocoder trainer's steps, evaluation, samples and the
+    GTA forward from CUDA graphs against eager."""
+    with tempfile.TemporaryDirectory() as tmp_dir, dumpable_graphs():
+        tmp = Path(tmp_dir)
+        seconds = []
+        for part in (phase_graphs_gan, phase_graphs_gan_loop,
+                     phase_graphs_inference):
+            t0 = time.perf_counter()
+            out = part(smoke, device, tmp)
+            seconds.append(f"{part.__name__} {time.perf_counter() - t0:.1f}")
+        print(f"  14c's parts, seconds: {', '.join(seconds)}", flush=True)
+        return out
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
-          "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14")
+          "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14", "14c")
 
 
 def main(argv=None) -> int:
@@ -5472,6 +6015,9 @@ def main(argv=None) -> int:
              "on two ranks", phase_data_parallel, smoke, device, root)
     run("14", "compiled steps: synthesis and training replayed from CUDA "
         "graphs against eager", phase_compiled_steps, smoke, device)
+    gan = run("14c", "compiled steps: the GAN step, its chunk, the vocoder "
+              "loop, evaluation, samples and the GTA forward replayed from "
+              "CUDA graphs against eager", phase_compiled_gan, smoke, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if smoke.failures or any(results.get(key) is None for key in chosen):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
@@ -5508,7 +6054,8 @@ def main(argv=None) -> int:
         "source": f"{PKG}/csrc/mrf_resblock.cu",
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "mrf_resblock.py:186",
-        "launches": f32_launches + fronts["launches"]["mrf_resblock_f32"],
+        "launches": (f32_launches + fronts["launches"]["mrf_resblock_f32"]
+                     + gan["mrf_resblock_f32"]),
         "max_abs_err": max(worst[1], worst_long[1]),
         "shape": f"{len(STAGE_SHAPES) * len(KERNEL_SIZES)} resblocks float32 "
                  f"(TF32 off), B = {BATCH}, (C, T) in {list(STAGE_SHAPES)}, "
@@ -5531,7 +6078,8 @@ def main(argv=None) -> int:
                     "flash_mha.py:53",
         "launches": (train_launches[0] + features["launches"]["flash_mha"]
                      + entry["launches"]["flash_mha"] + tuned["float32"][0]
-                     + fronts["launches"]["flash_mha"] + dp["launches"][0]),
+                     + fronts["launches"]["flash_mha"] + dp["launches"][0]
+                     + gan["flash_mha"]),
         "max_abs_err": worst_flash,
         **flash_row,
     }, {

@@ -24,6 +24,7 @@ def main(argv: list[str] | None = None) -> None:
     from ..data import BucketedDataset, PreprocessedCorpus
     from ..train import CheckpointManager, create_train_state
     from ..train.loop import evaluate
+    from ..train.step import make_eval_step
 
     cfg = config_from_args(args)
     corpus = PreprocessedCorpus(cfg.preprocess.path.preprocessed_path)
@@ -33,7 +34,8 @@ def main(argv: list[str] | None = None) -> None:
     val_ds = BucketedDataset(corpus, "val.txt", cfg.train.optimizer.batch_size,
                              cfg.train.buckets, cfg.model.max_seq_len,
                              symbol_table=cfg.preprocess.symbol_table)
-    losses = evaluate(state.model, val_ds, cfg, device)
+    # The compiled eval step: a CUDA graph per bucket on the card.
+    losses = evaluate(make_eval_step(state, cfg), val_ds, device)
     print(f"Validation at step {state.step}: " + ", ".join(
         f"{k}={v:.4f}" for k, v in losses.items()))
 

@@ -358,6 +358,7 @@ def validate_vocoder(cfg, vocoder_ckpt: str, wav_dir: str, n: int = 8,
     whose frames align with the real trimmed waveform."""
     from ..dsp.quality import wav_quality
     from ..dsp.stft import MelSTFT
+    from ..graphs import Graphs, module_tensors
     from ..interop.torch_ckpt import load_vocoder_state
     from ..models import Generator
     from ..train.vocoder import load_corpus_wavs, load_paired_corpus
@@ -368,6 +369,9 @@ def validate_vocoder(cfg, vocoder_ckpt: str, wav_dir: str, n: int = 8,
     gen = Generator(cfg.model.vocoder, cfg.preprocess.mel.n_mel_channels)
     gen.load_state_dict(load_vocoder_state(vocoder_ckpt), strict=True)
     gen = gen.to(device, dtype).eval()
+    # JAX's jitted generator: on the card a CUDA graph per mel shape.
+    vocode = Graphs(state=lambda: module_tensors(gen)).jit(
+        lambda mel: gen(mel).float())
     sr = cfg.preprocess.audio.sampling_rate
     hop = cfg.preprocess.stft.hop_length
     stft_cpu = MelSTFT(cfg.preprocess.stft, cfg.preprocess.mel, sr, "cpu")
@@ -416,8 +420,8 @@ def validate_vocoder(cfg, vocoder_ckpt: str, wav_dir: str, n: int = 8,
         frames = int(mel_in.shape[1])
         mel = pad_frames(mel_in)
         with torch.inference_mode():
-            wav_hat = gen(torch.from_numpy(mel).to(device, dtype)
-                          ).float().cpu().numpy()
+            wav_hat = vocode(torch.from_numpy(mel).to(device, dtype)
+                             ).cpu().numpy()
         t = min(frames * hop, len(wav))
         ref_t, hat_t = wav[:t], wav_hat[0][:t]
         rec = {"index": int(i), "frames": frames,

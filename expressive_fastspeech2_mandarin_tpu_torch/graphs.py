@@ -20,7 +20,8 @@ replay in the pool can overwrite them. The key is the inputs' shapes,
 dtypes and devices, the static (non-tensor) arguments, grad and inference
 mode and the TF32 switches (``train.loop.matmul_precision``): a graph keeps
 the kernels it was captured with. An owner keeps ``MAX_GRAPHS`` graphs a
-function, the least recently used dropped first.
+function (or the ``max_graphs`` it was compiled with), the least recently
+used dropped first.
 
 What a graph reads besides its inputs, the owner's weights and buffers, it
 reads at the addresses it was captured with. The owner names those tensors
@@ -198,8 +199,9 @@ class Graphs:
         self._held: tuple[list[torch.Tensor], list[tuple[int, int]]] | None
         self._held = None
 
-    def jit(self, fn: Callable, mutates: bool = False) -> "Compiled":
-        c = Compiled(self, fn, mutates)
+    def jit(self, fn: Callable, mutates: bool = False,
+            max_graphs: int = MAX_GRAPHS) -> "Compiled":
+        c = Compiled(self, fn, mutates, max_graphs)
         self.compiled.add(c)
         return c
 
@@ -277,8 +279,10 @@ class Compiled:
     made by ``Graphs.jit``. Positional arguments are tensors, dicts of
     tensors or static values; keyword arguments are static."""
 
-    def __init__(self, owner: Graphs, fn: Callable, mutates: bool):
+    def __init__(self, owner: Graphs, fn: Callable, mutates: bool,
+                 max_graphs: int = MAX_GRAPHS):
         self.owner, self.fn, self.mutates = owner, fn, mutates
+        self.max_graphs = max_graphs
         self.graphs: OrderedDict[tuple, _Graph] = OrderedDict()
 
     def __call__(self, *args, **kwargs):
@@ -338,6 +342,6 @@ class Compiled:
         owner.captured()
         g = _Graph(graph, inputs, outputs, launches)
         self.graphs[key] = g
-        while len(self.graphs) > MAX_GRAPHS:
+        while len(self.graphs) > self.max_graphs:
             self.graphs.popitem(last=False)
         return g

@@ -28,7 +28,9 @@ step, written as a Chrome trace under ``<log_path>/profile``.
 The steps are the compiled ones, as the JAX loop takes its jitted steps
 (``train/loop.py:121-124`` there): ``train.step.make_train_step``, a CUDA
 graph per bucket on the card in one process, eager on the CPU and under a
-data-parallel layout (gloo's collectives cannot be captured). With
+data-parallel layout (gloo's collectives cannot be captured); evaluation
+and the samples' synthesis likewise (``make_eval_step``,
+``make_synth_step``), on the same graphs. With
 ``steps_per_call`` > 1, consecutive batches of one bucket run as chunks of
 that many steps (``chunks``), as the JAX package's scanned steps do: a
 full chunk is one call of the multi step (``make_train_multi_step``, one
@@ -60,7 +62,7 @@ import contextlib
 import math
 import os
 from collections import deque
-from collections.abc import Iterable, Iterator
+from collections.abc import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -68,7 +70,7 @@ import torch
 from ..config import MATMUL_PRECISIONS, Config
 from ..data import BucketedDataset, PreprocessedCorpus
 from ..device import resolve_device
-from ..parallel.mesh import Layout, make_layout
+from ..parallel.mesh import make_layout
 from ..utils.logging import TrainLogger
 from ..utils.plotting import expand_by_duration, plot_mel, save_mel_plot
 from ..utils.wav import save_wav
@@ -77,11 +79,11 @@ from .sampling import SampleVocoder
 from .state import CheckpointManager, TrainState, create_train_state
 from .step import (
     Batch,
-    eval_step,
+    make_eval_step,
+    make_synth_step,
     make_train_multi_step,
     make_train_step,
     stack_batches,
-    synth_step,
 )
 
 _LOSS_KEYS = ("total_loss", "mel_loss", "mel_postnet_loss", "pitch_loss",
@@ -152,28 +154,28 @@ def chunks(batches: Iterable[dict], spc: int) -> Iterator[list[dict]]:
         pending = pending[1:]
 
 
-def evaluate(model, val_ds: BucketedDataset, cfg: Config,
-             device: torch.device,
-             layout: Layout | None = None) -> dict[str, float]:
-    """Sample-weighted means of the teacher-forced losses over the whole
-    val set; under a data-parallel ``layout`` a collective, every batch's
-    losses the global ones (``eval_step``), weighed alike on every
-    rank."""
+def evaluate(step: Callable[[Batch], LossReport], val_ds: BucketedDataset,
+             device: torch.device) -> dict[str, float]:
+    """Sample-weighted means of the teacher-forced losses of ``step`` (the
+    compiled eval step, ``make_eval_step``) over the whole val set, read
+    after each call; under a data-parallel layout a collective, every
+    batch's losses the global ones, weighed alike on every rank."""
     sums = np.zeros(len(_LOSS_KEYS))
     count = 0
     for batch in val_ds.epoch(0, shuffle=False):
         b = batch["speakers"].shape[0]
-        report = eval_step(model, stage_batch(batch, device), cfg, layout)
+        report = step(stage_batch(batch, device))
         sums += np.array([float(x) for x in report]) * b
         count += b
     return dict(zip(_LOSS_KEYS, sums / max(count, 1)))
 
 
-def save_synth_sample(model, val_ds: BucketedDataset, cfg: Config,
-                      device: torch.device, step: int,
+def save_synth_sample(synth: Callable, val_ds: BucketedDataset,
+                      cfg: Config, device: torch.device, step: int,
                       sampler: SampleVocoder, stats: dict,
                       logger: TrainLogger) -> str:
-    """Synthesize the first val batch free-running, at its mel bucket, and
+    """Synthesize the first val batch free-running through ``synth`` (the
+    compiled synthesis step, ``make_synth_step``), at its mel bucket, and
     save the predicted mels and lengths, the first utterance's figures
     (``step<N>.png``, and to ``logger`` the predicted and ground-truth
     panels with pitch and energy, from the corpus ``stats``, as the JAX
@@ -181,8 +183,8 @@ def save_synth_sample(model, val_ds: BucketedDataset, cfg: Config,
     ``sampler`` (when both are longer than 4 frames, as the JAX loop
     does); returns the directory."""
     batch = next(val_ds.epoch(0, shuffle=False))
-    mel, mel_lens, _ = synth_step(model, stage_batch(batch, device),
-                                  max_mel_len=batch["mels"].shape[1])
+    mel, mel_lens, _ = synth(stage_batch(batch, device),
+                             batch["mels"].shape[1])
     out_dir = os.path.join(cfg.train.path.result_path or "output/result",
                            "train_samples")
     os.makedirs(out_dir, exist_ok=True)
@@ -346,6 +348,8 @@ def train(cfg: Config, restore_step: int | None = None,
     spc = tc.steps_per_call
     single_step = make_train_step(state, cfg)
     multi_step = make_train_multi_step(state, cfg, spc) if spc > 1 else None
+    eval_fn = make_eval_step(state, cfg)
+    synth_fn = make_synth_step(state)
 
     def run_group(group: list[Batch]) -> LossReport:
         """The group's steps and the report it logs: a full chunk's mean,
@@ -397,12 +401,11 @@ def train(cfg: Config, restore_step: int | None = None,
                         f"non-finite loss at step {step}: {losses} "
                         f"(emergency checkpoint saved)")
             if crossed(s.val_step):
-                val_losses = evaluate(state.model, val_ds, cfg, device,
-                                      layout)
+                val_losses = evaluate(eval_fn, val_ds, device)
                 if is_main:
                     val_logger.log_losses(step, val_losses)
             if crossed(s.synth_step) and is_main:
-                save_synth_sample(state.model, val_ds, cfg, device, step,
+                save_synth_sample(synth_fn, val_ds, cfg, device, step,
                                   sampler, corpus.stats, logger)
             if crossed(s.save_step):
                 ckpt.save(step, state)

@@ -6,7 +6,9 @@ A HiFi-GAN generator from ``cfg.model.vocoder.ckpt_path`` (a native
 Griffin-Lim (20 iterations, the 0.95-peak rescale), both on the loop's
 device: on the card the generator's resblocks run the float32 MRF kernel,
 and Griffin-Lim runs there too (the JAX package pins it to the CPU only
-because remote TPU backends lack complex FFTs).
+because remote TPU backends lack complex FFTs). The generator is compiled
+as the JAX package's ``_voc_fn`` (an ``lru_cache`` of 8 jits, one per
+padded length): on the card a CUDA graph per padded length, 8 kept.
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ import torch
 
 from ..config import Config
 from ..dsp.stft import MelSTFT
+from ..graphs import Graphs, module_tensors
 from ..interop.torch_ckpt import load_vocoder_state
 from ..models import Generator
 from ..synth.synthesizer import rescale_peaks
 
 SAMPLE_GRIFFIN_LIM_ITERS = 20
+VOC_FN_CACHE = 8  # padded lengths compiled, as JAX's _voc_fn lru_cache
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -45,6 +49,9 @@ class SampleVocoder:
             gen.load_state_dict(load_vocoder_state(voc.ckpt_path),
                                 strict=True)
             self.generator = gen.to(device).eval()
+            self._generator = Graphs(
+                state=lambda: module_tensors(self.generator)).jit(
+                    self.generator, max_graphs=VOC_FN_CACHE)
         pre = cfg.preprocess
         self.stft = MelSTFT(pre.stft, pre.mel, pre.audio.sampling_rate,
                             device)
@@ -68,7 +75,7 @@ class SampleVocoder:
             mel_in = np.full((1, t_pad, mel.shape[1]), np.log(1e-5),
                              np.float32)
             mel_in[0, :t] = mel[:t]
-            wav = self.generator(torch.from_numpy(mel_in).to(self.device))
+            wav = self._generator(torch.from_numpy(mel_in).to(self.device))
             return wav[0, : t * self.hop].float().cpu().numpy()
         wav = self.stft.mel_to_audio(
             torch.from_numpy(mel[None, :t]).to(self.device),

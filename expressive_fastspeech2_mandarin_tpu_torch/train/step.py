@@ -25,12 +25,17 @@ that every rank holds the global batch's loss and gradient, as the JAX
 package's step on a sharded batch returns them; ``eval_step``'s losses are
 the global ones too.
 
-``make_train_step`` and ``make_train_multi_step`` are the JAX package's
-compiled steps (``train/step.py:93-120`` there): on the card one CUDA graph
-per bucket (``graphs.Graphs``), the multi step ``n_steps`` optimizer steps
-over a stacked batch in one replay, as JAX's ``lax.scan``; on the CPU, and
-under a data-parallel layout (gloo's collectives cannot be captured), the
-same steps eagerly.
+``make_train_step``, ``make_train_multi_step``, ``make_eval_step`` and
+``make_synth_step`` are the JAX package's compiled steps
+(``train/step.py:93-165`` there): on the card one CUDA graph per bucket
+on the state's graphs (``graphs.Graphs``), the multi step ``n_steps``
+optimizer steps over a stacked batch in one replay, as JAX's
+``lax.scan``; on the CPU, and under a data-parallel layout (gloo's
+collectives cannot be captured), the same steps eagerly. The eval and
+synth graphs read the weights and BatchNorm's running statistics at the
+addresses the train graphs write them, so they share the state's
+graphs: a train replay writes them in place and keeps every graph, an
+eager write drops them all.
 """
 
 from __future__ import annotations
@@ -213,3 +218,27 @@ def synth_step(model: FastSpeech2, batch: Batch, max_mel_len: int,
                 max_mel_len=max_mel_len, p_control=p_control,
                 e_control=e_control, d_control=d_control)
     return out.postnet_mel, out.mel_lens, out.durations_rounded
+
+
+def make_eval_step(state: TrainState, cfg: Config):
+    """``eval(batch) -> LossReport``: ``eval_step`` on ``state.model``
+    (the JAX package's ``make_eval_step``); on the card one CUDA graph per
+    bucket on the state's graphs, eager on CPU tensors and under a
+    data-parallel layout (the losses are then the global ones)."""
+    if state.layout is not None:
+        return lambda batch: eval_step(state.model, batch, cfg, state.layout)
+    return train_graphs(state).jit(
+        lambda batch: eval_step(state.model, batch, cfg))
+
+
+def make_synth_step(state: TrainState):
+    """``synth(batch, max_mel_len) -> (postnet mel, mel_lens,
+    durations)``: ``synth_step`` on ``state.model`` (the JAX package's
+    ``make_synth_step``); on the card one CUDA graph per batch shape and
+    mel bucket on the state's graphs, eager on CPU tensors and under a
+    data-parallel layout, as the steps are there."""
+    def synth(batch: Batch, max_mel_len: int):
+        return synth_step(state.model, batch, max_mel_len)
+
+    return synth if state.layout is not None else train_graphs(state).jit(
+        synth)

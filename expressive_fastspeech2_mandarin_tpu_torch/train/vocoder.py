@@ -36,13 +36,26 @@ frames a segment with the Tacotron centre padding (33 frames per 8192
 samples, not 32), the convention of the generator's input mels; the first
 MSD scale has weight norm, not spectral norm.
 
+Both optimizers are ``VocoderAdamW``: optax's adamw written out, its
+update count, moments and gradients on the parameters' device from the
+start, the learning rate computed there from the count.
+
+The steps are the JAX package's compiled ones (``jax.jit`` there): on
+the card ``make_vocoder_train_step`` replays one CUDA graph per state and
+batch shape (``graphs.Graphs``, ``vocoder_graphs``),
+``make_vocoder_multi_step`` ``n_steps`` updates over stacked batches in
+one replay (JAX's ``lax.scan``), and the val step one graph per batch
+shape; on the CPU the same bodies run eagerly. A step timed with
+``mark`` runs eagerly, as CUDA events cannot be recorded inside a replay.
+
 With ``steps_per_call`` > 1 the loop runs chunks of that many steps, as
-the JAX package's lax.scan chunks do: a chunk's steps are the same eager
-steps, on the same windows, as one by one; the cadences are checked when
-a chunk ends (``step % max(every, spc) < spc``), a chunk logs its steps'
-mean losses, and the last chunk runs whole, so the run may end past
-``total_steps``, as JAX's does. The JAX package's retry of a remote TPU's
-transient dispatch errors is not here.
+the JAX package's lax.scan chunks do: a chunk's batches are staged
+stacked and run by the multi step, the same steps on the same windows as
+one by one; the cadences are checked when a chunk ends (``step %
+max(every, spc) < spc``), a chunk logs its steps' mean losses, and the
+last chunk runs whole, so the run may end past ``total_steps``, as JAX's
+does. The JAX package's retry of a remote TPU's transient dispatch
+errors is not here.
 """
 
 from __future__ import annotations
@@ -51,7 +64,7 @@ import dataclasses
 import json
 import os
 import time
-from collections.abc import Callable
+from collections.abc import Callable, Iterable
 from typing import NamedTuple
 
 import numpy as np
@@ -61,6 +74,7 @@ from ..config import BucketConfig, Config, MelConfig
 from ..data import BucketedDataset, PreprocessedCorpus
 from ..device import resolve_device
 from ..dsp.stft import MelSTFT
+from ..graphs import Compiled, Graphs, module_tensors
 from ..models import FastSpeech2
 from ..models.hifigan import Generator, save_generator_npz
 from ..models.hifigan_disc import (
@@ -84,9 +98,11 @@ class VocoderTrainState:
     gen: Generator               # weight-norm parameterized
     mpd: MPD
     msd: MSD
-    opt_g: torch.optim.AdamW
-    opt_d: torch.optim.AdamW
+    opt_g: "VocoderAdamW"
+    opt_d: "VocoderAdamW"
     step: int = 0
+    # The compiled steps' CUDA graphs (``vocoder_graphs``).
+    graphs: Graphs | None = dataclasses.field(default=None, repr=False)
 
 
 class VocoderLossReport(NamedTuple):
@@ -109,35 +125,125 @@ def chunk_mean(reports: list[VocoderLossReport]) -> VocoderLossReport:
                                for xs in zip(*reports)))
 
 
-def _discriminator_params(state: VocoderTrainState) -> dict:
-    return {**{f"mpd.{n}": p for n, p in state.mpd.named_parameters()},
-            **{f"msd.{n}": p for n, p in state.msd.named_parameters()}}
-
-
-def vocoder_lr(cfg: Config, count: int) -> float:
-    """The learning rate of the ``count``-th update (counted from 0):
-    ``optax.exponential_decay(staircase=True)`` read before the update, as
-    optax reads it."""
+def vocoder_lr(cfg: Config, count: torch.Tensor | int) -> torch.Tensor:
+    """The learning rate of the ``count``-th update (counted from 0, an int
+    or an integer tensor on any device): ``optax.exponential_decay(
+    staircase=True)`` read before the update, as optax reads it, a float32
+    tensor on the count's device."""
     vcfg = cfg.vocoder_train
-    return vcfg.learning_rate * vcfg.lr_decay ** (count
-                                                  // vcfg.lr_decay_steps)
+    decays = torch.div(torch.as_tensor(count), vcfg.lr_decay_steps,
+                       rounding_mode="floor").float()
+    return vcfg.learning_rate * torch.pow(vcfg.lr_decay, decays)
+
+
+class VocoderAdamW:
+    """``optax.adamw`` (eps 1e-8, no eps_root; the decay on the parameter
+    before the update) with ``vocoder_lr``'s schedule, over named
+    parameters, updated in place by ``step(grads)``.
+
+    Written out on the pattern of ``train.schedule.Optimizer`` rather than
+    ``torch.optim.AdamW(capturable=True)``: the update count, the moments
+    and each parameter's ``.grad`` are made on the parameters' device when
+    the optimizer is (torch's AdamW makes its state at the first step, so
+    a graph's warm-up steps would leave their moments and counts in the
+    state the capture reads), and the learning rate is computed from the
+    count on the device inside the step, in the same code on the CPU and
+    the card. ``step`` copies the gradients into the ``.grad`` tensors,
+    which a graph writes in place: after a replay they hold its update's
+    gradient."""
+
+    def __init__(self, named_params: Iterable[tuple[str, torch.Tensor]],
+                 cfg: Config):
+        self.cfg = cfg
+        self.names: list[str] = []
+        self.params: list[torch.Tensor] = []
+        for name, p in named_params:
+            self.names.append(name)
+            self.params.append(p)
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=self.params[0].device)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.grads = [torch.zeros_like(p) for p in self.params]
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+
+    @property
+    def lr(self) -> float:
+        """The learning rate of the next update (read from the device)."""
+        return float(vocoder_lr(self.cfg, self.count))
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the optimizer's state, the count included."""
+        return [self.count, *self.mu, *self.nu, *self.grads]
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor]) -> None:
+        vcfg = self.cfg.vocoder_train
+        b1, b2 = vcfg.adam_betas
+        torch._foreach_copy_(self.grads, grads)
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
+        n = (self.count + 1).float()
+        denom = torch._foreach_div(self.nu, 1.0 - b2 ** n)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, 1e-8)
+        update = torch._foreach_div(self.mu, 1.0 - b1 ** n)
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(update, self.params, alpha=vcfg.weight_decay)
+        torch._foreach_mul_(update, -vocoder_lr(self.cfg, self.count))
+        torch._foreach_add_(self.params, update)
+        self.count.add_(1)
+
+    def state_dict(self) -> dict:
+        """``{count, exp_avg, exp_avg_sq}``, the moments by parameter name
+        (on the CPU)."""
+        def named(ts):
+            return {n: t.detach().cpu().clone()
+                    for n, t in zip(self.names, ts)}
+
+        return {"count": int(self.count), "exp_avg": named(self.mu),
+                "exp_avg_sq": named(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: dict) -> None:
+        """A ``state_dict`` in place (so that the graphs that read these
+        tensors stay valid); moments a count-0 dict lacks are zeros."""
+        self.count.fill_(int(saved["count"]))
+        for key, ts in (("exp_avg", self.mu), ("exp_avg_sq", self.nu)):
+            values = saved[key]
+            if values and set(values) != set(self.names):
+                raise KeyError("optimizer state does not match the "
+                               "parameters")
+            for name, t in zip(self.names, ts):
+                if name in values:
+                    t.copy_(values[name])
+                else:
+                    t.zero_()
 
 
 def make_vocoder_optimizers(cfg: Config, gen: Generator, mpd: MPD, msd: MSD
-                            ) -> tuple[torch.optim.AdamW, torch.optim.AdamW]:
-    """AdamW for the generator and for both discriminators together:
-    ``optax.adamw`` (eps 1e-8, no eps_root; the decay on the parameter
-    before the update, both are). The learning rate is set from
-    ``vocoder_lr`` before every update."""
-    vcfg = cfg.vocoder_train
+                            ) -> tuple[VocoderAdamW, VocoderAdamW]:
+    """AdamW for the generator and for both discriminators together (the
+    discriminators' parameters under ``mpd.``/``msd.``), each with its
+    state made now."""
+    return (VocoderAdamW(gen.named_parameters(), cfg),
+            VocoderAdamW([*((f"mpd.{n}", p) for n, p in mpd.named_parameters()),
+                          *((f"msd.{n}", p) for n, p in msd.named_parameters())],
+                         cfg))
 
-    def adamw(params):
-        return torch.optim.AdamW(params, lr=vcfg.learning_rate,
-                                 betas=vcfg.adam_betas, eps=1e-8,
-                                 weight_decay=vcfg.weight_decay)
 
-    return (adamw(gen.parameters()),
-            adamw([*mpd.parameters(), *msd.parameters()]))
+def vocoder_graphs(state: VocoderTrainState) -> Graphs:
+    """The state's graphs: they read and write the three modules'
+    parameters and both optimizers' state. The GAN step draws no random
+    numbers (no dropout, no noise), so they register no generator."""
+    if state.graphs is None:
+        state.graphs = Graphs(
+            state=lambda: [*module_tensors(state.gen, state.mpd, state.msd),
+                           *state.opt_g.tensors(), *state.opt_d.tensors()])
+    return state.graphs
 
 
 def init_vocoder_train_state(cfg: Config, device: torch.device,
@@ -174,51 +280,26 @@ def init_vocoder_train_state(cfg: Config, device: torch.device,
 # Checkpoints: the optimizers' state by parameter name
 
 
-def _adam_state(opt: torch.optim.AdamW, named: dict) -> dict:
-    count, mu, nu = 0, {}, {}
-    for name, p in named.items():
-        st = opt.state.get(p)
-        if st:
-            count = int(st["step"])
-            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
-    return {"count": count, "exp_avg": mu, "exp_avg_sq": nu}
-
-
-def _load_adam_state(opt: torch.optim.AdamW, named: dict, saved: dict
-                     ) -> None:
-    opt.state.clear()
-    if not saved["count"]:
-        return
-    for name, p in named.items():
-        opt.state[p] = {
-            "step": torch.tensor(float(saved["count"])),
-            "exp_avg": saved["exp_avg"][name].to(p.device, p.dtype).clone(),
-            "exp_avg_sq": saved["exp_avg_sq"][name].to(
-                p.device, p.dtype).clone()}
-
-
 def vocoder_checkpoint(state: VocoderTrainState) -> dict:
     """The state as a dict of tensors: the three modules' state dicts, each
     optimizer's update count and moments by parameter name (the
     discriminators' under ``mpd.``/``msd.``), and the step."""
     return {"gen": state.gen.state_dict(), "mpd": state.mpd.state_dict(),
             "msd": state.msd.state_dict(),
-            "opt_g": _adam_state(state.opt_g,
-                                 dict(state.gen.named_parameters())),
-            "opt_d": _adam_state(state.opt_d, _discriminator_params(state)),
-            "step": state.step}
+            "opt_g": state.opt_g.state_dict(),
+            "opt_d": state.opt_d.state_dict(), "step": state.step}
 
 
 def load_vocoder_checkpoint(state: VocoderTrainState, ckpt: dict) -> None:
     """A ``vocoder_checkpoint`` dict (or ``interop.from_jax.
-    vocoder_train_state_from_jax``'s) into ``state`` in place."""
+    vocoder_train_state_from_jax``'s) into ``state`` in place: the counts
+    and moments stay on the parameters' device, and the state's graphs are
+    dropped at their next call (every tensor was written)."""
     state.gen.load_state_dict(ckpt["gen"], strict=True)
     state.mpd.load_state_dict(ckpt["mpd"], strict=True)
     state.msd.load_state_dict(ckpt["msd"], strict=True)
-    _load_adam_state(state.opt_g, dict(state.gen.named_parameters()),
-                     ckpt["opt_g"])
-    _load_adam_state(state.opt_d, _discriminator_params(state),
-                     ckpt["opt_d"])
+    state.opt_g.load_state_dict(ckpt["opt_g"])
+    state.opt_d.load_state_dict(ckpt["opt_d"])
     state.step = int(ckpt["step"])
 
 
@@ -289,51 +370,56 @@ def _amp(cfg: Config) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda t: t
 
 
-def make_vocoder_val_step(cfg: Config, device: torch.device):
-    """``val_step(gen, batch) -> float``: copy-synthesis full-band mel L1
-    of the generator alone on one batch, of context windows or, paired,
-    of ``{"mel", "wav"}``."""
+def make_vocoder_val_step(cfg: Config, device: torch.device,
+                          state: VocoderTrainState | None = None):
+    """``val_step(gen, batch) -> 0-d tensor``: copy-synthesis full-band mel
+    L1 of the generator alone on one batch, of context windows or, paired,
+    of ``{"mel", "wav"}``, on the device (JAX's ``make_vocoder_val_step``).
+    With ``state`` (``gen`` then is ``state.gen``) it is compiled on the
+    state's graphs: on the card one CUDA graph per batch shape, replayed
+    under ``no_grad``."""
     mel_in, mel_loss = vocoder_mels(cfg, device)
     amp = _amp(cfg)
 
     @torch.no_grad()
-    def val_step(gen: Generator, batch: Batch) -> float:
+    def val_step(gen: Generator, batch: Batch) -> torch.Tensor:
         mel, y = _mel_and_target(cfg, mel_in, batch, device)
         wav = gen(amp(mel), fast=False).to(y.dtype)
-        return float(torch.mean(torch.abs(loss_mel_of_wav(mel_loss, y)
-                                          - loss_mel_of_wav(mel_loss, wav))))
+        return torch.mean(torch.abs(loss_mel_of_wav(mel_loss, y)
+                                    - loss_mel_of_wav(mel_loss, wav)))
 
-    return val_step
+    if state is None:
+        return val_step
+    compiled = vocoder_graphs(state).jit(val_step)
+
+    @torch.no_grad()
+    def compiled_val_step(gen: Generator, batch: Batch) -> torch.Tensor:
+        return compiled(gen, batch)
+
+    return compiled_val_step
 
 
 STEP_SPANS = ("generator_forward", "discriminator_update",
               "generator_update")
 
 
-def make_vocoder_train_step(cfg: Config, device: torch.device,
-                            mark: Callable[[str], None] | None = None):
-    """``train_step(state, batch) -> VocoderLossReport``, one GAN update of
-    ``state`` in place; ``batch`` is (B, segment + n_fft - hop) float32
-    context windows (float64 windows and a float64 state give a float64
-    step, the yardstick of the float32 one) or, in paired mode, ``{"mel":
-    (B, segment/hop, n_mels), "wav": (B, segment)}``, the mel taken as it
-    is. After it, each parameter's ``.grad`` holds the gradient of its
-    update: the discriminators' of their loss, the generator's of its loss
-    against the updated discriminators.
+def _grads(loss: torch.Tensor, params: list[torch.Tensor]
+           ) -> list[torch.Tensor]:
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
 
-    ``mark``, when given, is called with each name of ``STEP_SPANS`` as
-    that span of the step has been issued (a timer records a CUDA event
-    there; nothing synchronizes)."""
+
+def _make_update(cfg: Config, device: torch.device):
+    """``update(state, batch, mark) -> VocoderLossReport``: one GAN update
+    of ``state``'s modules and optimizers in place (``state.step`` is the
+    caller's), in JAX's order (the module's docstring)."""
     vcfg = cfg.vocoder_train
-    mark = mark or (lambda _name: None)
     mel_in, mel_loss = vocoder_mels(cfg, device)
     amp = _amp(cfg)
 
-    def train_step(state: VocoderTrainState,
-                   batch: Batch) -> VocoderLossReport:
-        for opt in (state.opt_g, state.opt_d):
-            for group in opt.param_groups:
-                group["lr"] = vocoder_lr(cfg, state.step)
+    def update(state: VocoderTrainState, batch: Batch,
+               mark: Callable[[str], None]) -> VocoderLossReport:
         mel, y = _mel_and_target(cfg, mel_in, batch, device)
 
         # One generator forward; its graph is kept for the generator's
@@ -350,9 +436,7 @@ def make_vocoder_train_step(cfg: Config, device: torch.device,
         fake_s, _ = state.msd(y_g_d)
         disc = (discriminator_loss(real_p, fake_p)
                 + discriminator_loss(real_s, fake_s))
-        state.opt_d.zero_grad(set_to_none=True)
-        disc.backward()
-        state.opt_d.step()
+        state.opt_d.step(_grads(disc, state.opt_d.params))
         mark("discriminator_update")
 
         # The generator's losses against the updated discriminators.
@@ -367,15 +451,95 @@ def make_vocoder_train_step(cfg: Config, device: torch.device,
               + feature_matching_loss(real_fs, fake_fs))
         mel_l1 = torch.mean(torch.abs(y_mel - loss_mel_of_wav(mel_loss, y_g)))
         total = adv + fm + vcfg.mel_loss_weight * mel_l1
-        state.opt_g.zero_grad(set_to_none=True)
-        total.backward(inputs=list(state.gen.parameters()))
-        state.opt_g.step()
-        state.step += 1
+        state.opt_g.step(_grads(total, state.opt_g.params))
         mark("generator_update")
         return VocoderLossReport(total.detach(), disc.detach(),
                                  mel_l1.detach(), fm.detach(), adv.detach())
 
+    return update
+
+
+def _no_mark(_name: str) -> None:
+    pass
+
+
+def make_vocoder_train_step(cfg: Config, device: torch.device,
+                            mark: Callable[[str], None] | None = None):
+    """``train_step(state, batch) -> VocoderLossReport``, one GAN update of
+    ``state`` in place (JAX's ``make_vocoder_train_step``); ``batch`` is
+    (B, segment + n_fft - hop) float32 context windows (float64 windows
+    and a float64 state give a float64 step, the yardstick of the float32
+    one) or, in paired mode, ``{"mel": (B, segment/hop, n_mels), "wav":
+    (B, segment)}``, the mel taken as it is. After it, each parameter's
+    ``.grad`` holds the gradient of its update: the discriminators' of
+    their loss, the generator's of its loss against the updated
+    discriminators. The learning rate is each optimizer's, from its count
+    on the device.
+
+    On the card each state's step is one CUDA graph per batch shape and
+    dtype on the state's graphs (``vocoder_graphs``), captured with its
+    mutations undone, so that the first replay makes the call's one
+    update; ``state.step`` counts on the host. On CPU tensors the step
+    runs eagerly.
+
+    ``mark``, when given, is called with each name of ``STEP_SPANS`` as
+    that span of the step has been issued (a timer records a CUDA event
+    there; nothing synchronizes). Such a step runs eagerly, on the card
+    too: a CUDA event cannot time a span inside a replay."""
+    update = _make_update(cfg, device)
+    if mark is not None:
+        def marked_step(state: VocoderTrainState,
+                        batch: Batch) -> VocoderLossReport:
+            report = update(state, batch, mark)
+            state.step += 1
+            return report
+
+        return marked_step
+    # Each state's compiled step, the state held beside it.
+    compiled: dict[int, tuple[VocoderTrainState, Compiled]] = {}
+
+    def train_step(state: VocoderTrainState,
+                   batch: Batch) -> VocoderLossReport:
+        entry = compiled.get(id(state))
+        if entry is None or entry[0] is not state:
+            entry = compiled[id(state)] = (state, vocoder_graphs(state).jit(
+                lambda b: update(state, b, _no_mark), mutates=True))
+        report = entry[1](batch)
+        state.step += 1
+        return report
+
     return train_step
+
+
+def make_vocoder_multi_step(state: VocoderTrainState, cfg: Config,
+                            device: torch.device, n_steps: int):
+    """``multi_step(batches) -> VocoderLossReport``: ``n_steps`` GAN
+    updates of ``state`` over batches stacked on a leading (n_steps, ...)
+    axis (a tensor, or a paired dict of them), returning the steps' mean
+    report on the device (``chunk_mean``; JAX's ``make_vocoder_multi_step``,
+    a ``lax.scan`` there). Each update's learning rate comes from the
+    device count. On the card the chunk is one replay of one CUDA graph
+    per batch shape; on CPU tensors the steps run eagerly one by one."""
+    update = _make_update(cfg, device)
+
+    def chunk(batches: Batch) -> VocoderLossReport:
+        return chunk_mean([update(state, _index(batches, i), _no_mark)
+                           for i in range(n_steps)])
+
+    run = vocoder_graphs(state).jit(chunk, mutates=True)
+
+    def multi_step(batches: Batch) -> VocoderLossReport:
+        report = run(batches)
+        state.step += n_steps
+        return report
+
+    return multi_step
+
+
+def _index(batches: Batch, i: int) -> Batch:
+    if isinstance(batches, dict):
+        return {k: v[i] for k, v in batches.items()}
+    return batches[i]
 
 
 # ---------------------------------------------------------------------------
@@ -489,9 +653,16 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray] | None, out_dir: str,
             t = t.pin_memory().to(device, non_blocking=True)
         return t
 
+    def stacked(samples: list):
+        """A chunk's batches on a leading axis, for one pinned copy."""
+        if isinstance(samples[0], dict):
+            return {k: np.stack([b[k] for b in samples]) for k in samples[0]}
+        return np.stack(samples)
+
     sampler = make_sampler(vcfg.seed + state.step)
-    step_fn = make_vocoder_train_step(cfg, device)
-    val_fn = make_vocoder_val_step(cfg, device)
+    step_fn = (make_vocoder_train_step(cfg, device) if spc == 1 else
+               make_vocoder_multi_step(state, cfg, device, spc))
+    val_fn = make_vocoder_val_step(cfg, device, state)
     val_sampler = make_sampler(vcfg.seed + VAL_SEED_OFFSET)
     val_batches = [stage(val_sampler.sample(vcfg.batch_size))
                    for _ in range(4)]
@@ -499,9 +670,12 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray] | None, out_dir: str,
     t0 = time.time()
     with open(os.path.join(out_dir, "metrics.jsonl"), "a") as mf:
         while state.step < total:
-            report = chunk_mean([
-                step_fn(state, stage(sampler.sample(vcfg.batch_size)))
-                for _ in range(spc)])
+            if spc == 1:
+                report = step_fn(state, stage(sampler.sample(
+                    vcfg.batch_size)))
+            else:
+                report = step_fn(stage(stacked([
+                    sampler.sample(vcfg.batch_size) for _ in range(spc)])))
             step = state.step
             if step % max(vcfg.log_step, spc) < spc:
                 rec = {"step": step, "time": time.time() - t0,
@@ -511,7 +685,7 @@ def train_vocoder(cfg: Config, wavs: list[np.ndarray] | None, out_dir: str,
                 log(f"voc step {step}: gen {rec['gen_total']:.3f} "
                     f"mel {rec['mel_l1']:.3f} disc {rec['disc']:.3f}")
             if vcfg.val_step and step % max(vcfg.val_step, spc) < spc:
-                v = float(np.mean([val_fn(state.gen, vb)
+                v = float(np.mean([float(val_fn(state.gen, vb))
                                    for vb in val_batches]))
                 mf.write(json.dumps({"step": step, "time": time.time() - t0,
                                      "val_mel_l1": round(v, 4)}) + "\n")
@@ -622,7 +796,8 @@ def export_gta_mels(cfg: Config, ckpt_dir: str, out_dir: str,
     under ``ckpt_dir``, written as ``<out_dir>/<speaker>-mel-<basename>
     .npy`` with as many rows as the ground-truth mel; returns how many.
     The forward runs on ``device`` (the card unless the caller asks for the
-    CPU) without dropout, under ``cfg.model.transformer.attention_impl``,
+    CPU; there one CUDA graph per bucket, as JAX jits it) without dropout,
+    under ``cfg.model.transformer.attention_impl``,
     with the corpus' durations, pitch and energy as targets, in batches of
     8 at the default buckets; a padded tail's repeated rows are written
     once."""
@@ -633,6 +808,13 @@ def export_gta_mels(cfg: Config, ckpt_dir: str, out_dir: str,
     model.load_state_dict(ckpt["model"], strict=True)
     model.to(device).eval()
     log(f"GTA export from step {int(ckpt['step'])} checkpoint")
+    # JAX's jitted forward: on the card a CUDA graph per bucket.
+    forward = Graphs(state=lambda: module_tensors(model)).jit(
+        lambda b, max_mel_len: model(
+            b["speakers"], b["emotions"], b["arousals"], b["valences"],
+            b["texts"], b["src_lens"], max_mel_len=max_mel_len,
+            mel_lens=b["mel_lens"], p_targets=b["pitches"],
+            e_targets=b["energies"], d_targets=b["durations"]).postnet_mel)
 
     os.makedirs(out_dir, exist_ok=True)
     seen: set[str] = set()
@@ -642,15 +824,10 @@ def export_gta_mels(cfg: Config, ckpt_dir: str, out_dir: str,
             max_seq_len=cfg.model.max_seq_len,
             symbol_table=cfg.preprocess.symbol_table)
         for batch, examples in ds.epoch_with_examples(shuffle=False):
-            b = stage_batch(batch, device, "float32")
+            staged = stage_batch(batch, device, "float32")
             with torch.inference_mode():
-                out = model(b["speakers"], b["emotions"], b["arousals"],
-                            b["valences"], b["texts"], b["src_lens"],
-                            max_mel_len=batch["mels"].shape[1],
-                            mel_lens=b["mel_lens"], p_targets=b["pitches"],
-                            e_targets=b["energies"],
-                            d_targets=b["durations"])
-            mels = out.postnet_mel.float().cpu().numpy()
+                mels = forward(staged, batch["mels"].shape[1])
+            mels = mels.float().cpu().numpy()
             for i, e in enumerate(examples):
                 name = f"{e.utt.speaker}-mel-{e.utt.basename}.npy"
                 if name in seen:

@@ -383,8 +383,13 @@ def test_train_vocoder_resumes_and_exports_for_both_packages(tmp_path):
     resumed = tvoc.train_vocoder(cfg, _wavs(6), out, total_steps=3,
                                  device="cpu", log=lambda *_: None)
     assert resumed.step == 3
-    assert int(resumed.opt_g.state[next(resumed.gen.parameters())]["step"]) == 3
-    assert resumed.opt_g.param_groups[0]["lr"] == tvoc.vocoder_lr(cfg, 2)
+    # The update counts live on the parameters' device; the next update's
+    # learning rate is read from them (one decay step past, at count 3).
+    for opt in (resumed.opt_g, resumed.opt_d):
+        assert int(opt.count) == 3 and opt.count.device == CPU
+    vt = cfg.vocoder_train
+    assert resumed.opt_g.lr == pytest.approx(
+        vt.learning_rate * vt.lr_decay, rel=1e-6)
 
     npz = str(tmp_path / "voc" / "generator.npz")
     folded = fold_weight_norm(resumed.gen.state_dict())

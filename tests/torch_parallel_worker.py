@@ -264,7 +264,8 @@ def main() -> None:
         state = create_train_state(cfg, corpus.stats, cpu, layout)
         if layout is not None:
             broadcast_state(state)
-        eval0 = loop.evaluate(state.model, val_ds, cfg, cpu, layout)
+        eval0 = loop.evaluate(step_mod.make_eval_step(state, cfg), val_ds,
+                              cpu)
         losses = []
         epoch = 0
         while len(losses) < args.steps:
@@ -275,7 +276,8 @@ def main() -> None:
                 if len(losses) == args.steps:
                     break
             epoch += 1
-        evals = loop.evaluate(state.model, val_ds, cfg, cpu, layout)
+        evals = loop.evaluate(step_mod.make_eval_step(state, cfg), val_ds,
+                              cpu)
         result.update(losses=losses, eval0=eval0, eval=evals,
                       param_sum=param_sum(state.model),
                       host_rows=train_ds.host_rows(0))
