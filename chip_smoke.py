@@ -247,7 +247,41 @@ Phases:
      synthesis step under "flash", ``export_gta_mels``, the vocoder's val
      step and ``SampleVocoder`` on a float32 generator.npz, graphed
      against eager (bit-equal; 10 flash forwards a batch, 72 float32 MRF
-     launches a call, counted once a call).
+     launches a call, counted once a call);
+  15. the example drivers of ``examples_torch/``: (a) the float32
+     flash forward, dQ and dK/dV at the convergence scripts' buckets,
+     (16, 2, 16, 128) and (16, 2, 128, 128), with the key lengths of the
+     first train batch of 16 of ``convergence_demo``'s corpus (features
+     extracted on the card), against their plain versions (phases 2b
+     and 2d's bounds); (b) ``convergence_demo`` for 300 steps under
+     "flash" and under "auto" from the same seed and features: the last
+     logged mel and duration losses at most 0.6 × the first logged, the
+     two last total losses within 15 % relative, 10 launches of each
+     float32 flash kernel a "flash" train step (the forward 10 an eval
+     step) and none under "auto"; (c) ``train_demo``'s loss falls over 30
+     steps at ``Config()`` width (its ms a step printed); (d)
+     ``synthesize_demo`` on the default text, with --duration-control 2.0
+     (mel_len doubles) and on two probes ("今天魑魅魍魉": every hanzi has a
+     reading; "今天龘靐": a warning for each of its two hanzi without
+     one, the prefix synthesized), each generator call 72 launches of
+     the bf16 MRF kernel;
+  15d. (only when named: ``--phases 15d``) ``convergence_deep``'s 5,000
+     steps at batch 16, ten steps a replay, under "auto" and under
+     "flash" from the same seed and features: the mean of the last 5
+     logged records' total at most 1.68, mel 0.73, duration 0.10; the
+     two final totals within 10 %; duration control monotonic, Sad
+     slower than Happy, the speaker and emotion mel distances at least
+     2.0e-3 and 9.1e-3; the flash launches as in 15(b); the reports in
+     ``output/convergence_torch/{auto,flash}/`` (ignored by git);
+  15s. (only when named) 15d again with the mel targets staged in
+     float32 instead of int16 (up to 2e-4 apart): a second trajectory of
+     each path, against 15d's bounds;
+  15t. (only when named) where the deep run's step goes: ``train()`` for
+     300 steps with a profiler window over steps 200-250 (device busy
+     share, device work and kernels a step, the top kernels), the loop's
+     host work for a chunk (collation, staging, stacking), and a chunk
+     of ten steps replayed alone on the same batches under "auto" and
+     "flash".
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -742,7 +776,7 @@ def flash_inputs(b: int, t: int, rows, gen):
     return q, k, v, flash_mask(t, rows).to("cuda")
 
 
-def phase_flash_vs_plain(smoke: Smoke):
+def phase_flash_vs_plain(smoke: Smoke, cases=FLASH_CASES):
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
@@ -750,7 +784,7 @@ def phase_flash_vs_plain(smoke: Smoke):
     gen = torch.Generator().manual_seed(2)
     scale = 128 ** -0.5
     worst = 0.0
-    for b, t, rows in FLASH_CASES:
+    for b, t, rows in cases:
         q, k, v, mask = flash_inputs(b, t, rows, gen)
         out = fa.flash_mha(q, k, v, mask, scale)
         ref = fa.flash_mha_plain(q, k, v, mask, scale)
@@ -1380,9 +1414,10 @@ def phase_long_times(synth):
     return rows[max(FLASH_TIMED)]
 
 
-def phase_flash_bwd_vs_plain(smoke: Smoke):
-    """The backward kernels against the plain backward; returns the worst
-    max|diff| of dq (the dQ kernel) and of dk, dv (the dK/dV kernel)."""
+def phase_flash_bwd_vs_plain(smoke: Smoke, cases=FLASH_BWD_CASES):
+    """The backward kernels against the plain backward at ``cases``;
+    returns the worst max|diff| of dq (the dQ kernel) and of dk, dv (the
+    dK/dV kernel)."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
@@ -1390,7 +1425,7 @@ def phase_flash_bwd_vs_plain(smoke: Smoke):
     gen = torch.Generator().manual_seed(4)
     scale = 128 ** -0.5
     worst_dq = worst_dkv = 0.0
-    for b, t, rows in FLASH_BWD_CASES:
+    for b, t, rows in cases:
         q, k, v, mask = flash_inputs(b, t, rows, gen)
         dout = torch.randn(q.shape, generator=gen).to("cuda")
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
@@ -2891,17 +2926,26 @@ def run_cli(module: str, argv: list) -> tuple[str, float]:
     """``<PKG>.cli.<module>.main(argv)`` in this process (so the launch
     counters count); returns its standard output, also echoed, and its
     wall seconds."""
-    import contextlib
     import importlib
+
+    main = importlib.import_module(f"{PKG}.cli.{module}").main
+    _, text, seconds = echoed(main, [str(a) for a in argv])
+    return text, seconds
+
+
+def echoed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its standard output captured and its
+    first and last lines echoed; returns (its result, the output, wall
+    seconds to the device's synchronization)."""
+    import contextlib
     import io
 
     import torch
 
-    main = importlib.import_module(f"{PKG}.cli.{module}").main
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        main([str(a) for a in argv])
+        out = fn(*args, **kwargs)
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2910,7 +2954,7 @@ def run_cli(module: str, argv: list) -> tuple[str, float]:
     shown = lines if len(lines) <= 6 else lines[:3] + ["..."] + lines[-2:]
     for line in shown:
         print(f"    | {line[:160]}")
-    return text, seconds
+    return out, text, seconds
 
 
 def _json_of(text: str) -> dict:
@@ -5919,16 +5963,463 @@ def phase_compiled_gan(smoke: Smoke, device):
         return out
 
 
+# Phase 15: the example drivers of examples_torch/.
+CONV_STEPS = 300                 # convergence_demo's default
+CONV_BUCKET = (16, 128)          # the convergence scripts' one (S, T) bucket
+CONV_KERNEL_BATCH = 16           # convergence_deep's batch
+CONV_DROP = 0.6                  # last logged mel, duration loss ≤ 0.6 × first
+CONV_IMPL_RTOL = 0.15            # "flash" against "auto": last total loss
+TRAIN_DEMO_STEPS = 30
+# The verify skill's probe (every hanzi has a reading in the builtin
+# table) and two hanzi without one: a warning each, the prefix synthesized.
+DEMO_PROBES = (("今天魑魅魍魉", 0), ("今天龘靐", 2))
+# Phase 15d: the deep run, 5,000 steps under "auto" and under "flash".
+# Bounds stated before its first run: 1.2 × the JAX run's final total and
+# mel (1.404, 0.608), and a quarter of its conditioning distances.
+DEEP_STEPS = 5000
+DEEP_FINAL = {"total_loss": 1.68, "mel_loss": 0.73, "duration_loss": 0.10}
+DEEP_IMPL_RTOL = 0.10
+DEEP_MIN_L1 = {"speaker_mel_l1": 2.0e-3, "emotion_mel_l1": 9.1e-3}
+
+
+def counted_training(fn):
+    """``fn()`` (a run of ``train()``) with the float32 flash launches of
+    each compiled train, eval and synth step call recorded: returns (its
+    result, {step: [(steps, (forward, dQ, dK/dV))]}, the run's totals)."""
+    calls: dict[str, list] = {"train_step": [], "eval_step": [],
+                              "synth_step": []}
+
+    def counting(key, steps, step, *args):
+        before = flash_counts()
+        out = step(*args)
+        calls[key].append((steps, tuple(
+            a - b for a, b in zip(flash_counts(), before))))
+        return out
+
+    reset_flash_counts()
+    with compiled_step_calls(functools.partial(
+            counting, "train_step")), inference_step_calls(
+            lambda name, step, *a: counting(name, 1, step, *a)):
+        out = fn()
+    return out, calls, flash_counts()
+
+
+def check_flash_calls(smoke: Smoke, what: str, impl: str, calls: dict,
+                      n_blocks: int, steps: int) -> None:
+    """Under "flash" each train step launches each float32 kernel once an
+    FFT block and each eval or synth step the forward once a block; under
+    "auto" (the math path at these lengths) nothing."""
+    per = n_blocks if impl == "flash" else 0
+    train_calls = calls["train_step"]
+    inference = calls["eval_step"] + calls["synth_step"]
+    ok = (sum(n for n, _ in train_calls) == steps
+          and all(c == (n * per,) * 3 for n, c in train_calls)
+          and all(c == (per, 0, 0) for _, c in inference))
+    smoke.check(ok, f"{what} under {impl!r}: {steps} steps in "
+                    f"{len(train_calls)} compiled calls, each step "
+                    f"(forward, dQ, dK/dV) "
+                    f"{sorted({tuple(x // n for x in c) for n, c in train_calls})}"
+                    f" (expected {(per,) * 3}); {len(inference)} eval and "
+                    f"synth calls, each {sorted({c for _, c in inference})} "
+                    f"(expected {(per, 0, 0)})")
+
+
+def phase_examples(smoke: Smoke, device):
+    """Phase 15: the kernels at the convergence scripts' shapes, then
+    ``convergence_demo`` under "flash" and "auto", ``train_demo`` and
+    ``synthesize_demo``'s probes; returns the launches and the kernels'
+    worst differences."""
+    import logging
+    import shutil
+
+    import numpy as np
+
+    from examples_torch import convergence_demo as demo
+    from examples_torch import synthesize_demo, train_demo
+    from expressive_fastspeech2_mandarin_tpu_torch.config import BucketConfig
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+
+    card = nvidia_smi_line()
+    seconds = {}
+    launches = {"flash_mha": 0, "flash_mha_bwd_dq": 0,
+                "flash_mha_bwd_dkv": 0, "mrf_resblock": 0}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        work = {impl: tmp / impl for impl in ("flash", "auto")}
+        t0 = time.perf_counter()
+        raw, pre = demo.build_corpus(str(work["auto"]))
+        demo.extract_features(demo.build_config(
+            raw, pre, str(work["auto"]), CONV_STEPS), device)
+        shutil.copytree(pre, work["flash"] / "preprocessed")
+        seconds["corpus and features"] = time.perf_counter() - t0
+
+        # (a) The float32 kernels at the encoder's and the decoder's
+        # bucket, with the key lengths of the corpus's first train batch
+        # of 16.
+        t0 = time.perf_counter()
+        ds = BucketedDataset(PreprocessedCorpus(pre), "train.txt",
+                             CONV_KERNEL_BATCH,
+                             BucketConfig(src_buckets=CONV_BUCKET[:1],
+                                          mel_buckets=CONV_BUCKET[1:]), 256)
+        batch = next(ds.epoch(0))  # the first batch a run trains on
+        cases = tuple((CONV_KERNEL_BATCH, t, prefixes(*map(int, lens)))
+                      for t, lens in zip(CONV_BUCKET, (batch["src_lens"],
+                                                       batch["mel_lens"])))
+        print(f"  key lengths: encoder {batch['src_lens'].tolist()}, "
+              f"decoder {batch['mel_lens'].tolist()}")
+        worst = (phase_flash_vs_plain(smoke, cases),
+                 *phase_flash_bwd_vs_plain(smoke, cases))
+        seconds["(a) kernels"] = time.perf_counter() - t0
+
+        # (b) convergence_demo, "flash" and "auto" from the same seed and
+        # features.
+        finals = {}
+        for impl, path in work.items():
+            argv = ["--steps", CONV_STEPS, "--workdir", path, "--device",
+                    device]
+            (out, _, seconds[f"(b) {impl}"]), calls, counts = (
+                counted_training(lambda: echoed(
+                    demo.main, [str(a) for a in argv],
+                    attention_impl=impl)))
+            cfg = demo.build_config(raw, pre, str(path), CONV_STEPS, impl)
+            t = cfg.model.transformer
+            check_flash_calls(smoke, "convergence_demo", impl, calls,
+                              t.encoder_layer + t.decoder_layer, CONV_STEPS)
+            for key, n in zip(("flash_mha", "flash_mha_bwd_dq",
+                               "flash_mha_bwd_dkv"), counts):
+                launches[key] += n
+            recs = out["records"]
+            first, last = recs[0], recs[-1]
+            finals[impl] = last["total_loss"]
+            for key in ("mel_loss", "duration_loss"):
+                smoke.check(
+                    math.isfinite(last[key])
+                    and last[key] <= CONV_DROP * first[key],
+                    f"convergence_demo {impl!r}: {key} step "
+                    f"{first['step']} {first[key]:.4f} -> step "
+                    f"{last['step']} {last[key]:.4f} (bound "
+                    f"{CONV_DROP} x first: {CONV_DROP * first[key]:.4f})")
+            print(f"  convergence_demo {impl!r}: total "
+                  f"{[round(r['total_loss'], 4) for r in recs]}; val "
+                  f"{[round(v['total_loss'], 4) for v in out['vals']]}; "
+                  f"steps/s at the end {last['steps_per_sec']} [{card}]")
+        gap = abs(finals["flash"] - finals["auto"]) / finals["auto"]
+        smoke.check(gap <= CONV_IMPL_RTOL,
+                    f"convergence_demo last total loss, 'flash' "
+                    f"{finals['flash']:.4f} against 'auto' "
+                    f"{finals['auto']:.4f}: {gap:.3e} relative (bound "
+                    f"{CONV_IMPL_RTOL})")
+
+        # (c) train_demo: the loss drops over 30 steps at Config() width.
+        reset_flash_counts()
+        reset_mrf_counts()
+        out, _, seconds["(c) train_demo"] = echoed(
+            train_demo.main, ["--steps", str(TRAIN_DEMO_STEPS), "--device",
+                              str(device)])
+        smoke.check(
+            out["steps"] == TRAIN_DEMO_STEPS
+            and math.isfinite(out["final"]["total"])
+            and out["final"]["total"] < out["first"]["total"]
+            and flash_counts() == (0, 0, 0) and mrf_counts() == (0, 0),
+            f"train_demo: total {out['first']['total']:.4f} -> "
+            f"{out['final']['total']:.4f} over {out['steps']} steps "
+            f"(falling), {out['ms_per_step']:.3f} ms a step at B = 4, "
+            f"(64, 250); flash and MRF launches {flash_counts()}, "
+            f"{mrf_counts()} (T = 250: the math path) [{card}]")
+
+        # (d) synthesize_demo: the default text, duration control 2.0, the
+        # probes; every generator call 72 launches of the bf16 MRF kernel.
+        t0 = time.perf_counter()
+        hanzi = logging.getLogger(f"{PKG}.text.hanzi")
+        warned: list[str] = []
+
+        class Collect(logging.Handler):
+            def emit(self, record):
+                warned.append(record.getMessage())
+
+        handler = Collect(logging.WARNING)
+        hanzi.addHandler(handler)
+        runs = {}
+        try:
+            for key, argv in (("default", []),
+                              ("x2", ["--duration-control", "2.0"]),
+                              *((text, ["--text", text])
+                                for text, _ in DEMO_PROBES)):
+                reset_mrf_counts()
+                del warned[:]
+                out, _, _ = echoed(synthesize_demo.main, argv + [
+                    "--out", str(tmp / "demo.wav"), "--device",
+                    str(device)])
+                runs[key] = (out, list(warned), mrf_counts())
+        finally:
+            hanzi.removeHandler(handler)
+        seconds["(d) synthesize_demo"] = time.perf_counter() - t0
+        per_call = 2 * len(DILATIONS) * 12
+        for key, (out, msgs, counts) in runs.items():
+            launches["mrf_resblock"] += counts[0]
+            smoke.check(
+                out["mrf_launches"] == [per_call] * 2
+                and counts == (2 * per_call, 0)
+                and out["mel_len"] > 0 and np.isfinite(out["wav"]).all(),
+                f"synthesize_demo {key}: {len(out['ids'])} IDs, mel_len "
+                f"{out['mel_len']}, bf16 MRF launches a generator call "
+                f"{out['mrf_launches']} (expected {per_call}), float32 "
+                f"{counts[1]}; steady {out['steady_ms']:.2f} ms for "
+                f"{out['audio_s']:.2f} s of audio (RTF {out['rtf']:.4f}) "
+                f"[{card}]")
+        base, doubled = runs["default"][0], runs["x2"][0]
+        smoke.check(doubled["mel_len"] == 2 * base["mel_len"],
+                    f"--duration-control 2.0 doubles mel_len: "
+                    f"{base['mel_len']} -> {doubled['mel_len']}")
+        for text, missing in DEMO_PROBES:
+            out, msgs, _ = runs[text]
+            n_known = len(synthesize_demo.phoneme_ids(text[:2]))
+            smoke.check(
+                len(msgs) == missing
+                and all("no pinyin reading" in m for m in msgs)
+                and out["ids"][:n_known] == base["ids"][:n_known]
+                and len(out["ids"]) >= n_known,
+                f"--text {text}: {len(msgs)} warnings (expected "
+                f"{missing}: {msgs}), {len(out['ids'])} IDs, the prefix's "
+                f"{n_known} synthesized, mel_len {out['mel_len']}")
+    print(f"  phase 15's parts, seconds: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return {"launches": launches, "worst": worst}
+
+
+def phase_deep_convergence(smoke: Smoke, device, tag: str = ""):
+    """Phase 15d: ``convergence_deep`` for 5,000 steps under "auto" and
+    under "flash" from the same seed and features, against the bounds;
+    the reports go to ``output/convergence_torch/<impl><tag>/``."""
+    import shutil
+
+    from examples_torch import convergence_deep as deep
+
+    card = nvidia_smi_line()
+    out_root = ROOT / "output" / "convergence_torch"
+    finals = {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        for impl in ("auto", "flash"):
+            work = tmp / impl
+            if impl == "flash":
+                shutil.copytree(tmp / "auto" / "preprocessed",
+                                work / "preprocessed")
+            argv = ["--steps", DEEP_STEPS, "--workdir", work, "--report-dir",
+                    out_root / f"{impl}{tag}", "--device", device]
+            (out, _, seconds), calls, counts = counted_training(
+                lambda: echoed(deep.main, [str(a) for a in argv],
+                               attention_impl=impl))
+            t = deep.build_config("", "", "", DEEP_STEPS).model.transformer
+            check_flash_calls(smoke, "convergence_deep", impl, calls,
+                              t.encoder_layer + t.decoder_layer, DEEP_STEPS)
+            recs, checks = out["records"], out["checks"]
+            fin = deep.final_losses(recs)
+            finals[impl] = fin
+            print(f"  convergence_deep {impl!r}: {seconds:.1f} s in all, "
+                  f"features {out['features_s']:.1f} s, train() "
+                  f"{out['train_s']:.1f} s, {DEEP_STEPS / out['train_s']:.2f}"
+                  f" steps/s over train(), {recs[-1]['steps_per_sec']} "
+                  f"steps/s over its last 100 steps; flash launches "
+                  f"{counts} [{card}]")
+            for r in recs[::10] + recs[-1:]:
+                print(f"    step {r['step']}: total {r['total_loss']:.4f} "
+                      f"mel {r['mel_loss']:.4f} duration "
+                      f"{r['duration_loss']:.4f}")
+            print(f"  final (the mean of the last 5 records): "
+                  f"{', '.join(f'{k} {v:.4f}' for k, v in fin.items())}")
+            for key, bound in DEEP_FINAL.items():
+                smoke.check(fin[key] <= bound,
+                            f"convergence_deep {impl!r}: final {key} (the "
+                            f"mean of the last 5 records) {fin[key]:.4f} "
+                            f"(bound {bound})")
+            for key, bound in DEEP_MIN_L1.items():
+                smoke.check(checks[key] >= bound,
+                            f"convergence_deep {impl!r}: {key} "
+                            f"{checks[key]:.4e} (bound >= {bound:.1e})")
+            smoke.check(checks["duration_monotonic"]
+                        and checks["sad_frames"] > checks["happy_frames"],
+                        f"convergence_deep {impl!r}: duration control lens "
+                        f"{checks['duration_control_lens']} (monotonic "
+                        f"{checks['duration_monotonic']}), happy "
+                        f"{checks['happy_frames']} < sad "
+                        f"{checks['sad_frames']} frames; health ok "
+                        f"{out['health'].get('ok')} (recorded, not "
+                        f"required)")
+    gap = (abs(finals["flash"]["total_loss"] - finals["auto"]["total_loss"])
+           / finals["auto"]["total_loss"])
+    smoke.check(gap <= DEEP_IMPL_RTOL,
+                f"convergence_deep final total, 'flash' "
+                f"{finals['flash']['total_loss']:.4f} against 'auto' "
+                f"{finals['auto']['total_loss']:.4f}: {gap:.3e} relative "
+                f"(bound {DEEP_IMPL_RTOL})")
+    return finals
+
+
+def phase_deep_spread(smoke: Smoke, device):
+    """Phase 15s: phase 15d again with the mel targets staged in float32
+    (``transfer_dtype``; the int16 encoding moves them by up to 2e-4),
+    a second trajectory of each path from the same seed: whether the
+    paths' final losses differ as the two samples of one path do."""
+    import dataclasses
+
+    from examples_torch import convergence_deep as deep
+
+    build = deep.build_config
+
+    def float32_targets(*args, **kwargs):
+        cfg = build(*args, **kwargs)
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, transfer_dtype="float32"))
+
+    deep.build_config = float32_targets
+    try:
+        return phase_deep_convergence(smoke, device, "_float32_targets")
+    finally:
+        deep.build_config = build
+
+
+DEEP_TIMED_STEPS = 300            # phase 15t's profiled train() run
+DEEP_PROFILED = (200, 250)        # its profiler window, 5 chunks of 10
+DEEP_REPLAYS = 10                 # timed chunk replays, after one untimed
+
+
+def trace_top_kernels(path: str, n: int = 5) -> list[tuple[str, float]]:
+    """The ``n`` kernels of most device time in a torch.profiler Chrome
+    trace: (name, ms)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    total: dict[str, float] = {}
+    for e in events:
+        total[e["name"]] = total.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    return sorted(total.items(), key=lambda kv: -kv[1])[:n]
+
+
+def phase_deep_times(smoke: Smoke, device):
+    """Phase 15t: where the deep run's time goes, at its bucket (16, 128)
+    and batch 16: ``train()`` for 300 steps with a profiler window over
+    steps 200-250 (its busy share and kernels), a chunk of ten steps
+    replayed alone on the same batches under "auto" and "flash", and the
+    loop's host work for a chunk (collation, staging, stacking)."""
+    import dataclasses
+    import glob
+    import itertools
+
+    import torch
+
+    from examples_torch import convergence_deep as deep
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        train,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.step import (
+        make_train_multi_step,
+        stack_batches,
+    )
+
+    card = nvidia_smi_line()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        work = Path(tmp_dir)
+        raw, pre = deep.build_corpus(str(work))
+        cfg = deep.build_config(raw, pre, str(work), DEEP_TIMED_STEPS)
+        deep.extract_features(cfg, device)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, profile_start_step=DEEP_PROFILED[0],
+            profile_stop_step=DEEP_PROFILED[1]))
+        _, _, seconds = echoed(train, cfg, total_steps=DEEP_TIMED_STEPS,
+                               device=device)
+        traces = glob.glob(str(work / "log" / "profile" / "*.json"))
+        busy, window_ms, n_kernels = trace_busy_share(traces[0])
+        steps = DEEP_PROFILED[1] - DEEP_PROFILED[0]
+        out["train"] = {"s": seconds, "busy": busy,
+                        "window_ms_a_step": window_ms / steps,
+                        "kernel_ms_a_step": busy * window_ms / steps}
+        print(f"  train(): {DEEP_TIMED_STEPS} steps in {seconds:.2f} s "
+              f"({DEEP_TIMED_STEPS / seconds:.2f} steps/s with the "
+              f"captures, evaluation, samples); profiled steps "
+              f"{DEEP_PROFILED[0]}-{DEEP_PROFILED[1]}: "
+              f"{window_ms / steps:.3f} ms a step, device busy "
+              f"{busy:.3f}, {busy * window_ms / steps:.3f} ms of device "
+              f"work a step, {n_kernels / steps:.0f} kernels a step "
+              f"[{card}]")
+        for name, ms in trace_top_kernels(traces[0]):
+            print(f"    {ms / steps:9.3f} ms a step  {name[:110]}")
+        smoke.check(len(traces) == 1 and 0 < busy <= 1,
+                    f"one profiler trace of train(): {traces}")
+
+        ds = BucketedDataset(PreprocessedCorpus(pre), "train.txt",
+                             cfg.train.optimizer.batch_size,
+                             cfg.train.buckets, cfg.model.max_seq_len,
+                             drop_last=True, seed=cfg.train.seed)
+        spc = cfg.train.steps_per_call
+        t0 = time.perf_counter()
+        batches = list(itertools.islice(itertools.chain.from_iterable(
+            ds.epoch(e) for e in itertools.count(1)), spc))
+        collate_ms = (time.perf_counter() - t0) * 1e3 / spc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = [stage_batch(b, device, cfg.train.transfer_dtype)
+                  for b in batches]
+        torch.cuda.synchronize()
+        stage_ms = (time.perf_counter() - t0) * 1e3 / spc
+        t0 = time.perf_counter()
+        stacked = stack_batches(staged)
+        torch.cuda.synchronize()
+        stack_ms = (time.perf_counter() - t0) * 1e3
+        out["host"] = {"collate_ms": collate_ms, "stage_ms": stage_ms,
+                       "stack_ms_a_chunk": stack_ms}
+        print(f"  host, a batch of {cfg.train.optimizer.batch_size}: "
+              f"collation {collate_ms:.3f} ms, staging (int16 mels, "
+              f"pinned, synchronized) {stage_ms:.3f} ms; stacking a chunk "
+              f"of {spc} {stack_ms:.3f} ms [{card}]")
+        for impl in ("auto", "flash"):
+            c = deep.build_config(raw, pre, str(work), DEEP_TIMED_STEPS,
+                                  impl)
+            state = create_train_state(c, PreprocessedCorpus(pre).stats,
+                                       device)
+            multi = make_train_multi_step(state, c, spc)
+            report = multi(stacked)  # captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DEEP_REPLAYS):
+                report = multi(stacked)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (DEEP_REPLAYS * spc)
+            out[impl] = ms
+            smoke.check(math.isfinite(float(report.total)),
+                        f"a chunk of {spc} steps replayed alone under "
+                        f"{impl!r}: {ms:.3f} ms a step ({DEEP_REPLAYS} "
+                        f"replays, the same stacked batches) [{card}]")
+            del state, multi
+    return out
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
-          "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14", "14c")
+          "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14", "14c",
+          "15")
+# Phases run only when named: the 5,000-step deep convergence runs.
+EXTRA_PHASES = ("15d", "15s", "15t")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one NVIDIA GPU and check it.")
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated phases to run (default: all, "
-                             "and the result lines); 3b, 4 and 4b need 3")
+                        help="comma-separated phases to run (default: all "
+                             "but 15d, 15s and 15t, and the result lines); "
+                             "3b, 4 and 4b need 3")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="checkout whose package to drive (default: "
                              "this script's)")
@@ -5938,7 +6429,7 @@ def main(argv=None) -> int:
         return dp_worker(args.dp_worker)
     chosen = args.phases.split(",")
     whole = tuple(chosen) == PHASES
-    unknown = sorted(set(chosen) - set(PHASES))
+    unknown = sorted(set(chosen) - set(PHASES + EXTRA_PHASES))
     if unknown or ({"3b", "4", "4b"} & set(chosen) and "3" not in chosen):
         parser.error(f"phases {unknown or chosen}: not a phase, or 3b, 4, "
                      f"4b without 3")
@@ -6018,6 +6509,15 @@ def main(argv=None) -> int:
     gan = run("14c", "compiled steps: the GAN step, its chunk, the vocoder "
               "loop, evaluation, samples and the GTA forward replayed from "
               "CUDA graphs against eager", phase_compiled_gan, smoke, device)
+    examples = run("15", "the example drivers: convergence_demo under "
+                   "'flash' and 'auto', train_demo, synthesize_demo",
+                   phase_examples, smoke, device)
+    run("15d", "convergence_deep: 5,000 steps under 'auto' and 'flash'",
+        phase_deep_convergence, smoke, device)
+    run("15s", "convergence_deep again, the mel targets staged in "
+        "float32", phase_deep_spread, smoke, device)
+    run("15t", "times: where convergence_deep's step goes",
+        phase_deep_times, smoke, device)
     print(f"== done in {time.time() - t_start:.1f} s")
     if smoke.failures or any(results.get(key) is None for key in chosen):
         print("chip_smoke: FAILED:\n  " + "\n  ".join(smoke.failures),
@@ -6037,7 +6537,8 @@ def main(argv=None) -> int:
         "replaces": "expressive_fastspeech2_mandarin_tpu/ops/pallas/"
                     "mrf_resblock.py:186",
         "launches": (launches + entry["launches"]["mrf_resblock"]
-                     + fronts["launches"]["mrf_resblock"]),
+                     + fronts["launches"]["mrf_resblock"]
+                     + examples["launches"]["mrf_resblock"]),
         "max_abs_err": max(worst[0], worst_long[0]),
         "shape": f"{len(STAGE_SHAPES) * len(KERNEL_SIZES)} resblocks bf16, "
                  f"B = {BATCH}, (C, T) in {list(STAGE_SHAPES)}, k in "
@@ -6079,8 +6580,8 @@ def main(argv=None) -> int:
         "launches": (train_launches[0] + features["launches"]["flash_mha"]
                      + entry["launches"]["flash_mha"] + tuned["float32"][0]
                      + fronts["launches"]["flash_mha"] + dp["launches"][0]
-                     + gan["flash_mha"]),
-        "max_abs_err": worst_flash,
+                     + gan["flash_mha"] + examples["launches"]["flash_mha"]),
+        "max_abs_err": max(worst_flash, examples["worst"][0]),
         **flash_row,
     }, {
         "name": "flash_mha_bwd_dq",
@@ -6089,8 +6590,9 @@ def main(argv=None) -> int:
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
         "launches": (train_launches[1] + entry["launches"]["flash_mha_bwd_dq"]
                      + fronts["launches"]["flash_mha_bwd_dq"]
-                     + dp["launches"][1]),
-        "max_abs_err": worst_bwd[0],
+                     + dp["launches"][1]
+                     + examples["launches"]["flash_mha_bwd_dq"]),
+        "max_abs_err": max(worst_bwd[0], examples["worst"][1]),
         **bwd_rows["dq"],
     }, {
         "name": "flash_mha_bwd_dkv",
@@ -6100,8 +6602,9 @@ def main(argv=None) -> int:
         "launches": (train_launches[2]
                      + entry["launches"]["flash_mha_bwd_dkv"]
                      + fronts["launches"]["flash_mha_bwd_dkv"]
-                     + dp["launches"][2]),
-        "max_abs_err": worst_bwd[1],
+                     + dp["launches"][2]
+                     + examples["launches"]["flash_mha_bwd_dkv"]),
+        "max_abs_err": max(worst_bwd[1], examples["worst"][2]),
         **bwd_rows["dkv"],
     }, {
         "name": "flash_mha_bf16",

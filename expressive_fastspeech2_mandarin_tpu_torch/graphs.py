@@ -12,7 +12,9 @@ returns a callable that, for each new key,
   cuDNN pick their algorithms and allocate their workspaces, the kernels'
   libraries load and the MRF weights get packed;
 * captures one call under ``torch.cuda.graph``, in the memory pool that the
-  owner's graphs share;
+  owner's graphs share (a new one once none of them lives: the caching
+  allocator refuses a capture into a pool all of whose graphs were
+  released, ``Graphs.capture_pool``);
 
 and from then on copies the inputs into the buffers and replays the graph.
 The outputs are cloned out of the pool after each replay, before another
@@ -216,6 +218,16 @@ class Graphs:
         self.pool = None
         self._held = None
 
+    def capture_pool(self):
+        """The memory pool a new capture goes into: the owner's while one
+        of its graphs lives, else a new one. Once every graph captured
+        into a pool is released (the functions compiled for it died, as a
+        train loop's do when it returns), CUDA's caching allocator refuses
+        a capture into that pool."""
+        if self.pool is None or not self.count():
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
     def _fingerprint(self):
         tensors = list(self.state())
         return tensors, [(id(t), _version(t)) for t in tensors]
@@ -328,9 +340,7 @@ class Compiled:
         def capture():
             for gen in owner.generators():
                 register_generator(graph, gen)
-            if owner.pool is None:
-                owner.pool = torch.cuda.graph_pool_handle()
-            with capturing(graph, owner.pool):
+            with capturing(graph, owner.capture_pool()):
                 return self.fn(*call_args, **kwargs)
 
         saved = owner._save() if self.mutates else None

@@ -384,3 +384,29 @@ def test_train_step_under_a_layout_stays_eager():
     assert layout_state.graphs is None
     make_train_step(state, tc)
     assert state.graphs is not None
+
+
+def test_a_capture_takes_a_new_pool_once_every_graph_died(monkeypatch):
+    """An owner's pool is shared while one of its graphs lives; once the
+    functions compiled for it are gone (a train loop's, when it returns)
+    a later capture takes a new pool: CUDA's caching allocator refuses a
+    capture into a pool whose every graph was released (an internal
+    assert on the card, seen when a synth step was compiled on a train
+    state after ``train()`` returned)."""
+    handles = iter(range(1, 10))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: next(handles))
+    owner = graphs.Graphs()
+    assert owner.capture_pool() == 1
+    first = owner.jit(lambda x: x)
+    first.graphs["key"] = object()  # a live graph
+    second = owner.jit(lambda x: x)
+    assert owner.capture_pool() == 1
+    del first
+    gc.collect()
+    assert owner.count() == 0
+    assert owner.capture_pool() == 2
+    second.graphs["key"] = object()
+    assert owner.capture_pool() == 2
+    owner.drop()
+    assert owner.capture_pool() == 3

@@ -226,6 +226,26 @@ except RuntimeError as e:
 
 
 @pytest.mark.gpu
+def test_a_function_compiled_after_the_owners_graphs_died_captures():
+    """The pattern of ``examples_torch/convergence_deep.py``: a function
+    compiled on an owner whose earlier functions (and so every graph in
+    its pool) are gone captures into a new pool and replays."""
+    _cuda_or_skip()
+    owner = graphs.Graphs()
+    x = torch.randn(64, device="cuda")
+    first = owner.jit(lambda t: t * 2)
+    assert torch.equal(first(x), x * 2)
+    old_pool = owner.pool
+    del first
+    gc.collect()
+    assert owner.count() == 0
+    second = owner.jit(lambda t: t + 1)
+    assert torch.equal(second(x), x + 1)
+    assert torch.equal(second(x * 3), x * 3 + 1)  # a replay
+    assert owner.pool != old_pool and owner.count() == 1
+
+
+@pytest.mark.gpu
 def test_capture_that_syncs_to_the_host_raises():
     """In a process of its own: a failed capture leaves PyTorch's default
     CUDA generator mid-capture, and later draws in that process raise."""

@@ -1,5 +1,7 @@
-"""The PyTorch port imports neither JAX nor the JAX package, nor names its
-dotted module path in a string (a subprocess's ``-m`` target, say); the
+"""The PyTorch port (its package, ``chip_smoke.py`` and the example
+drivers of ``examples_torch/``) imports neither JAX nor the JAX package,
+nor names its dotted module path in a string (a subprocess's ``-m``
+target, say); the
 feature extractor's pool workers never touch CUDA; every port command line
 offers each option of its JAX counterpart."""
 
@@ -13,6 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "expressive_fastspeech2_mandarin_tpu_torch"
+EXAMPLES = ROOT / "examples_torch"
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -20,6 +23,9 @@ import expressive_fastspeech2_mandarin_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
+import examples_torch
+for m in pkgutil.iter_modules(examples_torch.__path__, "examples_torch."):
+    importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib",
                                     "expressive_fastspeech2_mandarin_tpu"))
@@ -37,9 +43,17 @@ def test_port_import_pulls_in_no_jax():
     assert "FORBIDDEN []" in out.stdout, out.stdout
 
 
+def _port_files() -> list[Path]:
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted(EXAMPLES.glob("*.py")))
+
+
 def test_port_sources_name_no_jax_module():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = _port_files()
     assert len(files) > 10
+    assert {p.name for p in EXAMPLES.glob("*.py")} >= {
+        "convergence_deep.py", "convergence_demo.py", "train_demo.py",
+        "synthesize_demo.py"}
     for path in files:
         for name in _IMPORT_RE.findall(path.read_text()):
             top = name.split(".")[0]
@@ -54,8 +68,9 @@ _JAX_DOTTED = re.compile(r"expressive_fastspeech2_mandarin_tpu\.[\w.]*")
 def test_port_sources_name_no_jax_module_path_in_strings():
     """``expressive_fastspeech2_mandarin_tpu.`` (the JAX package's dotted
     path; the port's own is ``..._tpu_torch.``) appears nowhere in the
-    port's sources or chip_smoke.py, in code, strings or comments."""
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    port's sources, chip_smoke.py or examples_torch/, in code, strings or
+    comments."""
+    files = _port_files()
     found = [(str(p.relative_to(ROOT)), m)
              for p in files for m in _JAX_DOTTED.findall(p.read_text())]
     assert not found, found
