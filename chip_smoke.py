@@ -208,9 +208,22 @@ Phases:
      times, 1 rank and 2 ranks time-sharing the card; ``efs2-torch-train
      --coordinator --num-processes 2 --process-id i --backend gloo`` for
      4 steps on the Quick-start corpus (one checkpoint directory, both
-     ranks at the last step with the same parameter sum); ``train()`` in
-     a world of one over NCCL (3 steps, its checkpoint, its flash
-     launches). The ranks' flash launches join the ``kernels`` line's.
+     ranks at the last step with the same parameter sum). Over NCCL, each
+     process a world of one (the machine has one card): (a) an
+     all-reduce with a pre-multiplied sum by 2 captured into a CUDA graph
+     and replayed 3 times reads 8× its start (a replayed NCCL collective
+     runs); (b) the data-parallel train step graphed against eager from
+     one state over 6 global batches, with the recipe's Noam warm-up as
+     phase 14 (whose bounds hold it) takes it (losses, the parameters'
+     change, 10
+     launches of each float32 flash kernel a step, graphs held after the
+     first call), a steps_per_call = 2 chunk as one replay against the
+     steps one by one, the eval step graphed against eager, and the step's
+     ms eager and graphed, busy share and peak memory at (128, 1000),
+     B = 8 and at the deep run's (16, 128), B = 16; (c) ``train()`` graphed
+     (chunks of 2, evaluations and rank-0 samples inside the run: the
+     train graphs kept across each sample), its checkpoint and its flash
+     launches. The ranks' flash launches join the ``kernels`` line's.
      The 1-rank configuration again, and at B = 4 with grad_acc_step 2
      over the 2-rank run's row halves: their parameters' change against
      the first 1-rank run's, read and printed;
@@ -4515,7 +4528,13 @@ def phase_front_ends(smoke: Smoke, device):
 DP_STEPS = 6
 DP_BATCH = 8            # the global batch: 4 rows a rank on 2 ranks
 DP_BUCKET = (128, 1000)  # (S, T): every batch padded to it
-DP_NCCL_STEPS = 3
+DP_NCCL_STEPS = 4       # train() over NCCL: 2 chunks of DP_NCCL_SPC
+DP_NCCL_SPC = 2
+DP_NCCL_EVERY = 2       # its val_step and synth_step: both inside the run
+DP_WITNESS_REPLAYS = 3  # a PREMUL_SUM by 2 replayed: 2**3 × its start
+DP_GRAPH_SPC = 2        # the graphed DP chunk
+DP_GRAPH_TIMED = 10     # timed steps at the deep run's bucket, after 3
+DP_GRAPH_WARM_UP = 4000  # the recipe's Noam warm-up (phase 14's)
 DP_CLI_STEPS = 4
 DP_TIMEOUT = 300        # seconds a group of ranks may take
 DP_WARM_UP = 10         # Noam warm-up steps: the 6 steps move the weights
@@ -4536,10 +4555,14 @@ DP_PARAM_RTOL, DP_EVAL_RTOL = 5e-3, 2e-4
 DP_DELTA_RTOL, DP_MIN_MOVE = 2e-2, 1e-3
 
 
-def dp_config(corpus: str, out: str, total: int, grad_acc_step: int = 1):
+def dp_config(corpus: str, out: str, total: int, grad_acc_step: int = 1,
+              steps_per_call: int = 1, every: int = 1000,
+              warm_up: int = DP_WARM_UP):
     """Config() width under "flash", float32, a global batch of DP_BATCH
-    at the single bucket DP_BUCKET, a warm-up of DP_WARM_UP steps, losses
-    logged every step; ``grad_acc_step`` micro-steps an update."""
+    at the single bucket DP_BUCKET, a warm-up of ``warm_up`` steps, losses
+    logged every step; ``grad_acc_step`` micro-steps an update,
+    ``steps_per_call`` steps a chunk, an evaluation and a sample every
+    ``every`` steps."""
     from expressive_fastspeech2_mandarin_tpu_torch import config as C
 
     return C.Config(
@@ -4552,12 +4575,13 @@ def dp_config(corpus: str, out: str, total: int, grad_acc_step: int = 1):
                               log_path=os.path.join(out, "log"),
                               result_path=os.path.join(out, "result")),
             optimizer=C.OptimizerConfig(batch_size=DP_BATCH,
-                                        warm_up_step=DP_WARM_UP,
+                                        warm_up_step=warm_up,
                                         grad_acc_step=grad_acc_step),
             buckets=C.BucketConfig(src_buckets=DP_BUCKET[:1],
                                    mel_buckets=DP_BUCKET[1:]),
-            step=C.StepConfig(total_step=total, log_step=1, val_step=1000,
-                              synth_step=1000, save_step=1000)))
+            step=C.StepConfig(total_step=total, log_step=1, val_step=every,
+                              synth_step=every, save_step=1000),
+            steps_per_call=steps_per_call))
 
 
 def dp_worker(spec_path: str) -> int:
@@ -4568,7 +4592,9 @@ def dp_worker(spec_path: str) -> int:
     slices, the slices the ranks of a k-rank run take), then, on more than
     one rank, times
     the gradients' all-reduce alone on tensors of their sizes; ``nccl``
-    runs ``train()`` in a world of one over NCCL. Writes its result as
+    runs ``train()`` graphed in a world of one over NCCL (chunks, an
+    evaluation and a sample inside the run, the train graphs read around
+    each sample); ``graphed`` is ``dp_graphed``. Writes its result as
     JSON, and the flat parameters before and after the steps
     (``torch.save``, not named .pt: the phase counts the checkpoints by
     that suffix)."""
@@ -4602,7 +4628,7 @@ def dp_worker(spec_path: str) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     n, rank = spec["num_processes"], spec["rank"]
-    if spec["mode"] == "nccl":
+    if spec["mode"] in ("nccl", "graphed"):
         dist.init_process_group("nccl", init_method=f"tcp://{spec['coord']}",
                                 world_size=1, rank=0)
     else:
@@ -4611,11 +4637,31 @@ def dp_worker(spec_path: str) -> int:
               "backend": dist.get_backend() if dist.is_initialized()
               else None}
     reset_flash_counts()
-    if spec["mode"] == "nccl":
-        cfg = dp_config(spec["corpus"], spec["out"], DP_NCCL_STEPS)
+    if spec["mode"] == "graphed":
+        state = dp_graphed(spec, device, result)
+    elif spec["mode"] == "nccl":
+        cfg = dp_config(spec["corpus"], spec["out"], DP_NCCL_STEPS,
+                        steps_per_call=DP_NCCL_SPC, every=DP_NCCL_EVERY)
+        held, samples = {}, []
+        create, sample = loop.create_train_state, loop.save_synth_sample
+
+        def creating(*args, **kwargs):
+            held["state"] = create(*args, **kwargs)
+            return held["state"]
+
+        def sampling(*args, **kwargs):
+            # The train graphs as the sample finds and leaves them.
+            owner = held["state"].graphs
+            before = (owner.count(), owner.check())
+            out = sample(*args, **kwargs)
+            samples.append([*before, owner.count(), owner.check()])
+            return out
+
+        loop.create_train_state, loop.save_synth_sample = creating, sampling
         state = train(cfg, device=device)
         torch.cuda.synchronize()
-        result.update(step=state.step,
+        result.update(step=state.step, samples=samples,
+                      capturable=state.layout.capturable,
                       checkpoints=sorted(os.listdir(
                           os.path.join(spec["out"], "ckpt"))))
     else:
@@ -4680,6 +4726,183 @@ def dp_worker(spec_path: str) -> int:
     with open(spec["result"], "w") as f:
         json.dump(result, f)
     return 0
+
+
+def dp_graphed(spec: dict, device, result: dict):
+    """``dp_worker``'s ``graphed`` mode, a world of one over NCCL: the
+    PREMUL_SUM replay witness; the DP train step graphed against eager
+    from one state over DP_STEPS global batches of phase 13's corpus, the
+    steps one a replay and DP_GRAPH_SPC a replay, the eval step graphed
+    against eager, each call's flash launches and ms; busy share and peak
+    memory eager and graphed, at DP_BUCKET and at the deep run's bucket.
+    Returns the graphed state."""
+    import torch
+    import torch.distributed as dist
+
+    from expressive_fastspeech2_mandarin_tpu_torch import graphs, parallel
+    from expressive_fastspeech2_mandarin_tpu_torch.data import (
+        BucketedDataset,
+        PreprocessedCorpus,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        loop,
+        train_step,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.state import (
+        broadcast_state,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.step import (
+        eval_step,
+        make_eval_step,
+        make_train_multi_step,
+        make_train_step,
+        stack_batches,
+    )
+
+    os.makedirs(spec["out"], exist_ok=True)
+    # (a) A replayed NCCL collective runs: at one rank a plain sum moves
+    # nothing, a pre-multiplied one scales.
+    dist.all_reduce(torch.ones(1, device=device))  # the communicator
+    x = torch.ones(1024, device=device)
+    witness = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(witness):
+        dist.all_reduce(x, op=dist._make_nccl_premul_sum(2.0))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    captured = sorted(set(x.tolist()))
+    for _ in range(DP_WITNESS_REPLAYS):
+        witness.replay()
+    torch.cuda.synchronize()
+    result["witness"] = [captured, sorted(set(x.tolist()))]
+
+    # (b) The DP step graphed against eager, with the recipe's warm-up, as
+    # phase 14 (whose bounds these are) takes it: past DP_WARM_UP's steps
+    # the eager step's float noise grows by chaos (phase 13's "1 rank
+    # again").
+    cfg = dp_config(spec["corpus"], spec["out"], DP_STEPS,
+                    warm_up=DP_GRAPH_WARM_UP)
+    tc = cfg.train
+    layout = parallel.make_layout()
+    corpus = PreprocessedCorpus(spec["corpus"])
+    ds_args = (DP_BATCH, tc.buckets, cfg.model.max_seq_len)
+    train_ds = BucketedDataset(corpus, "train.txt", *ds_args,
+                               drop_last=True, seed=tc.seed)
+    val_ds = BucketedDataset(corpus, "val.txt", *ds_args, seed=tc.seed)
+    raw = [b for epoch in range(2) for b in train_ds.epoch(epoch)]
+    batches = [loop.stage_batch(b, device) for b in raw[:DP_STEPS]]
+    val = [loop.stage_batch(b, device) for b in val_ds.epoch(0, False)]
+    states = {k: create_train_state(cfg, corpus.stats, device, layout)
+              for k in ("eager", "graphed", "chunked")}
+    for state in states.values():
+        broadcast_state(state)
+
+    def flat(state):
+        return torch.cat([p.detach().reshape(-1).double()
+                          for p in state.model.parameters()])
+
+    p0 = flat(states["eager"])
+    replays = []
+    replay = graphs.Compiled._replay
+
+    def counted_replay(g, tensors):
+        replays.append(1)
+        return replay(g, tensors)
+
+    graphs.Compiled._replay = staticmethod(counted_replay)
+
+    def launched(fn):
+        """fn()'s result and the flash launches (forward, dQ, dK/dV) it
+        counted; the counters run on over the mode (``dp_worker`` reads
+        their total)."""
+        before = flash_counts()
+        out = fn()
+        return out, [a - b for a, b in zip(flash_counts(), before)]
+
+    def timed(fn):
+        """fn()'s result, ms, flash launches and graph replays."""
+        n = len(replays)
+        holder = {}
+        ms = synced_ms(lambda: holder.update(out=launched(fn)))
+        out, flash = holder["out"]
+        return out, ms, flash, len(replays) - n
+
+    runs = {"eager": [], "graphed": [], "chunked": []}
+    step = make_train_step(states["graphed"], cfg)
+    multi = make_train_multi_step(states["chunked"], cfg, DP_GRAPH_SPC)
+    for batch in batches:
+        runs["eager"].append(timed(
+            lambda: train_step(states["eager"], batch, cfg)))
+        runs["graphed"].append(timed(lambda: step(batch)))
+        if len(runs["graphed"]) == 1:
+            result["graphs_after_first"] = states["graphed"].graphs.count()
+    for c in range(0, DP_STEPS, DP_GRAPH_SPC):
+        stacked = stack_batches(batches[c:c + DP_GRAPH_SPC])
+        runs["chunked"].append(timed(lambda: multi(stacked)))
+    for name, rows in runs.items():
+        result[name] = {"losses": [float(r[0].total) for r in rows],
+                        "ms": [r[1] for r in rows],
+                        "flash": [r[2] for r in rows],
+                        "replays": [r[3] for r in rows]}
+    d_eager = flat(states["eager"]) - p0
+    result["delta_rel"] = {
+        k: float((flat(states[k]) - p0 - d_eager).norm() / d_eager.norm())
+        for k in ("graphed", "chunked")}
+    result["move"] = float(d_eager.norm() / p0.norm())
+    result["graphs"] = states["graphed"].graphs.count()
+    # The eval step on the graphed state's weights: eager, then graphed
+    # twice (the capture, a replay), each graphed call's flash launches.
+    evaluate = make_eval_step(states["graphed"], cfg)
+    model = states["graphed"].model
+    result["eval"] = []
+    for b in val:
+        row = [[float(x) for x in eval_step(model, b, cfg, layout)]]
+        for _ in range(2):
+            losses, flash = launched(lambda: evaluate(b))
+            row += [[float(x) for x in losses], flash]
+        result["eval"].append(row)
+
+    # Times, busy share and peak memory, eager and graphed, at DP_BUCKET
+    # (B = DP_BATCH) and at the deep run's bucket (B = CONV_KERNEL_BATCH).
+    s, t = CONV_BUCKET
+    deep_batch = loop.stage_batch(
+        synthetic_train_batch(CONV_KERNEL_BATCH, s, t, seed=7), device)
+    deep = {k: create_train_state(cfg, corpus.stats, device, layout)
+            for k in ("eager", "graphed")}
+    shapes = {"dp": (batches[0], states["eager"], step),
+              "deep": (deep_batch, deep["eager"],
+                       make_train_step(deep["graphed"], cfg))}
+    result["profiles"] = {}
+    for name, (batch, eager, graphed_step) in shapes.items():
+        fns = {"eager": lambda: train_step(eager, batch, cfg),
+               "graphed": lambda: graphed_step(batch)}
+        for _ in range(3):
+            for fn in fns.values():
+                fn()
+        ms = {k: [] for k in fns}
+        for _ in range(DP_GRAPH_TIMED):
+            for k, fn in fns.items():
+                ms[k].append(synced_ms(fn))
+        out = {}
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            (busy, window, kernels), counted, traced = profiled_busy(
+                fn, GRAPH_PROFILED,
+                os.path.join(spec["out"], f"profile_{name}_{k}.json"))
+            out[k] = {"ms": ms[k], "busy": busy, "window_ms": window,
+                      "kernels": kernels, "counted": list(counted),
+                      "traced": list(traced),
+                      "peak_mib": (torch.cuda.max_memory_allocated()
+                                   - base) / 2**20,
+                      "base_mib": base / 2**20,
+                      "reserved_mib": torch.cuda.memory_reserved() / 2**20}
+        result["profiles"][name] = out
+    graphs.Compiled._replay = staticmethod(replay)
+    return states["graphed"]
 
 
 def free_port() -> int:
@@ -4755,12 +4978,96 @@ def dp_run(tmp: Path, name: str, mode: str, n: int, corpus: str,
     return dp_runs(tmp, mode, {name: (n, {})}, corpus, root)[name]
 
 
+def check_dp_graphed(smoke: Smoke, r: dict, card: str) -> None:
+    """Phase 13's checks and times of ``dp_graphed``'s result."""
+    import numpy as np
+
+    smoke.check(r["witness"] == [[1.0], [2.0 ** DP_WITNESS_REPLAYS]],
+                f"a PREMUL_SUM all-reduce by 2 over NCCL (world of 1) "
+                f"captured and replayed {DP_WITNESS_REPLAYS} times: values "
+                f"{r['witness'][0]} after the capture, {r['witness'][1]} "
+                f"after the replays (expected "
+                f"{[2.0 ** DP_WITNESS_REPLAYS]})")
+
+    def loss_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    eager, graphed, chunked = r["eager"], r["graphed"], r["chunked"]
+    per_step = [10, 10, 10]
+    means = [float(np.mean(eager["losses"][c:c + DP_GRAPH_SPC]))
+             for c in range(0, DP_STEPS, DP_GRAPH_SPC)]
+    smoke.check(r["backend"] == "nccl" and r["graphs_after_first"] > 0
+                and all(f == per_step for f in eager["flash"]
+                        + graphed["flash"])
+                and all(f == [DP_GRAPH_SPC * n for n in per_step]
+                        for f in chunked["flash"])
+                and eager["replays"] == [0] * DP_STEPS
+                and graphed["replays"] == [1] * DP_STEPS
+                and chunked["replays"] == [1] * len(means),
+                f"the DP step over {r['backend']}: graphs after the first "
+                f"call {r['graphs_after_first']}; flash launches (forward, "
+                f"dQ, dK/dV) a call eager {eager['flash']}, graphed "
+                f"{graphed['flash']}, chunks of {DP_GRAPH_SPC} "
+                f"{chunked['flash']}; graph replays a call eager "
+                f"{eager['replays']}, graphed {graphed['replays']}, chunks "
+                f"{chunked['replays']}")
+    smoke.check(loss_rel(graphed["losses"], eager["losses"])
+                <= GRAPH_LOSS_RTOL
+                and loss_rel(chunked["losses"], means) <= GRAPH_LOSS_RTOL
+                and max(r["delta_rel"].values()) <= GRAPH_DELTA_RTOL,
+                f"{DP_STEPS} DP steps, float32 'flash', B = {DP_BATCH}, "
+                f"bucket {DP_BUCKET}: losses eager "
+                f"{[f'{x:.6f}' for x in eager['losses']]}; graphed rel diff "
+                f"{loss_rel(graphed['losses'], eager['losses']):.2e}, chunk "
+                f"means {chunked['losses']} against {means} rel diff "
+                f"{loss_rel(chunked['losses'], means):.2e} (bound "
+                f"{GRAPH_LOSS_RTOL:.0e}); ||dp - dp_eager|| / ||dp_eager|| "
+                f"{r['delta_rel']} (bound {GRAPH_DELTA_RTOL:.0e}); "
+                f"||dp_eager|| / ||p0|| {r['move']:.3e}")
+    smoke.check(all(loss_rel(row[i], row[0]) <= GRAPH_LOSS_RTOL
+                    and row[i + 1] == [10, 0, 0]
+                    for row in r["eval"] for i in (1, 3)),
+                f"the eval step graphed (capture, replay) against eager on "
+                f"{len(r['eval'])} val batch(es): "
+                + "; ".join(f"eager {row[0][0]:.6f}, graphed {row[1][0]:.6f}"
+                            f" and {row[3][0]:.6f}, flash {row[2]} and "
+                            f"{row[4]}" for row in r["eval"]))
+    print(f"  DP step ms, world of 1 over NCCL, B = {DP_BATCH}, bucket "
+          f"{DP_BUCKET}: eager median "
+          f"{float(np.median(eager['ms'][1:])):.3f} {eager['ms'][1:]}, "
+          f"graphed {float(np.median(graphed['ms'][1:])):.3f} "
+          f"{graphed['ms'][1:]}, {DP_GRAPH_SPC} a replay "
+          f"{[m / DP_GRAPH_SPC for m in chunked['ms'][1:]]} a step; first "
+          f"calls (warm-up, capture, replay) {graphed['ms'][0]:.1f} and "
+          f"{chunked['ms'][0]:.1f} ms [{card}]", flush=True)
+    for name, prof in r["profiles"].items():
+        what = (f"B = {DP_BATCH}, bucket {DP_BUCKET}" if name == "dp"
+                else f"B = {CONV_KERNEL_BATCH}, bucket {CONV_BUCKET}")
+        print("  " + f"DP step {what}, {DP_GRAPH_TIMED} steps in turns "
+              f"after 3, then {GRAPH_PROFILED} profiled (median ms; busy, "
+              f"window ms, kernels; peak MiB above allocated, reserved): "
+              + "; ".join(
+                  f"{k} {float(np.median(v['ms'])):.3f} "
+                  f"({min(v['ms']):.3f}-{max(v['ms']):.3f}); busy "
+                  f"{v['busy']:.3f}, {v['window_ms']:.1f}, {v['kernels']};"
+                  f" {v['peak_mib']:.1f} above {v['base_mib']:.1f}, "
+                  f"reserved {v['reserved_mib']:.1f}"
+                  for k, v in prof.items()) + f" [{card}]", flush=True)
+        smoke.check(all(v["busy"] > 0 and all(
+            t <= c for t, c in zip(v["traced"], v["counted"]))
+            for v in prof.values()),
+            f"DP step {what}: the profiler saw device time, and no more "
+            f"port kernels than counted: " + "; ".join(
+                f"{k} counted {v['counted']} traced {v['traced']}"
+                for k, v in prof.items()))
+
+
 def phase_data_parallel(smoke: Smoke, device, root: Path):
     """Phase 13: 1 rank against 2 gloo ranks sharing the card over the same
     global batches; ``efs2-torch-train --coordinator`` on 2 processes on the
-    Quick-start corpus; ``train()`` in a world of one over NCCL. Returns
-    the flash launches (forward, dQ, dK/dV) the ranks counted, and the
-    step times."""
+    Quick-start corpus; over NCCL in worlds of one, the DP steps graphed
+    against eager (``dp_graphed``) and ``train()`` graphed. Returns the
+    flash launches (forward, dQ, dK/dV) the ranks counted."""
     import numpy as np
     import torch
 
@@ -4920,16 +5227,44 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
                     f"{finals}; checkpoint directories {ckpt_dirs} "
                     f"[{card}]")
 
+        t0 = time.perf_counter()
+        graphed = dp_run(tmp, "graphed", "graphed", 1, corpus, root)
+        if smoke.check(graphed is not None,
+                       f"the DP steps graphed over NCCL, world of 1 "
+                       f"({time.perf_counter() - t0:.1f} s)"):
+            r = graphed[0]
+            launches = [a + b for a, b in zip(launches, r["flash"])]
+            check_dp_graphed(smoke, r, card)
+        t0 = time.perf_counter()
         nccl = dp_run(tmp, "nccl", "nccl", 1, corpus, root)
-        if smoke.check(nccl is not None, "train() over NCCL, world of 1"):
+        if smoke.check(nccl is not None,
+                       f"train() over NCCL, world of 1 "
+                       f"({time.perf_counter() - t0:.1f} s)"):
             r = nccl[0]
             launches = [a + b for a, b in zip(launches, r["flash"])]
-            smoke.check(r["backend"] == "nccl" and r["step"] == DP_NCCL_STEPS
+            t = dp_config(corpus, str(tmp), DP_NCCL_STEPS).model.transformer
+            n_blocks = t.encoder_layer + t.decoder_layer
+            crossings = DP_NCCL_STEPS // DP_NCCL_EVERY
+            forwards = (DP_NCCL_STEPS + crossings * math.ceil(
+                N_VAL_UTTS / DP_BATCH) + crossings)
+            expected = [n_blocks * forwards] + [n_blocks * DP_NCCL_STEPS] * 2
+            kept = all(count > 0 and not changed and after == count
+                       and not changed_after
+                       for count, changed, after, changed_after
+                       in r["samples"])
+            smoke.check(r["backend"] == "nccl" and r["capturable"]
+                        and r["step"] == DP_NCCL_STEPS
                         and r["checkpoints"] == [f"{DP_NCCL_STEPS}.pt"]
-                        and r["flash"] == [10 * DP_NCCL_STEPS] * 3,
-                        f"train() in a world of 1, backend {r['backend']}: "
-                        f"step {r['step']}, checkpoints {r['checkpoints']}, "
-                        f"flash launches {r['flash']}")
+                        and r["flash"] == expected
+                        and len(r["samples"]) == crossings and kept,
+                        f"train() in a world of 1 over {r['backend']}, "
+                        f"graphed (capturable {r['capturable']}), chunks of "
+                        f"{DP_NCCL_SPC}, an evaluation and a sample every "
+                        f"{DP_NCCL_EVERY} steps: step {r['step']}, "
+                        f"checkpoints {r['checkpoints']}, flash launches "
+                        f"{r['flash']} (expected {expected}); the train "
+                        f"graphs around each sample (held, changed) before "
+                        f"and after: {r['samples']}")
     smoke.check(all(n > 0 for n in launches),
                 f"flash launches (forward, dQ, dK/dV) the ranks counted over "
                 f"phase 13: {launches}")

@@ -5,7 +5,9 @@ More than one process: run one per card with the same configuration and
 ``--coordinator host:port --num-processes N --process-id i`` (process 0's
 address); each takes ``cuda:(i % device_count)`` and joins over NCCL
 (``--backend gloo`` for several processes on one card, and the default
-with ``--device cpu``).
+with ``--device cpu``). Over NCCL the steps replay from CUDA graphs with
+their collectives inside, as in one process; over gloo, whose collectives
+cannot be captured, they run eagerly.
 """
 
 from __future__ import annotations

@@ -39,6 +39,15 @@ its state (the train step) is captured with ``mutates=True``: the state
 and the generators' states are saved before the warm-up and put back
 after the capture, so that the first replay makes the call's one step.
 
+A function that runs collectives (a data-parallel step over NCCL,
+``train.step``) captures them with the rest: its warm-up runs them eagerly,
+so a capture is never a process's first collective (the one that creates
+NCCL's communicator, which a capture cannot), the capture runs none, and
+each replay runs the captured set. Ranks stay matched only if every rank
+captures, replays and drops its graphs at the same calls (``train.loop``
+keeps them so); the state that ``mutates=True`` puts back after the
+warm-up is the one from before it, alike on every rank.
+
 Dropout draws from the owner's generators. Each is registered with every
 graph (``CUDAGraph.register_generator_state``), so that a replay draws from
 the generator's state when it runs and moves it on as an eager call does;
@@ -300,7 +309,8 @@ class Compiled:
     def __call__(self, *args, **kwargs):
         tensors, desc = _flatten(args)
         self.owner.check()
-        if not any(t.is_cuda for t in tensors):
+        device = next((t.device for t in tensors if t.is_cuda), None)
+        if device is None:
             return self.fn(*args, **kwargs)
         key = (desc, tuple(sorted(kwargs.items())), torch.is_grad_enabled(),
                torch.is_inference_mode_enabled(),
@@ -308,7 +318,7 @@ class Compiled:
                torch.backends.cudnn.allow_tf32)
         g = self.graphs.get(key)
         if g is None:
-            g = self._capture(key, args, kwargs, tensors)
+            g = self._capture(key, args, kwargs, tensors, device)
         else:
             self.graphs.move_to_end(key)
         return self._replay(g, tensors)
@@ -321,9 +331,8 @@ class Compiled:
         add_counters(g.launches)
         return _clone(g.outputs)
 
-    def _capture(self, key, args, kwargs, tensors) -> _Graph:
+    def _capture(self, key, args, kwargs, tensors, device) -> _Graph:
         owner = self.owner
-        device = next(t.device for t in tensors if t.is_cuda)
         inputs = [t.detach().clone() for t in tensors]
         call_args = _rebuild(args, inputs)
         graph = torch.cuda.CUDAGraph()

@@ -71,6 +71,14 @@ class FastSpeech2(nn.Module):
             self.valence_emb = nn.Embedding(cfg.n_valences, d // 4)
             self.emotion_linear = nn.Sequential(nn.Linear(d, d), nn.ReLU())
 
+    def reserve_positions(self, src_len: int, mel_len: int) -> None:
+        """Grow the encoder's and the decoder's position tables now to
+        ``src_len`` and ``mel_len`` positions (where they pass
+        ``max_seq_len``), so that no later forward of at most those
+        lengths replaces a table."""
+        for stack, t in ((self.encoder, src_len), (self.decoder, mel_len)):
+            stack.positions(t, stack.position_enc)
+
     def forward(self, speakers: torch.Tensor, emotions: torch.Tensor,
                 arousals: torch.Tensor, valences: torch.Tensor,
                 texts: torch.Tensor, src_lens: torch.Tensor, *,

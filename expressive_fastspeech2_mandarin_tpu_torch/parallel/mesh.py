@@ -33,6 +33,13 @@ collective.
 Only ``all_reduce`` and ``broadcast`` are used: gloo runs no other
 collective on CUDA tensors, and so one code path serves gloo (CPU; several
 ranks on one card) and NCCL (one card a rank).
+
+The layout records the process group's backend, and with it whether its
+collectives can be captured into a CUDA graph (``Layout.capturable``):
+NCCL's can, gloo's cannot. The compiled steps (``train.step``) read that
+before they are made, so a run over NCCL replays its steps, collectives
+inside, and a run over gloo runs them eagerly; no step decides after a
+failed capture.
 """
 
 from __future__ import annotations
@@ -77,10 +84,17 @@ class Layout:
     world_size: int
     rank: int
     model_parallel: int = 1
+    backend: str | None = None  # the process group's, as dist names it
 
     @property
     def data_parallel(self) -> int:
         return self.world_size // self.model_parallel
+
+    @property
+    def capturable(self) -> bool:
+        """Whether the collectives can be captured into a CUDA graph: NCCL
+        (one card a rank) can, gloo cannot."""
+        return self.backend == "nccl"
 
     @property
     def data_index(self) -> int:
@@ -110,7 +124,8 @@ def make_layout(model_parallel: int = 1) -> Layout | None:
             f"{world} process(es) of this run")
     if not dist.is_initialized():
         return None
-    return Layout(world, dist.get_rank(), model_parallel)
+    return Layout(world, dist.get_rank(), model_parallel,
+                  str(dist.get_backend()))
 
 
 def _buckets(tensors: Iterable[torch.Tensor]

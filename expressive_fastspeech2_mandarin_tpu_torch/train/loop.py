@@ -27,10 +27,10 @@ step, written as a Chrome trace under ``<log_path>/profile``.
 
 The steps are the compiled ones, as the JAX loop takes its jitted steps
 (``train/loop.py:121-124`` there): ``train.step.make_train_step``, a CUDA
-graph per bucket on the card in one process, eager on the CPU and under a
-data-parallel layout (gloo's collectives cannot be captured); evaluation
-and the samples' synthesis likewise (``make_eval_step``,
-``make_synth_step``), on the same graphs. With
+graph per bucket on the card, in one process and over NCCL, eager on the
+CPU and over gloo (whose collectives cannot be captured); evaluation and
+the samples' synthesis likewise (``make_eval_step``, ``make_synth_step``).
+With
 ``steps_per_call`` > 1, consecutive batches of one bucket run as chunks of
 that many steps (``chunks``), as the JAX package's scanned steps do: a
 full chunk is one call of the multi step (``make_train_multi_step``, one
@@ -54,6 +54,16 @@ broadcast at the start; the step takes the run's ``parallel.Layout``;
 the steps, ``evaluate`` and every checkpoint are collective; only rank 0
 logs, profiles and synthesizes samples, none of which holds a collective.
 Every rank prints its final step and parameter checksum.
+
+Over NCCL the steps replay with their collectives inside, so every rank
+must capture, replay and drop its graphs at the same calls: a rank that
+captured alone would run its warm-up's collectives with no partner, and
+the group would hang. The keys agree (the buckets come from the global
+batch). What rank 0 does alone leaves the graphs every rank holds as they
+are: its samples compile on graphs of their own (``make_synth_step``),
+and before the first step every rank grows the position tables to the
+longest bucket of the run (``FastSpeech2.reserve_positions``), so that no
+sample longer than ``max_seq_len`` replaces a table the train graphs read.
 """
 
 from __future__ import annotations
@@ -345,6 +355,8 @@ def train(cfg: Config, restore_step: int | None = None,
               else (-1, -1))
     profile = ProfileWindow(*window, os.path.join(log_dir, "profile"),
                             device)
+    state.model.reserve_positions(max(tc.buckets.src_buckets),
+                                  max(tc.buckets.mel_buckets))
     spc = tc.steps_per_call
     single_step = make_train_step(state, cfg)
     multi_step = make_train_multi_step(state, cfg, spc) if spc > 1 else None

@@ -30,12 +30,25 @@ the global ones too.
 (``train/step.py:93-165`` there): on the card one CUDA graph per bucket
 on the state's graphs (``graphs.Graphs``), the multi step ``n_steps``
 optimizer steps over a stacked batch in one replay, as JAX's
-``lax.scan``; on the CPU, and under a data-parallel layout (gloo's
-collectives cannot be captured), the same steps eagerly. The eval and
-synth graphs read the weights and BatchNorm's running statistics at the
-addresses the train graphs write them, so they share the state's
-graphs: a train replay writes them in place and keeps every graph, an
-eager write drops them all.
+``lax.scan``; on the CPU the same steps run eagerly, as ``jax.jit`` runs
+them there. The eval and synth graphs read the weights and BatchNorm's
+running statistics at the addresses the train graphs write them, so they
+share the state's graphs: a train replay writes them in place and keeps
+every graph, an eager write drops them all.
+
+Under a data-parallel layout the choice is the layout's
+(``parallel.Layout.capturable``), made when a step is made, never after a
+failed capture. Over NCCL the train, multi and eval steps are compiled as
+they are in one process, their collectives inside the graph: the
+gradients' sum, the global loss terms and BatchNorm's global moments,
+which XLA likewise puts inside JAX's compiled step. Every rank then
+captures at the same call, and the capture's warm-up (``graphs``) runs the
+collectives eagerly first, so that no capture is a process's first NCCL
+call. Gloo's collectives cannot be captured, so over gloo the steps run
+eagerly. The synth step, which rank 0 alone calls for its samples and
+which holds no collective, is compiled on an owner of its own, as JAX's
+main host compiles its sample step on host-local parameters: its
+captures and drops never touch the graphs every rank holds alike.
 """
 
 from __future__ import annotations
@@ -156,13 +169,19 @@ def train_graphs(state: TrainState) -> Graphs:
     return state.graphs
 
 
+def _eager(state: TrainState) -> bool:
+    """Whether the state's layout keeps its steps eager: its collectives
+    cannot be captured (gloo)."""
+    return state.layout is not None and not state.layout.capturable
+
+
 def make_train_step(state: TrainState, cfg: Config):
     """``step(batch) -> LossReport``: ``train_step`` on ``state`` (the JAX
     package's ``make_train_step``, the state updated in place). On the
-    card one CUDA graph per bucket replays the forward, the backward and
-    the optimizer; on CPU tensors, and under a data-parallel layout, the
-    eager step runs."""
-    if state.layout is not None:
+    card one CUDA graph per bucket replays the forward, the backward, the
+    collectives of a capturable layout and the optimizer; on CPU tensors,
+    and under a gloo layout, the eager step runs."""
+    if _eager(state):
         return lambda batch: train_step(state, batch, cfg)
     compiled = train_graphs(state).jit(
         lambda batch: _update(state, batch, cfg), mutates=True)
@@ -180,15 +199,16 @@ def make_train_multi_step(state: TrainState, cfg: Config, n_steps: int):
     a batch stacked on a leading (n_steps, ...) axis (``stack_batches``),
     returning their mean report on the device (the JAX package's
     ``make_train_multi_step``, a ``lax.scan`` there). On the card the
-    chunk is one replay of one CUDA graph per bucket; on CPU tensors, and
-    under a data-parallel layout, the steps run eagerly one by one."""
+    chunk is one replay of one CUDA graph per bucket, under a capturable
+    layout too; on CPU tensors, and under a gloo layout, the steps run
+    eagerly one by one."""
 
     def body(batches: Batch) -> LossReport:
         return mean_report([
             _update(state, {k: v[i] for k, v in batches.items()}, cfg)
             for i in range(n_steps)])
 
-    run = (body if state.layout is not None
+    run = (body if _eager(state)
            else train_graphs(state).jit(body, mutates=True))
 
     def multi_step(batches: Batch) -> LossReport:
@@ -222,23 +242,25 @@ def synth_step(model: FastSpeech2, batch: Batch, max_mel_len: int,
 
 def make_eval_step(state: TrainState, cfg: Config):
     """``eval(batch) -> LossReport``: ``eval_step`` on ``state.model``
-    (the JAX package's ``make_eval_step``); on the card one CUDA graph per
-    bucket on the state's graphs, eager on CPU tensors and under a
-    data-parallel layout (the losses are then the global ones)."""
-    if state.layout is not None:
-        return lambda batch: eval_step(state.model, batch, cfg, state.layout)
-    return train_graphs(state).jit(
-        lambda batch: eval_step(state.model, batch, cfg))
+    (the JAX package's ``make_eval_step``), the global losses under a
+    layout; on the card one CUDA graph per bucket on the state's graphs,
+    eager on CPU tensors and under a gloo layout."""
+    def evaluate(batch: Batch) -> LossReport:
+        return eval_step(state.model, batch, cfg, state.layout)
+
+    return evaluate if _eager(state) else train_graphs(state).jit(evaluate)
 
 
 def make_synth_step(state: TrainState):
     """``synth(batch, max_mel_len) -> (postnet mel, mel_lens,
     durations)``: ``synth_step`` on ``state.model`` (the JAX package's
     ``make_synth_step``); on the card one CUDA graph per batch shape and
-    mel bucket on the state's graphs, eager on CPU tensors and under a
-    data-parallel layout, as the steps are there."""
+    mel bucket, eager on CPU tensors. In one process it is compiled on the
+    state's graphs; under a layout, where one rank alone calls it, on
+    graphs of its own that read the same weights."""
     def synth(batch: Batch, max_mel_len: int):
         return synth_step(state.model, batch, max_mel_len)
 
-    return synth if state.layout is not None else train_graphs(state).jit(
-        synth)
+    owner = (train_graphs(state) if state.layout is None
+             else Graphs(state=lambda: module_tensors(state.model)))
+    return owner.jit(synth)

@@ -374,11 +374,13 @@ def test_no_garbage_collection_inside_a_capture(monkeypatch):
 
 
 def test_train_step_under_a_layout_stays_eager():
-    """``make_train_step`` under a data-parallel layout is the eager step
-    (gloo's collectives cannot be captured): it makes no graphs."""
+    """``make_train_step`` under a gloo data-parallel layout is the eager
+    step (gloo's collectives cannot be captured): it makes no graphs."""
+    from expressive_fastspeech2_mandarin_tpu_torch.parallel import Layout
+
     _, tc, _, _, _, state = _both()
-    layout_state = dataclasses.replace(copy.deepcopy(state),
-                                       layout=object())
+    layout_state = dataclasses.replace(
+        copy.deepcopy(state), layout=Layout(2, 0, backend="gloo"))
     assert layout_state.graphs is None
     make_train_step(layout_state, tc)
     assert layout_state.graphs is None
