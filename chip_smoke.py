@@ -295,6 +295,30 @@ Phases:
      host work for a chunk (collation, staging, stacking), and a chunk
      of ten steps replayed alone on the same batches under "auto" and
      "flash".
+  16. flash attention at head dims other than 128, on "h1d256" (Config()
+     with one encoder and one decoder head: D = 256 at the parameters'
+     shapes of Config()): (a) the float32 forward, dQ and dK/dV kernels at
+     D = 256 (csrc/flash_mha_d256.cu) against their plain versions at
+     phases 2b's and 2d's cases with H = 1 and their bounds (also against
+     float64), each call on the D = 256 kernels and no other; at D = 64,
+     the six D = 128 kernels on zero-padded inputs at (4, 2, 1000, 64)
+     against the plain versions at D = 64 (float32: phases 2b and 2d's
+     bounds; bf16: phase 2e's); (b) h1d256 long-form synthesis
+     (``max_mel_len=4096``) under "auto": 6 launches of the D = 256
+     forward a call and no other flash kernel, graphed against eager
+     (phase 14's bounds), the mel against the math path on the card
+     (phase 3b's bound), text -> mel times under "auto" and "xla"; (c)
+     ``train()`` of h1d256 under "flash" for 20 steps on phase 5's corpus
+     and recipe (graphed on the card), 10 launches of each D = 256 kernel
+     a train step and none of the D = 128 kernels, against the same run
+     under "auto": the logged losses within phase 5's 1e-5 relative; (d)
+     times, each kernel call from a CUDA graph: the D = 256 forward at
+     (4, 1, T, 256) for T = 2300 and 4096 and the backward pair at
+     T = 1000 and 4096 against their bounds (TF32 rate over the live key
+     tiles, and the same flops at the float32 rate), plain versions and
+     SDPA in float32 with the same bool mask; D = 64 at (4, 2, 4096, 64)
+     through the padding against the D = 128 kernel on inputs padded
+     beforehand and SDPA.
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -352,10 +376,11 @@ F32_BOUND = 1e-4
 # such units at the output's peak magnitude.
 BF16_REL_BOUND = 2.0 ** -6
 
-# Published H100 SXM peaks (dense bf16 and TF32 tensor-core rates, HBM3
-# bandwidth).
+# Published H100 SXM peaks (dense bf16 and TF32 tensor-core rates, float32
+# outside the tensor cores, HBM3 bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 def prefixes(*lens):
@@ -477,12 +502,14 @@ SETMAXNREG_KERNELS = {
                                      "flash_mha_bwd_bf16"),
     "flash_mha_bwd_dkv_bf16_kernel": ("flash_mha_bwd_bf16",
                                       "flash_mha_bwd_bf16")}
-# The tensor-core kernels, which must compile without spills.
+# The tensor-core kernels and the float32 flash kernels at D = 256 (CUDA
+# cores), which must compile without spills.
 TC_KERNELS = ("mrf_conv_tc_kernel", "mrf_conv_f32_tc_kernel",
               "flash_mha_fwd_kernel",
               "flash_mha_bwd_dq_kernel", "flash_mha_bwd_dkv_kernel",
               "flash_mha_fwd_bf16_kernel", "flash_mha_bwd_dq_bf16_kernel",
-              "flash_mha_bwd_dkv_bf16_kernel")
+              "flash_mha_bwd_dkv_bf16_kernel", "flash_mha_fwd_d256_kernel",
+              "flash_mha_bwd_dq_d256_kernel", "flash_mha_bwd_dkv_d256_kernel")
 
 
 def phase_environment(smoke: Smoke):
@@ -534,6 +561,13 @@ def phase_environment(smoke: Smoke):
           f"flash_mha_bwd_dkv_kernel: {bwd.flash_mha_bwd_dkv_smem_bytes()} "
           f"bytes a block, {bwd.flash_mha_bwd_block_rows()} keys, "
           f"{bwd.flash_mha_bwd_stream_tile()}-query tiles")
+    d256 = build.load("flash_mha_d256")
+    print(f"  flash_mha_fwd_d256_kernel, flash_mha_bwd_dq_d256_kernel, "
+          f"flash_mha_bwd_dkv_d256_kernel: "
+          f"{[d256.flash_mha_d256_smem_bytes(i) for i in range(3)]} bytes "
+          f"of dynamic shared memory a block, 256 threads, "
+          f"{d256.flash_mha_d256_key_tile()}-key tiles (the dK/dV kernel's "
+          f"keys a block), 64 query rows")
     flash16 = build.load("flash_mha_bf16")
     bwd16 = build.load("flash_mha_bwd_bf16")
     # Each setmaxnreg kernel's threads and the registers its split asks for.
@@ -780,25 +814,28 @@ def flash_mask(t: int, rows):
     return mask
 
 
-def flash_inputs(b: int, t: int, rows, gen):
-    """(B, 2, T, 128) float32 q, k, v and the (B, T) key mask on the card."""
+def flash_inputs(b: int, t: int, rows, gen, h: int = 2, d: int = 128):
+    """(B, H, T, D) float32 q, k, v and the (B, T) key mask on the card."""
     import torch
 
-    q, k, v = (torch.randn(b, 2, t, 128, generator=gen).to("cuda")
+    q, k, v = (torch.randn(b, h, t, d, generator=gen).to("cuda")
                for _ in range(3))
     return q, k, v, flash_mask(t, rows).to("cuda")
 
 
-def phase_flash_vs_plain(smoke: Smoke, cases=FLASH_CASES):
+def phase_flash_vs_plain(smoke: Smoke, cases=FLASH_CASES, h: int = 2,
+                         d: int = 128):
+    """The float32 forward kernel of head dim ``d`` against its plain
+    version at (B, h, T, d) for ``cases``; returns the worst max|diff|."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
 
     gen = torch.Generator().manual_seed(2)
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     worst = 0.0
     for b, t, rows in cases:
-        q, k, v, mask = flash_inputs(b, t, rows, gen)
+        q, k, v, mask = flash_inputs(b, t, rows, gen, h, d)
         out = fa.flash_mha(q, k, v, mask, scale)
         ref = fa.flash_mha_plain(q, k, v, mask, scale)
         diff = (out - ref).abs().max().item()  # syncs
@@ -1253,8 +1290,9 @@ def f32_resblock_times(gen) -> dict:
     return totals
 
 
-def flash_bounds_ms(mask) -> dict:
-    """Least times for float32 attention at H = 2, D = 128 on a (B, T) key
+def flash_bounds_ms(mask, h: int = 2, d: int = 128,
+                    lib: str = "flash_mha") -> dict:
+    """Least times for float32 attention at H = h, D = d on a (B, T) key
     mask, each the larger of operations at the TF32 tensor-core rate (the
     card's fastest for float32 inputs) and bytes at the memory rate:
     "tf32_dense", 4·B·H·T²·D flops against q, k, v read once and out
@@ -1263,22 +1301,24 @@ def flash_bounds_ms(mask) -> dict:
     which is this run's ``bound_ms``. For context, the kernel's own method
     takes three TF32 products per product at least (3xTF32; it takes four
     for S, three for P V): "x3_dense" and "x3_live". The tile width is the
-    kernel's (``flash_mha_fwd_key_tile``)."""
+    kernel's (``flash_mha_fwd_key_tile``, or ``flash_mha_d256_key_tile``
+    for ``lib="flash_mha_d256"``)."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
 
-    tile = build.load("flash_mha").flash_mha_fwd_key_tile()
+    tile = getattr(build.load(lib), "flash_mha_fwd_key_tile" if lib
+                   == "flash_mha" else f"{lib}_key_tile")()
     b, t = mask.shape
     n_tiles = math.ceil(t / tile)
     valid = torch.zeros(b, n_tiles * tile, dtype=torch.bool,
                         device=mask.device)
     valid[:, :t] = ~mask
     live = int(valid.view(b, n_tiles, tile).any(-1).sum())
-    flops = 4 * b * 2 * t * t * 128
-    flops_live = 4 * 2 * t * tile * live * 128
-    n_bytes = 16 * b * 2 * t * 128 + b * t
-    live_bytes = 4 * 2 * 128 * (2 * b * t + 2 * tile * live) + b * t
+    flops = 4 * b * h * t * t * d
+    flops_live = 4 * h * t * tile * live * d
+    n_bytes = 16 * b * h * t * d + b * t
+    live_bytes = 4 * h * d * (2 * b * t + 2 * tile * live) + b * t
 
     def bound(ops, nb):
         return 1e3 * max(ops / PEAK_TF32_FLOPS, nb / PEAK_BYTES)
@@ -1427,19 +1467,20 @@ def phase_long_times(synth):
     return rows[max(FLASH_TIMED)]
 
 
-def phase_flash_bwd_vs_plain(smoke: Smoke, cases=FLASH_BWD_CASES):
-    """The backward kernels against the plain backward at ``cases``;
-    returns the worst max|diff| of dq (the dQ kernel) and of dk, dv (the
-    dK/dV kernel)."""
+def phase_flash_bwd_vs_plain(smoke: Smoke, cases=FLASH_BWD_CASES,
+                             h: int = 2, d: int = 128):
+    """The float32 backward kernels of head dim ``d`` against the plain
+    backward at (B, h, T, d) for ``cases``; returns the worst max|diff| of
+    dq (the dQ kernel) and of dk, dv (the dK/dV kernel)."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
 
     gen = torch.Generator().manual_seed(4)
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     worst_dq = worst_dkv = 0.0
     for b, t, rows in cases:
-        q, k, v, mask = flash_inputs(b, t, rows, gen)
+        q, k, v, mask = flash_inputs(b, t, rows, gen, h, d)
         dout = torch.randn(q.shape, generator=gen).to("cuda")
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
@@ -1763,8 +1804,9 @@ def synthetic_train_batch(b: int, s: int, t: int, seed: int):
     }
 
 
-def flash_bwd_bounds_ms(mask, kernel: str) -> dict:
-    """Least times for a backward kernel at H = 2, D = 128 on a (B, T) key
+def flash_bwd_bounds_ms(mask, kernel: str, h: int = 2, d: int = 128,
+                        lib: str = "flash_mha_bwd") -> dict:
+    """Least times for a backward kernel at H = h, D = d on a (B, T) key
     mask, float32, each the larger of operations at the TF32 tensor-core
     rate (as the forward's bound) and bytes at the memory rate: the dQ
     kernel recomputes S and dP and forms dq (6·H·D flops per query row and
@@ -1774,12 +1816,15 @@ def flash_bwd_bounds_ms(mask, kernel: str) -> dict:
     ``kernel="both"`` is the whole backward, 10·H·D (S, dP, dq, dk, dv),
     reading q, out, dO and the live k, v, writing dq, dk, dv. "live" counts
     the 32-key tiles with a valid key (a padded key adds nothing), which is
-    this run's ``bound_ms``; "dense" every key."""
+    this run's ``bound_ms``; "dense" every key. The tile is the dQ
+    kernel's key tile (``flash_mha_bwd_stream_tile``, or
+    ``flash_mha_d256_key_tile`` for ``lib="flash_mha_d256"``)."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
 
-    tile = build.load("flash_mha_bwd").flash_mha_bwd_stream_tile()
+    tile = getattr(build.load(lib), "flash_mha_bwd_stream_tile" if lib
+                   == "flash_mha_bwd" else f"{lib}_key_tile")()
     b, t = mask.shape
     n_tiles = math.ceil(t / tile)
     valid = torch.zeros(b, n_tiles * tile, dtype=torch.bool,
@@ -1793,9 +1838,9 @@ def flash_bwd_bounds_ms(mask, kernel: str) -> dict:
     rows = {"dq": 2, "dkv": 3, "both": 2}[kernel]  # lse, Δ read or written
 
     def bound(keys):
-        flops = per * 2 * t * keys * 128
-        n_bytes = (4 * 2 * 128 * (full * b * t + 2 * keys)
-                   + 4 * 2 * rows * b * t + b * t)
+        flops = per * h * t * keys * d
+        n_bytes = (4 * h * d * (full * b * t + 2 * keys)
+                   + 4 * h * rows * b * t + b * t)
         t_ops, t_bytes = flops / PEAK_TF32_FLOPS, n_bytes / PEAK_BYTES
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes")
@@ -6317,26 +6362,29 @@ DEEP_IMPL_RTOL = 0.10
 DEEP_MIN_L1 = {"speaker_mel_l1": 2.0e-3, "emotion_mel_l1": 9.1e-3}
 
 
-def counted_training(fn):
-    """``fn()`` (a run of ``train()``) with the float32 flash launches of
-    each compiled train, eval and synth step call recorded: returns (its
-    result, {step: [(steps, (forward, dQ, dK/dV))]}, the run's totals)."""
+def counted_training(fn, counts=None):
+    """``fn()`` (a run of ``train()``) with the flash launches of each
+    compiled train, eval and synth step call recorded (``counts()``, the
+    float32 kernels at D = 128 by default): returns (its result, {step:
+    [(steps, (forward, dQ, dK/dV))]}, the run's totals)."""
+    counts = counts or flash_counts
     calls: dict[str, list] = {"train_step": [], "eval_step": [],
                               "synth_step": []}
 
     def counting(key, steps, step, *args):
-        before = flash_counts()
+        before = counts()
         out = step(*args)
         calls[key].append((steps, tuple(
-            a - b for a, b in zip(flash_counts(), before))))
+            a - b for a, b in zip(counts(), before))))
         return out
 
     reset_flash_counts()
+    start = counts()
     with compiled_step_calls(functools.partial(
             counting, "train_step")), inference_step_calls(
             lambda name, step, *a: counting(name, 1, step, *a)):
         out = fn()
-    return out, calls, flash_counts()
+    return out, calls, tuple(a - b for a, b in zip(counts(), start))
 
 
 def check_flash_calls(smoke: Smoke, what: str, impl: str, calls: dict,
@@ -6741,9 +6789,385 @@ def phase_deep_times(smoke: Smoke, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: flash attention at head dims other than 128. "h1d256" is
+# Config() with one encoder and one decoder head, so D = 256 in every FFT
+# block at the parameters' shapes of Config(); its attention runs on the
+# float32 kernels at D = 256 (csrc/flash_mha_d256.cu, the CUDA cores). A
+# head dim under 128 runs on the D = 128 kernels of its dtype, zero-padded.
+
+D256 = 256
+D64_CASE = (4, 1000, FLASH_HOLES)      # (B, T, rows) at H = 2, D = 64
+D64_TIMED = (4, 4096, prefixes(4096, 1, 0, 3001))
+
+
+def d256_counts() -> tuple[int, int, int]:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    return (fa.d256_launch_count, fa.d256_bwd_dq_launch_count,
+            fa.d256_bwd_dkv_launch_count)
+
+
+def flash_all_counts() -> tuple[int, ...]:
+    """Every flash counter: float32 D = 128, bf16 D = 128, float32 D = 256
+    (forward, dQ, dK/dV each)."""
+    return flash_counts() + bf16_counts() + d256_counts()
+
+
+def h1d256(cfg):
+    """``cfg`` with one encoder and one decoder head (D = 256)."""
+    import dataclasses
+
+    t = dataclasses.replace(cfg.model.transformer, encoder_head=1,
+                            decoder_head=1)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transformer=t))
+
+
+def with_impl(cfg, impl: str):
+    import dataclasses
+
+    t = dataclasses.replace(cfg.model.transformer, attention_impl=impl)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transformer=t))
+
+
+def phase_d256_d64_vs_plain(smoke: Smoke):
+    """16a: the float32 kernels at D = 256 against their plain versions at
+    phase 2b's and 2d's cases with H = 1 (and their bounds, also against
+    float64); the six D = 128 kernels at D = 64 through the padding, at one
+    shape. Returns the worst max|diff| of the forward, dq, and dk/dv at
+    D = 256."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    before = flash_all_counts()
+    worst_fwd = phase_flash_vs_plain(smoke, FLASH_CASES, h=1, d=D256)
+    worst_dq, worst_dkv = phase_flash_bwd_vs_plain(smoke, FLASH_BWD_CASES,
+                                                   h=1, d=D256)
+    counts = tuple(a - b for a, b in zip(flash_all_counts(), before))
+    n_fwd, n_bwd = len(FLASH_CASES), len(FLASH_BWD_CASES)
+    want = (0,) * 6 + (n_fwd + n_bwd, 2 * n_bwd, 2 * n_bwd)
+    smoke.check(counts == want,
+                f"D = 256: flash launches (float32 D = 128, bf16, float32 "
+                f"D = 256; forward, dQ, dK/dV) {counts}, expected {want}")
+
+    # D = 64, both dtypes: the D = 128 kernels on zero-padded inputs.
+    b, t, rows = D64_CASE
+    gen = torch.Generator().manual_seed(64)
+    scale = 64 ** -0.5
+    for dtype, first in ((torch.float32, 0), (torch.bfloat16, 3)):
+        q, k, v, mask = flash_inputs(b, t, rows, gen, 2, 64)
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+        dout = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+        before = flash_all_counts()
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
+        counts = tuple(a - b for a, b in zip(flash_all_counts(), before))
+        want = tuple(int(first <= i < first + 3) for i in range(9))
+        if dtype == torch.float32:
+            ref = fa.flash_mha_plain(q, k, v, mask, scale)
+            bounds = (FLASH_REL_BOUND, FLASH_BWD_REL_BOUND)
+        else:  # the bf16 kernel's 64-key tiles (phase 2e)
+            ref = fa.flash_mha_blocked_plain(q, k, v, mask, scale, 64)
+            bounds = (FLASH_BF16_OUT_REL, FLASH_BF16_GRAD_REL)
+        refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
+        rel = [((g.float() - r.float()).abs().max()
+                / r.float().abs().max()).item()
+               for g, r in zip((out, *grads), (ref, *refs))]
+        lse_ref = fa.flash_mha_lse_plain(q, k, mask, scale)
+        finite = torch.isfinite(lse_ref)
+        lse_rel = ((lse - lse_ref)[finite].abs().max()
+                   / lse_ref[finite].abs().max()).item()
+        shapes = all(x.shape == q.shape and x.dtype == dtype
+                     for x in (out, *grads))
+        smoke.check(
+            shapes and counts == want and rel[0] <= bounds[0]
+            and max(rel[1:]) <= bounds[1] and lse_rel <= LSE_REL_BOUND
+            and torch.equal(torch.isposinf(lse), ~finite),
+            f"D = 64 {dtype} at ({b}, 2, {t}, 64), valid keys {rows}, "
+            f"through the D = 128 kernels: out {rel[0]:.3e} of max|ref| "
+            f"(bound {bounds[0]:.1e}), dq, dk, dv "
+            f"{[f'{x:.3e}' for x in rel[1:]]} (bound {bounds[1]:.1e}), lse "
+            f"{lse_rel:.3e}; launches "
+            f"{counts} (expected {want})")
+        del q, k, v, mask, dout, out, lse, grads, ref, refs
+    return worst_fwd, worst_dq, worst_dkv
+
+
+def phase_h1d256_synthesis(smoke: Smoke, device) -> int:
+    """16b: h1d256 long-form synthesis (``max_mel_len=4096``) under
+    "auto": the float32 forward kernel at D = 256 once a decoder layer a
+    call (and no other flash kernel), graphed (the Synthesizer's compiled
+    forward) against eager, and against the math path ("xla") on the card.
+    Returns the forward launches of the graphed and eager calls."""
+    import numpy as np
+
+    from expressive_fastspeech2_mandarin_tpu_torch.config import Config
+    from expressive_fastspeech2_mandarin_tpu_torch.synth import Synthesizer
+
+    card = nvidia_smi_line()
+    cfg = h1d256(Config())
+    fs2, voc = seeded_states(cfg)
+    n_dec = cfg.model.transformer.decoder_layer
+    args = (LONG_TEXTS, list(range(len(LONG_TEXTS))), EMOTIONS)
+    kwargs = dict(duration_control=LONG_DURATION_CONTROL,
+                  max_mel_len=LONG_MAX_MEL)
+    synth = Synthesizer(cfg, fs2, voc, emotion_maps=EMOTION_MAPS,
+                        device=device)
+    per_call = 2 * len(DILATIONS) * len(synth.vocoder.resblocks)  # bf16 MRF
+    want = (0,) * 6 + (n_dec, 0, 0)
+    counts, launches = {}, 0
+
+    def counted(name, fn):
+        nonlocal launches
+        before, mrf_before = flash_all_counts(), mrf_counts()
+        out = fn()
+        counts[name] = (tuple(a - b for a, b in zip(flash_all_counts(),
+                                                    before)),
+                        tuple(a - b for a, b in zip(mrf_counts(),
+                                                    mrf_before)))
+        launches += counts[name][0][6]
+        return out
+
+    eager = counted("eager", lambda: eager_synthesize(
+        synth, *args, vocoder="hifigan", **kwargs))
+    synth.drop_graphs()
+    first = counted("capture", lambda: synth.synthesize(
+        *args, vocoder="hifigan", **kwargs))
+    graphed = counted("replay", lambda: synth.synthesize(
+        *args, vocoder="hifigan", **kwargs))
+    lens = [r.mel.shape[0] for r in graphed]
+    smoke.check(2048 < max(lens) < LONG_MAX_MEL
+                and all(np.isfinite(r.mel).all() and np.isfinite(r.wav).all()
+                        and r.wav.size == r.mel.shape[0] * 256
+                        for r in graphed),
+                f"h1d256 long-form: mel lengths {lens}, the longest in "
+                f"(2048, {LONG_MAX_MEL}); finite mel and wav")
+    smoke.check(all(c == (want, (per_call, 0)) for c in counts.values()),
+                f"h1d256 long-form under 'auto', launches a call (flash "
+                f"float32 D = 128, bf16, float32 D = 256; MRF bf16, "
+                f"float32): {counts} (expected {want}, ({per_call}, 0)): "
+                f"the D = 256 forward once a decoder layer")
+    same_dur = all(np.array_equal(a.durations, b.durations)
+                   for a, b in zip(eager, graphed))
+    mel_diff = max(float(np.abs(a.mel - b.mel).max())
+                   for a, b in zip(eager, graphed)) if same_dur else math.inf
+    peak = max(1.0, max(float(np.abs(a.mel).max()) for a in eager))
+    wav_diff = max(float(np.abs(a.wav - b.wav).max())
+                   for a, b in zip(eager, graphed)) if same_dur else math.inf
+    wav_bound = GRAPH_WAV_BF16 * max(float(np.abs(a.wav).max())
+                                     for a in eager)
+    replays = all(np.array_equal(a.wav, b.wav) for a, b in zip(first,
+                                                                graphed))
+    smoke.check(same_dur and mel_diff <= GRAPH_MEL_REL * peak
+                and wav_diff <= wav_bound and replays,
+                f"h1d256 long-form, graphed vs eager: durations equal "
+                f"{same_dur}, mel max|diff| {mel_diff:.3e} (bound "
+                f"{GRAPH_MEL_REL * peak:.3e}), wav max|diff| {wav_diff:.3e} "
+                f"(bound {wav_bound:.3e}); the capturing call and a replay "
+                f"equal: {replays}")
+
+    # The math path on the card, the same weights: phase 3b's bound.
+    math_synth = Synthesizer(with_impl(cfg, "xla"), fs2,
+                             emotion_maps=EMOTION_MAPS, device=device)
+    ref = math_synth.synthesize(*args, vocoder="none", **kwargs)
+    same_dur = all(np.array_equal(a.durations, b.durations)
+                   for a, b in zip(ref, graphed))
+    mel_diff = max(float(np.abs(a.mel - b.mel).max())
+                   for a, b in zip(ref, graphed)) if same_dur else math.inf
+    bound = F32_BOUND * max(1.0, max(float(np.abs(a.mel).max())
+                                     for a in ref))
+    smoke.check(same_dur and mel_diff <= bound,
+                f"h1d256 long-form mel, 'auto' (the D = 256 kernel) vs the "
+                f"math path on the card: durations equal {same_dur}, "
+                f"max|diff| {mel_diff:.3e} (bound {bound:.3e})")
+    ms = {}
+    for name, fn in (("auto, graphed", lambda: synth.synthesize(
+            *args, vocoder="none", **kwargs)),
+                     ("xla, graphed", lambda: math_synth.synthesize(
+            *args, vocoder="none", **kwargs))):
+        fn()
+        ms[name] = sorted(synced_ms(fn) for _ in range(3))[1]
+    print(f"  h1d256 long-form text -> mel (vocoder='none'), median of 3: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" [{card}]", flush=True)
+    del synth, math_synth
+    return launches
+
+
+def phase_h1d256_training(smoke: Smoke, device) -> tuple[int, int, int]:
+    """16c: train() of h1d256 under "flash" for 20 steps (float32, phase
+    5's corpus and recipe, batch 4 in its buckets; on the card train()
+    replays its steps from CUDA graphs): each compiled train step launches
+    each D = 256 kernel once an FFT block and no other flash kernel, each
+    eval and synth step the D = 256 forward once a block; the logged losses
+    against the same run under "auto" (the math path at these lengths)
+    within phase 5's bound. Returns the run's D = 256 launches."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.train import train
+
+    card = nvidia_smi_line()
+    losses, totals = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = write_training_corpus(os.path.join(tmp, "corpus"), 0)
+        for impl in ("flash", "auto"):
+            out = os.path.join(tmp, impl)
+            cfg = h1d256(training_config(corpus, out, impl))
+            t = cfg.model.transformer
+            n_blocks = t.encoder_layer + t.decoder_layer
+            bf16_before = bf16_counts()
+            t0 = time.perf_counter()
+            state, calls, counts = counted_training(
+                lambda: train(cfg, total_steps=TRAIN_STEPS,
+                              device=device), counts=d256_counts)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            # counted_training set the float32 D = 128 counts to 0 first.
+            others = flash_counts() + tuple(
+                a - b for a, b in zip(bf16_counts(), bf16_before))
+            check_flash_calls(smoke, "h1d256 train()", impl, calls,
+                              n_blocks, TRAIN_STEPS)
+            smoke.check(others == (0,) * 6 and state.step == TRAIN_STEPS,
+                        f"h1d256 train() {impl!r}: {state.step} steps in "
+                        f"{seconds:.1f} s; D = 256 launches {counts}, the "
+                        f"D = 128 kernels' {others} (expected none) "
+                        f"[{card}]")
+            if impl == "flash":
+                totals = counts
+            with open(os.path.join(out, "log/train/metrics.jsonl")) as f:
+                losses[impl] = [json.loads(line)["total_loss"] for line in f]
+            del state
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["flash"],
+                                               losses["auto"])]
+    smoke.check(len(rel) == TRAIN_STEPS // TRAIN_CADENCE["log_step"]
+                and max(rel) <= LOSS_REL_BOUND,
+                f"h1d256 train() logged total losses, 'flash' "
+                f"{losses['flash']} vs 'auto' {losses['auto']}: relative "
+                f"differences {[f'{x:.2e}' for x in rel]} (bound "
+                f"{LOSS_REL_BOUND:.0e})")
+    return totals
+
+
+def phase_d256_times(smoke: Smoke):
+    """16d: the D = 256 kernels at (4, 1, T, 256), each call timed from a
+    CUDA graph, against their bounds, plain versions and SDPA in float32
+    with the same bool mask; D = 64 through the padding against the D = 128
+    kernel on inputs padded beforehand and SDPA at D = 64. Returns the
+    kernels' rows: the forward at T = 4096, the backward pair at T =
+    1000."""
+    import torch
+    import torch.nn.functional as F
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    card = nvidia_smi_line()
+    gen = torch.Generator().manual_seed(16)
+    scale = D256 ** -0.5
+    rows = {}
+
+    def sdpa_fn(q, k, v, mask, s):
+        keep = ~mask[:, None, None, :]  # SDPA's boolean mask: True = attend
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=keep, scale=s)
+
+    for b, t, case_rows in FLASH_CASES:
+        if t not in FLASH_TIMED:
+            continue
+        q, k, v, mask = flash_inputs(b, t, case_rows, gen, 1, D256)
+        ms, how = graph_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale))
+        plain = cuda_time_ms(lambda: fa.flash_mha_plain(q, k, v, mask,
+                                                        scale), 10)
+        lib, _ = graph_time_ms(sdpa_fn(q, k, v, mask, scale))
+        bd = flash_bounds_ms(mask, 1, D256, "flash_mha_d256")
+        f32_ms = 1e3 * bd["flops_live"] / PEAK_F32_FLOPS
+        rows["fwd"] = {"shape": f"({b}, 1, {t}, 256) float32, valid keys "
+                                f"{case_rows}",
+                       "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bd["tf32_live"],
+                       "bound_by": bd["bound_by"]}
+        print(f"  flash_mha float32 D = 256 ({b}, 1, {t}, 256), valid keys "
+              f"{case_rows}: kernel {ms:.4f} ms ({how}; "
+              f"{bd['flops_live'] / ms / 1e9:.1f} TF/s over the "
+              f"{bd['live_tiles']} of {bd['tiles']} live {bd['tile']}-key "
+              f"tiles); bound {bd['tf32_live']:.4f} ms live, "
+              f"{bd['tf32_dense']:.4f} ms dense (TF32 rate, "
+              f"{bd['bound_by']}); the same flops at the CUDA cores' float32 "
+              f"rate {f32_ms:.4f} ms; plain {plain:.4f} ms; SDPA {lib:.4f} ms"
+              f" [{card}]", flush=True)
+        del q, k, v, mask
+    for t in FLASH_BWD_TIMED:
+        lens = (t, 3 * t // 4, t // 2, t // 4)
+        q, k, v, mask = flash_inputs(4, t, prefixes(*lens), gen, 1, D256)
+        dout = torch.randn(q.shape, generator=gen).to("cuda")
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        _, delta = fa._flash_mha_bwd_dq_cuda(q, k, v, mask, out, dout, lse,
+                                             scale)
+        dq_ms, how = graph_time_ms(lambda: fa._flash_mha_bwd_dq_cuda(
+            q, k, v, mask, out, dout, lse, scale))
+        dkv_ms, _ = graph_time_ms(lambda: fa._flash_mha_bwd_dkv_cuda(
+            q, k, v, mask, dout, lse, delta, scale))
+        plain = cuda_time_ms(lambda: fa.flash_mha_bwd_plain(
+            q, k, v, mask, out, dout, scale), 10)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        o = sdpa_fn(qs, ks, vs, mask, scale)()
+        lib = cuda_time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dout, retain_graph=True), 10)
+        line = []
+        for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            bd = flash_bwd_bounds_ms(mask, name, 1, D256, "flash_mha_d256")
+            rows.setdefault(name, {
+                "shape": f"(4, 1, {t}, 256) float32, key lengths {lens}",
+                "ms": ms, "plain_ms": plain, "bound_ms": bd["live"],
+                "bound_by": bd["bound_by"], "library_ms": lib})
+            line.append(f"{name} kernel {ms:.4f} ms (bound {bd['live']:.4f}"
+                        f" live, {bd['dense']:.4f} dense)")
+        print(f"  flash_mha backward float32 D = 256 (4, 1, {t}, 256), key "
+              f"lengths {lens}: " + ", ".join(line) + f" ({how}); plain "
+              f"backward {plain:.4f} ms; SDPA backward {lib:.4f} ms "
+              f"[{card}]", flush=True)
+        del q, k, v, mask, dout, out, lse, delta, qs, ks, vs, o
+    # D = 64: the padding's cost, at (4, 2, 4096, 64).
+    b, t, case_rows = D64_TIMED
+    q, k, v, mask = flash_inputs(b, t, case_rows, gen, 2, 64)
+    padded = [F.pad(x, (0, 64)) for x in (q, k, v)]
+    dout = torch.randn(q.shape, generator=gen).to("cuda")
+    out, lse = fa._flash_mha_cuda(q, k, v, mask, 64 ** -0.5, with_lse=True)
+    fwd = {
+        "through the padding": graph_time_ms(lambda: fa.flash_mha(
+            q, k, v, mask, 64 ** -0.5))[0],
+        "the D = 128 kernel on padded inputs": graph_time_ms(
+            lambda: fa.flash_mha(*padded, mask, 64 ** -0.5))[0],
+        "SDPA": graph_time_ms(sdpa_fn(q, k, v, mask, 64 ** -0.5))[0]}
+    bwd = graph_time_ms(lambda: fa._flash_mha_bwd_cuda(
+        q, k, v, mask, out, dout, lse, 64 ** -0.5))[0]
+    print(f"  D = 64 float32 ({b}, 2, {t}, 64), valid keys {case_rows}, "
+          f"forward: " + ", ".join(f"{k} {v:.4f} ms" for k, v in fwd.items())
+          + f"; backward through the padding (dQ and dK/dV) {bwd:.4f} ms "
+          f"[{card}]", flush=True)
+    smoke.check(all(math.isfinite(r["ms"]) and r["ms"] > 0
+                    for r in rows.values()),
+                "D = 256 kernel times measured")
+    return rows
+
+
+def phase_head_dims(smoke: Smoke, device):
+    """Phase 16: returns the D = 256 kernels' rows of the kernels line."""
+    worst = phase_d256_d64_vs_plain(smoke)
+    synth_launches = phase_h1d256_synthesis(smoke, device)
+    train_launches = phase_h1d256_training(smoke, device)
+    times = phase_d256_times(smoke)
+    launches = (synth_launches + train_launches[0], train_launches[1],
+                train_launches[2])
+    return {name: {"launches": n, "max_abs_err": err, **times[name]}
+            for name, n, err in zip(("fwd", "dq", "dkv"), launches, worst)}
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
           "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14", "14c",
-          "15")
+          "15", "16")
 # Phases run only when named: the 5,000-step deep convergence runs.
 EXTRA_PHASES = ("15d", "15s", "15t")
 
@@ -6847,6 +7271,10 @@ def main(argv=None) -> int:
     examples = run("15", "the example drivers: convergence_demo under "
                    "'flash' and 'auto', train_demo, synthesize_demo",
                    phase_examples, smoke, device)
+    head_dims = run("16", "flash attention at head dims other than 128: "
+                    "the float32 kernels at D = 256 through h1d256 "
+                    "long-form synthesis and training, D = 64 through the "
+                    "padding", phase_head_dims, smoke, device)
     run("15d", "convergence_deep: 5,000 steps under 'auto' and 'flash'",
         phase_deep_convergence, smoke, device)
     run("15s", "convergence_deep again, the mel targets staged in "
@@ -6965,7 +7393,19 @@ def main(argv=None) -> int:
         "launches": tuned["bf16"][2],
         "max_abs_err": worst_bf16[2],
         **bf16_rows["dkv"],
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_d256.cu",
+        "replaces": replaces,
+        **head_dims[key],
+    } for name, key, replaces in (
+        ("flash_mha_d256", "fwd",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:589"),
+        ("flash_mha_bwd_dq_d256", "dq",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+        ("flash_mha_bwd_dkv_d256", "dkv",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:941"))]
     print(f"card: {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

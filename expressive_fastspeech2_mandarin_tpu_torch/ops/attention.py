@@ -9,9 +9,10 @@ comes out as zeros. The projections are ``nn.Linear`` weights, ``(H*D, D_model)`
 * ``"flash"``: ``flash_mha``, the CUDA kernels on the card, forward and,
   when a gradient is wanted, backward (``FlashMHA``); the plain versions on
   the CPU;
-* ``"auto"``: flash on the card when T > 2048 and D = 128, the head dim the
-  kernel takes (the JAX rule, with "on a TPU" read as "on the card" and
-  "D % 128 == 0" as "D = 128"), else the math path.
+* ``"auto"``: flash on the card when T > 2048 and D is a multiple of 128
+  with a kernel for the inputs' dtype (the JAX rule, with "on a TPU" read as
+  "on the card"; ``flash_mha.supported``: D = 128 in float32 and bfloat16,
+  D = 256 in float32), else the math path.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def multi_head_attention(
     head_dim = q.shape[-1]
     sm_scale = float(head_dim) ** -0.5
     if impl == "auto":
-        impl = "flash" if supported(x.device, t, head_dim) else "xla"
+        impl = ("flash" if supported(x.device, t, head_dim, q.dtype)
+                else "xla")
     if impl == "flash":
         out = flash_mha(q.contiguous(), k.contiguous(), v.contiguous(),
                         key_padding_mask, sm_scale)

@@ -17,18 +17,26 @@ gradient, with P the probabilities and dO the output's gradient::
     dq = dS k · sm_scale,  dk = dSᵀ q · sm_scale,  dv = Pᵀ dO
 
 On CUDA tensors ``flash_mha`` launches the forward kernel of the inputs'
-dtype: ``csrc/flash_mha.cu`` for float32 (counted in ``launch_count``),
-``csrc/flash_mha_bf16.cu`` for bfloat16 (``bf16_launch_count``). When a
-gradient is wanted it goes through ``FlashMHA``, whose forward also stores
-each row's float32 log-sum-exp and whose backward launches the dQ kernel
-(which also writes Δ in float32) and then the dK/dV kernel of the same
-dtype: ``csrc/flash_mha_bwd.cu`` (``bwd_dq_launch_count``,
-``bwd_dkv_launch_count``) or ``csrc/flash_mha_bwd_bf16.cu``
-(``bf16_bwd_dq_launch_count``, ``bf16_bwd_dkv_launch_count``). The kernels
-take float32 or bfloat16 (every tensor in one dtype), D = 128, contiguous
-tensors and a bool mask on the same device, or raise. The bf16 kernels
-round where the TPU kernel rounds in bf16: the unnormalised P of each key
-tile to bf16 before P·V, Pᵀ and dS·sm_scale to bf16 before their
+dtype and head dim: at D = 128 ``csrc/flash_mha.cu`` for float32 (counted
+in ``launch_count``), ``csrc/flash_mha_bf16.cu`` for bfloat16
+(``bf16_launch_count``); at D = 256, float32 only, ``csrc/flash_mha_d256.cu``
+(``d256_launch_count``). When a gradient is wanted it goes through
+``FlashMHA``, whose forward also stores each row's float32 log-sum-exp and
+whose backward launches the dQ kernel (which also writes Δ in float32) and
+then the dK/dV kernel of the same dtype and head dim: ``csrc/flash_mha_bwd.cu``
+(``bwd_dq_launch_count``, ``bwd_dkv_launch_count``),
+``csrc/flash_mha_bwd_bf16.cu`` (``bf16_bwd_dq_launch_count``,
+``bf16_bwd_dkv_launch_count``) or ``csrc/flash_mha_d256.cu``
+(``d256_bwd_dq_launch_count``, ``d256_bwd_dkv_launch_count``). A head dim
+under 128 goes to the D = 128 kernels of its dtype zero-padded to 128, and
+out, dq, dk and dv are sliced back (``through_padding``): exact, since zero
+columns add nothing to q kᵀ or dO vᵀ and the padded columns of every output
+are zero. So the kernels take float32 at D ≤ 128 and D = 256, bfloat16 at
+D ≤ 128, contiguous tensors and a bool mask on the same device, or raise:
+bfloat16 at D = 256 and every other head dim (the JAX package's TPU kernel
+also takes the other multiples of 128) have no kernel yet. The bf16
+kernels round where the TPU kernel rounds in bf16: the unnormalised P of
+each key tile to bf16 before P·V, Pᵀ and dS·sm_scale to bf16 before their
 products, the outputs stored in bf16, everything else float32. On CPU
 tensors the plain versions run: the forward ``flash_mha_plain`` (float32
 and float64) or, for bf16, ``flash_mha_blocked_plain`` on the TPU
@@ -45,8 +53,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
+# The tensor-core kernels' head dim; a head dim under it is zero-padded to it.
 HEAD_DIM = 128
+# The head dim of the CUDA-core float32 kernels (csrc/flash_mha_d256.cu).
+WIDE_HEAD_DIM = 256
 # As in the JAX package (flash_mha.py:supported), the kernel is taken past
 # the reference's 2000-frame cap.
 MIN_SEQ_LEN = 2048
@@ -55,39 +67,88 @@ MIN_SEQ_LEN = 2048
 JAX_BLOCK = 128
 
 # Kernel launches on CUDA tensors: the forward, the dQ kernel (with Δ) and
-# the dK/dV kernel, float32 and bfloat16.
+# the dK/dV kernel, float32 and bfloat16 at D = 128, float32 at D = 256.
 launch_count = 0
 bwd_dq_launch_count = 0
 bwd_dkv_launch_count = 0
 bf16_launch_count = 0
 bf16_bwd_dq_launch_count = 0
 bf16_bwd_dkv_launch_count = 0
+d256_launch_count = 0
+d256_bwd_dq_launch_count = 0
+d256_bwd_dkv_launch_count = 0
 # Their names, for what counts launches in bulk (``graphs``' replays).
 COUNTERS = ("launch_count", "bwd_dq_launch_count", "bwd_dkv_launch_count",
             "bf16_launch_count", "bf16_bwd_dq_launch_count",
-            "bf16_bwd_dkv_launch_count")
+            "bf16_bwd_dkv_launch_count", "d256_launch_count",
+            "d256_bwd_dq_launch_count", "d256_bwd_dkv_launch_count")
 
-# flash_mha_fwd_{f32,bf16}(q, k, v, mask, out, lse, B, H, T, scale, stream)
+# The kernels by (dtype, head dim): the sources of the forward and of the
+# backward pair (csrc/<name>.cu), the suffix of their C entries
+# flash_mha_fwd_<suffix>, flash_mha_bwd_{dq,dkv}_<suffix>, and the
+# counters of the forward, dQ and dK/dV launches.
+_KERNELS = {
+    (torch.float32, HEAD_DIM): ("flash_mha", "flash_mha_bwd", "f32",
+                                COUNTERS[0:3]),
+    (torch.bfloat16, HEAD_DIM): ("flash_mha_bf16", "flash_mha_bwd_bf16",
+                                 "bf16", COUNTERS[3:6]),
+    (torch.float32, WIDE_HEAD_DIM): ("flash_mha_d256", "flash_mha_d256",
+                                     "f32_d256", COUNTERS[6:9]),
+}
+# flash_mha_fwd_<suffix>(q, k, v, mask, out, lse, B, H, T, scale, stream)
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
-# flash_mha_bwd_dq_{f32,bf16}(q, k, v, mask, out, dout, lse, delta, dq, B,
-#                             H, T, scale, stream) and
-# flash_mha_bwd_dkv_{f32,bf16}(q, k, v, mask, dout, lse, delta, dk, dv, B,
-#                              H, T, scale, stream)
+# flash_mha_bwd_dq_<suffix>(q, k, v, mask, out, dout, lse, delta, dq, B, H,
+#                           T, scale, stream) and
+# flash_mha_bwd_dkv_<suffix>(q, k, v, mask, dout, lse, delta, dk, dv, B,
+#                            H, T, scale, stream)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                  + [ctypes.c_float, ctypes.c_void_p])
 _libs: dict[str, ctypes.CDLL] = {}
-# The kernels' dtypes, and the suffix of their C entries.
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def supported(device: torch.device, seq_len: int, head_dim: int) -> bool:
-    """Whether ``attention_impl="auto"`` takes the kernel: on the card, with
-    the head dim the kernel takes (128), for sequences past 2048. Any other
-    head dim stays on the math path, where the JAX package's TPU kernel
-    would also take multiples of 128."""
-    return (device.type == "cuda" and head_dim == HEAD_DIM
-            and seq_len > MIN_SEQ_LEN)
+def kernel_head_dim(head_dim: int, dtype: torch.dtype) -> int | None:
+    """The head dim of the kernels that take ``head_dim`` in ``dtype`` (128
+    for 0 < D ≤ 128, through zero padding; 256 for float32 at D = 256), or
+    None where no kernel takes it."""
+    d = HEAD_DIM if 0 < head_dim <= HEAD_DIM else head_dim
+    return d if (dtype, d) in _KERNELS else None
+
+
+def supported(device: torch.device, seq_len: int, head_dim: int,
+              dtype: torch.dtype) -> bool:
+    """Whether ``attention_impl="auto"`` takes the kernels: the JAX
+    package's rule (``supported`` there: a multiple of 128 as the head dim,
+    sequences past 2048), with "on a TPU" read as "on the card", wherever
+    the port has a kernel for that head dim and dtype: D = 128 in float32
+    and bfloat16, D = 256 in float32. bfloat16 at D = 256, and D = 384,
+    512, ..., stay on the math path, where the JAX package's TPU kernel
+    would take them; D < 128 stays there as in the JAX package."""
+    return (device.type == "cuda" and head_dim % HEAD_DIM == 0
+            and seq_len > MIN_SEQ_LEN
+            and kernel_head_dim(head_dim, dtype) == head_dim)
+
+
+def through_padding(fn, *args):
+    """``fn(*args)`` with every (B, H, T, D) tensor of ``args`` zero-padded
+    along its head dim to ``HEAD_DIM`` and every (B, H, T, ·) tensor it
+    returns sliced back to D (the mask and the (B, H, T) lse and Δ pass as
+    they are). Exact for attention and its gradient: the padded columns add
+    0 to every dot product over the head dim, and the padded columns of out,
+    dq, dk and dv are 0."""
+    d = args[0].shape[-1]
+
+    def pad(x):
+        return (F.pad(x, (0, HEAD_DIM - d))
+                if torch.is_tensor(x) and x.ndim == 4 else x)
+
+    def back(x):
+        return x[..., :d] if torch.is_tensor(x) and x.ndim == 4 else x
+
+    result = fn(*(pad(a) for a in args))
+    if isinstance(result, tuple):
+        return tuple(back(x) for x in result)
+    return back(result)
 
 
 def masked_softmax(scores: torch.Tensor) -> torch.Tensor:
@@ -209,30 +270,35 @@ def flash_mha_lse_plain(q: torch.Tensor, k: torch.Tensor,
     return lse.masked_fill(torch.isneginf(lse), float("inf"))
 
 
-def _library(name: str, fns: dict[str, list]) -> ctypes.CDLL:
+def _entry(name: str, fn: str, argtypes: list):
+    """C entry ``fn`` of the library built from ``csrc/<name>.cu``."""
     lib = _libs.get(name)
     if lib is None:
         from ..kernels.build import load
 
-        lib = load(name)
-        for fn, argtypes in fns.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+        lib = _libs[name] = load(name)
+    entry = getattr(lib, fn)
+    entry.argtypes = argtypes
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def _check(q, k, v, key_padding_mask, *more):
+    """The inputs' (B, H, T, D), or raise where no kernel takes them."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, T, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_mha kernels take D = {HEAD_DIM}, got {d}")
-    if q.dtype not in _SUFFIX:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_mha kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
+    if kernel_head_dim(d, q.dtype) is None:
+        raise ValueError(
+            f"flash_mha kernels take D <= {HEAD_DIM} (float32 and bfloat16) "
+            f"and D = {WIDE_HEAD_DIM} (float32), got D = {d} in {q.dtype}; "
+            f"the JAX package's TPU kernel also takes the other multiples "
+            f"of {HEAD_DIM}, which have no kernel here yet")
     for x in (q, k, v, *more):
         if x.dtype != q.dtype:
             raise TypeError(f"flash_mha kernels take one dtype for q, k, v, "
@@ -240,7 +306,8 @@ def _check(q, k, v, key_padding_mask, *more):
         if x.shape != q.shape or x.device != q.device:
             raise ValueError("q, k, v, out and dout must share one shape "
                              "and device")
-        if not x.is_contiguous() or x.data_ptr() % 16:
+        # Under 128 the padding makes contiguous copies.
+        if d >= HEAD_DIM and (not x.is_contiguous() or x.data_ptr() % 16):
             raise ValueError("q, k, v, out and dout must be contiguous and "
                              "16-byte aligned")
     m = key_padding_mask
@@ -249,7 +316,7 @@ def _check(q, k, v, key_padding_mask, *more):
                          f"got {m.dtype} {tuple(m.shape)}")
     if m.device != q.device or not m.is_contiguous():
         raise ValueError("key_padding_mask must be contiguous on q's device")
-    return b, h, t
+    return b, h, t, d
 
 
 def _stream(x):
@@ -261,96 +328,89 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def _count(name: str) -> None:
+    globals()[name] += 1
+
+
 def _flash_mha_cuda(q, k, v, key_padding_mask, sm_scale, with_lse):
-    """The forward kernel of q's dtype: (out, lse), lse (B, H, T) float32 or
-    None."""
-    b, h, t = _check(q, k, v, key_padding_mask)
+    """The forward kernel of q's dtype and head dim: (out, lse), lse
+    (B, H, T) float32 or None."""
+    b, h, t, d = _check(q, k, v, key_padding_mask)
+    if d < HEAD_DIM:
+        return through_padding(_flash_mha_cuda, q, k, v, key_padding_mask,
+                               sm_scale, with_lse)
     out = torch.empty_like(q)
     lse = q.new_empty((b, h, t), dtype=torch.float32) if with_lse else None
     if out.numel() == 0:
         return out, lse
-    suffix = _SUFFIX[q.dtype]
-    name = "flash_mha" if suffix == "f32" else "flash_mha_bf16"
-    fn = f"flash_mha_fwd_{suffix}"
-    lib = _library(name, {fn: _FWD_ARGTYPES})
+    name, _, suffix, counters = _KERNELS[(q.dtype, d)]
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
+        err = _entry(name, f"flash_mha_fwd_{suffix}", _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, h, t, float(sm_scale),
             _stream(q))
     _raise_on(err, f"flash_mha forward ({suffix})")
-    global launch_count, bf16_launch_count
-    if suffix == "f32":
-        launch_count += 1
-    else:
-        bf16_launch_count += 1
+    _count(counters[0])
     return out, lse
 
 
-def _bwd_entry(dtype: torch.dtype, kernel: str):
-    """The C entry of backward kernel ``kernel`` ("dq" or "dkv") for
-    ``dtype``."""
-    suffix = _SUFFIX[dtype]
-    name = "flash_mha_bwd" if suffix == "f32" else "flash_mha_bwd_bf16"
-    lib = _library(name, {f"flash_mha_bwd_{k}_{suffix}": _BWD_ARGTYPES
-                          for k in ("dq", "dkv")})
-    return getattr(lib, f"flash_mha_bwd_{kernel}_{suffix}")
+def _bwd_launch(kernel: str, q, args, b, h, t, sm_scale):
+    """Launches backward kernel ``kernel`` ("dq" or "dkv") of q's dtype and
+    head dim on the pointers ``args`` and counts it."""
+    _, name, suffix, counters = _KERNELS[(q.dtype, q.shape[-1])]
+    with torch.cuda.device(q.device):
+        err = _entry(name, f"flash_mha_bwd_{kernel}_{suffix}", _BWD_ARGTYPES)(
+            *(x.data_ptr() for x in args), b, h, t, float(sm_scale),
+            _stream(q))
+    what = "dQ" if kernel == "dq" else "dK/dV"
+    _raise_on(err, f"flash_mha backward {what} ({suffix})")
+    _count(counters[1 if kernel == "dq" else 2])
 
 
 def _flash_mha_bwd_dq_cuda(q, k, v, key_padding_mask, out, dout, lse,
                            sm_scale):
-    """The dQ kernel of q's dtype: (dq, delta), delta = rowsum(dout ∘ out)
-    (B, H, T) float32."""
-    b, h, t = _check(q, k, v, key_padding_mask, out, dout)
+    """The dQ kernel of q's dtype and head dim: (dq, delta), delta =
+    rowsum(dout ∘ out) (B, H, T) float32."""
+    b, h, t, d = _check(q, k, v, key_padding_mask, out, dout)
+    if d < HEAD_DIM:
+        return through_padding(_flash_mha_bwd_dq_cuda, q, k, v,
+                               key_padding_mask, out, dout, lse, sm_scale)
     if lse.shape != (b, h, t) or lse.dtype != torch.float32:
         raise ValueError("lse must be (B, H, T) float32")
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
     if dq.numel() == 0:
         return dq, delta
-    with torch.cuda.device(q.device):
-        err = _bwd_entry(q.dtype, "dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            key_padding_mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, t,
-            float(sm_scale), _stream(q))
-    _raise_on(err, f"flash_mha backward dQ ({_SUFFIX[q.dtype]})")
-    global bwd_dq_launch_count, bf16_bwd_dq_launch_count
-    if q.dtype == torch.float32:
-        bwd_dq_launch_count += 1
-    else:
-        bf16_bwd_dq_launch_count += 1
+    _bwd_launch("dq", q, (q, k, v, key_padding_mask, out, dout, lse, delta,
+                          dq), b, h, t, sm_scale)
     return dq, delta
 
 
 def _flash_mha_bwd_dkv_cuda(q, k, v, key_padding_mask, dout, lse, delta,
                             sm_scale):
-    """The dK/dV kernel of q's dtype, after the dQ kernel wrote ``delta``:
-    (dk, dv)."""
-    b, h, t = _check(q, k, v, key_padding_mask, dout)
+    """The dK/dV kernel of q's dtype and head dim, after the dQ kernel wrote
+    ``delta``: (dk, dv)."""
+    b, h, t, d = _check(q, k, v, key_padding_mask, dout)
+    if d < HEAD_DIM:
+        return through_padding(_flash_mha_bwd_dkv_cuda, q, k, v,
+                               key_padding_mask, dout, lse, delta, sm_scale)
     for x in (lse, delta):
         if x.shape != (b, h, t) or x.dtype != torch.float32:
             raise ValueError("lse and delta must be (B, H, T) float32")
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     if dk.numel() == 0:
         return dk, dv
-    with torch.cuda.device(q.device):
-        err = _bwd_entry(q.dtype, "dkv")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            key_padding_mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t,
-            float(sm_scale), _stream(q))
-    _raise_on(err, f"flash_mha backward dK/dV ({_SUFFIX[q.dtype]})")
-    global bwd_dkv_launch_count, bf16_bwd_dkv_launch_count
-    if q.dtype == torch.float32:
-        bwd_dkv_launch_count += 1
-    else:
-        bf16_bwd_dkv_launch_count += 1
+    _bwd_launch("dkv", q, (q, k, v, key_padding_mask, dout, lse, delta, dk,
+                           dv), b, h, t, sm_scale)
     return dk, dv
 
 
 def _flash_mha_bwd_cuda(q, k, v, key_padding_mask, out, dout, lse, sm_scale):
-    """The backward kernels in order: (dq, dk, dv)."""
+    """The backward kernels in order: (dq, dk, dv). A head dim under 128 is
+    padded once for both."""
+    if _check(q, k, v, key_padding_mask, out, dout)[3] < HEAD_DIM:
+        return through_padding(_flash_mha_bwd_cuda, q, k, v,
+                               key_padding_mask, out, dout, lse, sm_scale)
     dq, delta = _flash_mha_bwd_dq_cuda(q, k, v, key_padding_mask, out, dout,
                                        lse, sm_scale)
     dk, dv = _flash_mha_bwd_dkv_cuda(q, k, v, key_padding_mask, dout, lse,

@@ -89,10 +89,13 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("device,t,d,expected", [
-    ("cuda", 2049, 128, True), ("cuda", 4096, 256, False),
+    ("cuda", 2049, 128, True), ("cuda", 4096, 256, True),
     ("cuda", 2048, 128, False), ("cuda", 4096, 64, False),
     ("cpu", 4096, 128, False)])
 def test_supported_takes_the_kernel_head_dim_past_2048_on_the_card(
         device, t, d, expected):
-    # D = 256 stays on the math path: the kernel takes D = 128 only.
-    assert fm.supported(torch.device(device), t, d) is expected
+    # ``expected`` in float32, which has kernels at D = 128 and 256;
+    # bfloat16 has D = 128 only. D = 64 stays on the math path, as in JAX.
+    dev = torch.device(device)
+    assert fm.supported(dev, t, d, torch.float32) is expected
+    assert fm.supported(dev, t, d, torch.bfloat16) is (expected and d == 128)

@@ -372,9 +372,12 @@ def test_flash_kernel_rejects_unsupported_input_on_card():
     out = fa.flash_mha(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, 1.0)
     assert out.dtype == torch.bfloat16
     assert fa.bf16_launch_count == before + 1
-    q64, k64, v64, mask64 = _flash_inputs(100, _prefixes(100), seed=0, d=64)
+    # A head dim with no kernel (tests/test_torch_kernels_gpu.py's D = 64
+    # case before the padding of D < 128).
+    q192, k192, v192, mask192 = _flash_inputs(100, _prefixes(100), seed=0,
+                                              d=192)
     with pytest.raises(ValueError):
-        fa.flash_mha(q64, k64, v64, mask64, 1.0)
+        fa.flash_mha(q192, k192, v192, mask192, 1.0)
     with pytest.raises(ValueError):
         fa.flash_mha(q.transpose(2, 3), k, v, mask, 1.0)
 
@@ -428,6 +431,114 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
     assert (lse[:2] - ref[:2]).abs().max().item() <= 1e-5 * ref[:2].abs().max()
     torch.testing.assert_close(out, fa.flash_mha(q, k, v, mask, 128 ** -0.5),
                                rtol=0, atol=0)
+
+
+# The float32 kernels at D = 256 (csrc/flash_mha_d256.cu, CUDA cores)
+# against their plain versions: the forward within 1e-5 · max|ref| of
+# float32 and float64 plain, the backward within 1e-4 · max|ref| (against
+# float64 where float32 plain is itself further than that from it) and
+# within twice float32 plain's distance to float64 + 1e-6 · max|ref64|
+# (chip_smoke.py phases 2b and 2d); H = 1, as the one-head configuration.
+
+D256_SCALE = 256 ** -0.5
+
+
+def _d256_counts():
+    return (fa.d256_launch_count, fa.d256_bwd_dq_launch_count,
+            fa.d256_bwd_dkv_launch_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rows", [
+    (20, _prefixes(20, 1, 0, 13)),
+    (300, _prefixes(300, 37, 0, 299)),
+    (1000, [[(0, 100), (300, 1000)], [(64, 128), (640, 700)], [(999, 1000)],
+            []]),
+    (2300, _prefixes(2300, 63, 0, 2049)),
+    (4096, _prefixes(4096, 1, 0, 3000))])
+def test_d256_flash_kernels_match_plain_on_card(t, rows):
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = (x[:, :1].contiguous() if x.ndim == 4 else x
+                     for x in _flash_inputs(t, rows, seed=t + 3, d=256))
+    dout = torch.randn_like(q)
+    before, before128 = _d256_counts(), _bf16_counts()
+    out, dq, dk, dv = _flash_grads(q, k, v, mask, dout, scale=D256_SCALE)
+    assert _d256_counts() == tuple(n + 1 for n in before)
+    assert _bf16_counts() == before128  # no D = 128 kernel
+    ref = fa.flash_mha_plain(q, k, v, mask, D256_SCALE)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, dout))
+    ref64 = fa.flash_mha_plain(q64, k64, v64, mask, D256_SCALE)
+    assert _rel(out, ref) <= 1e-5 and _rel(out, ref64) <= 1e-5
+    grads = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, D256_SCALE)
+    grads64 = fa.flash_mha_bwd_plain(q64, k64, v64, mask, ref64, do64,
+                                     D256_SCALE)
+    for g, r, r64 in zip((dq, dk, dv), grads, grads64):
+        plain64 = (r.double() - r64).abs().max().item()
+        near = r if plain64 <= 1e-4 * r.abs().max().item() else r64
+        assert _rel(g, near) <= 1e-4
+        assert ((g.double() - r64).abs().max().item()
+                <= 2 * plain64 + 1e-6 * r64.abs().max().item())
+    for i in range(len(rows)):
+        if bool(mask[i].all()):  # no valid key → exactly 0
+            for x in (out, dq, dk, dv):
+                assert torch.count_nonzero(x[i]).item() == 0
+    _, lse = fa._flash_mha_cuda(q, k, v, mask, D256_SCALE, with_lse=True)
+    lse_ref = fa.flash_mha_lse_plain(q, k, mask, D256_SCALE)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isposinf(lse), ~finite)
+    assert _rel(lse[finite], lse_ref[finite]) <= 1e-5
+    again = _flash_grads(q, k, v, mask, dout, scale=D256_SCALE)
+    for a, b in zip((out, dq, dk, dv), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d64_takes_the_d128_kernels_through_padding_on_card(dtype):
+    """D = 64: the D = 128 kernels of the dtype on zero-padded inputs, out
+    and gradients sliced back, against the plain versions at D = 64 (the
+    bounds of the D = 128 tests of each dtype)."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
+                     for x in _flash_inputs(300, _prefixes(300, 37, 0, 299),
+                                            seed=64, d=64))
+    dout = torch.randn_like(q)
+    scale = 64 ** -0.5
+    before = _bf16_counts()
+    out, dq, dk, dv = _flash_grads(q, k, v, mask, dout, scale=scale)
+    bf16 = dtype == torch.bfloat16
+    launched = (0, 3) if bf16 else (3, 6)  # _bf16_counts' order
+    assert _bf16_counts() == tuple(
+        n + (launched[0] <= i < launched[1]) for i, n in enumerate(before))
+    assert all(x.shape == q.shape and x.dtype == dtype
+               for x in (out, dq, dk, dv))
+    ref = (fa.flash_mha_blocked_plain(q, k, v, mask, scale, 64) if bf16
+           else fa.flash_mha_plain(q, k, v, mask, scale))
+    assert _rel(out, ref) <= (BF16_OUT_REL if bf16 else 1e-5)
+    for g, r in zip((dq, dk, dv),
+                    fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)):
+        assert _rel(g, r) <= (BF16_GRAD_REL if bf16 else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype", [(192, torch.float32),
+                                     (384, torch.float32),
+                                     (256, torch.bfloat16),
+                                     (512, torch.bfloat16)])
+def test_a_head_dim_with_no_kernel_raises_on_card(d, dtype):
+    _cuda_or_skip()
+    q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
+                     for x in _flash_inputs(100, _prefixes(100, 50), seed=1,
+                                            d=d))
+    before = tuple(getattr(fa, c) for c in fa.COUNTERS)
+    with pytest.raises(ValueError, match="flash_mha kernels take"):
+        fa.flash_mha(q, k, v, mask, 1.0)
+    with pytest.raises(ValueError, match="flash_mha kernels take"):
+        fa.flash_mha(q.requires_grad_(), k, v, mask, 1.0)
+    assert tuple(getattr(fa, c) for c in fa.COUNTERS) == before
+    assert not fa.supported(q.device, 4096, d, dtype)
 
 
 # The bf16 flash kernels (csrc/flash_mha_bf16.cu, csrc/flash_mha_bwd_bf16.cu)
