@@ -319,6 +319,24 @@ Phases:
      SDPA in float32 with the same bool mask; D = 64 at (4, 2, 4096, 64)
      through the padding against the D = 128 kernel on inputs padded
      beforehand and SDPA.
+  17. the bf16 flash kernels at D = 256 (csrc/flash_mha_bf16_d256.cu, the
+     output's head dim split in halves of 128): (a) phase 2e at H = 1,
+     D = 256 (its cases and bounds, each call on the three bf16 D = 256
+     kernels and no other flash kernel, reruns bit-identical) and a
+     (2, 2, 320, 256) layout witness, exact; (b) efs2-torch-train on
+     train_tuned.yaml (batch 32, amp bf16, steps_per_call 10) with one
+     encoder and one decoder head (h1d256), phase 5's corpus, 20 steps
+     under "flash" and under "auto" from one seed: under "flash" 10
+     launches of each bf16 D = 256 kernel a train step and no other flash
+     kernel, 10 float32 D = 256 forwards a val or synth step; under
+     "auto" none; losses finite and falling, the first logged loss
+     within 5 % and the last within 8 % of "auto"'s; the graphed train
+     step of each at B = 32, bucket (128, 1000), in turns; (c) the three
+     kernels from CUDA graphs at (32, 1, 1000, 256) with the recipe's
+     key lengths and at (4, 1, 4096, 256) with phase 11b's masks against
+     their bounds (bf16 rate over the live key tiles, the function's
+     flops), plain versions and SDPA bf16 with the bool mask, its backend
+     named (its backward timed with CUDA events).
 
 Float32 comparisons run with TF32 off (cuDNN and matmul). Every failed
 check is reported and the script exits 1 without its result lines; with
@@ -501,7 +519,10 @@ SETMAXNREG_KERNELS = {
     "flash_mha_bwd_dq_bf16_kernel": ("flash_mha_bwd_bf16",
                                      "flash_mha_bwd_bf16"),
     "flash_mha_bwd_dkv_bf16_kernel": ("flash_mha_bwd_bf16",
-                                      "flash_mha_bwd_bf16")}
+                                      "flash_mha_bwd_bf16"),
+    **{f"flash_mha_{k}_bf16_d256_kernel": ("flash_mha_bf16_d256",
+                                           "flash_mha_bf16_d256")
+       for k in ("fwd", "bwd_dq", "bwd_dkv")}}
 # The tensor-core kernels and the float32 flash kernels at D = 256 (CUDA
 # cores), which must compile without spills.
 TC_KERNELS = ("mrf_conv_tc_kernel", "mrf_conv_f32_tc_kernel",
@@ -509,7 +530,10 @@ TC_KERNELS = ("mrf_conv_tc_kernel", "mrf_conv_f32_tc_kernel",
               "flash_mha_bwd_dq_kernel", "flash_mha_bwd_dkv_kernel",
               "flash_mha_fwd_bf16_kernel", "flash_mha_bwd_dq_bf16_kernel",
               "flash_mha_bwd_dkv_bf16_kernel", "flash_mha_fwd_d256_kernel",
-              "flash_mha_bwd_dq_d256_kernel", "flash_mha_bwd_dkv_d256_kernel")
+              "flash_mha_bwd_dq_d256_kernel", "flash_mha_bwd_dkv_d256_kernel",
+              "flash_mha_fwd_bf16_d256_kernel",
+              "flash_mha_bwd_dq_bf16_d256_kernel",
+              "flash_mha_bwd_dkv_bf16_d256_kernel")
 
 
 def phase_environment(smoke: Smoke):
@@ -568,6 +592,17 @@ def phase_environment(smoke: Smoke):
           f"of dynamic shared memory a block, 256 threads, "
           f"{d256.flash_mha_d256_key_tile()}-key tiles (the dK/dV kernel's "
           f"keys a block), 64 query rows")
+    wide16 = build.load("flash_mha_bf16_d256")
+    print(f"  flash_mha_fwd_bf16_d256_kernel, flash_mha_bwd_dq_bf16_d256_"
+          f"kernel, flash_mha_bwd_dkv_bf16_d256_kernel: "
+          f"{[wide16.flash_mha_bf16_d256_smem_bytes(i) for i in range(3)]} "
+          f"bytes of dynamic shared memory a block, "
+          f"{[wide16.flash_mha_bf16_d256_stages(i) for i in range(3)]} ring "
+          f"stages, {wide16.flash_mha_bf16_d256_key_tile()}-row streamed "
+          f"tiles; the forward {wide16.flash_mha_bf16_d256_block_rows()} "
+          f"query rows a block and half of the head dim, the backward 64 "
+          f"resident rows a block, each consumer warpgroup half of the head "
+          f"dim")
     flash16 = build.load("flash_mha_bf16")
     bwd16 = build.load("flash_mha_bwd_bf16")
     # Each setmaxnreg kernel's threads and the registers its split asks for.
@@ -3439,10 +3474,11 @@ def reset_bf16_counts() -> None:
     fa.bf16_bwd_dkv_launch_count = 0
 
 
-def layout_witness(t: int = 192, lens=(192, 100), seed: int = 3):
+def layout_witness(t: int = 192, lens=(192, 100), seed: int = 3,
+                   d: int = 128):
     """bf16 inputs whose every product is exact (tests/
     test_torch_kernels_gpu.py holds the same witness): keys k_j = 64 e_j
-    (j < 128) and -64 e_(j-128); query row i scores 1024 against exactly two
+    (j < D) and -64 e_(j-D); query row i scores 1024 against exactly two
     valid keys (q_i = 16 (e_a + e_b)) and 0 or -1024 against the rest, so
     with sm_scale 1 its P is 1/2 at those two and exp(-1024) = 0 elsewhere;
     v and dO in {-1, 0, 1}. A wrong swizzle, descriptor or transpose bit
@@ -3452,15 +3488,15 @@ def layout_witness(t: int = 192, lens=(192, 100), seed: int = 3):
     import torch
 
     rng = np.random.default_rng(seed)
-    b, h, d = len(lens), 2, 128
+    b, h = len(lens), 2
     k = np.zeros((b, h, t, d))
     for j in range(t):
-        k[:, :, j, j % 128] = 64.0 if j < 128 else -64.0
+        k[:, :, j, j % d] = 64.0 if j < d else -64.0
     q = np.zeros((b, h, t, d))
     for i, n in enumerate(lens):
         for hh in range(h):
             for r in range(t):
-                a, c = rng.choice(min(n, 128), size=2, replace=False)
+                a, c = rng.choice(min(n, d), size=2, replace=False)
                 q[i, hh, r, a] = q[i, hh, r, c] = 16.0
     v, dout = (rng.choice([-1.0, 0.0, 1.0], size=(b, h, t, d),
                           p=[0.25, 0.5, 0.25]) for _ in range(2))
@@ -3468,36 +3504,41 @@ def layout_witness(t: int = 192, lens=(192, 100), seed: int = 3):
     return [torch.from_numpy(x) for x in (q, k, v, dout, mask)]
 
 
-def phase_flash_bf16_vs_plain(smoke: Smoke):
-    """The bf16 forward, dQ and dK/dV kernels against their plain versions
-    on the same bf16 inputs, the layout witness exactly; returns the worst
-    max|diff| of out, dq and (dk, dv)."""
+def phase_flash_bf16_vs_plain(smoke: Smoke, h: int = 2, d: int = 128):
+    """The bf16 forward, dQ and dK/dV kernels at head dim ``d`` (H = ``h``)
+    against their plain versions on the same bf16 inputs, each call on the
+    three bf16 kernels of that head dim and no other flash kernel, the
+    layout witness exactly; returns the worst max|diff| of out, dq and
+    (dk, dv)."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
 
     from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
 
-    gen = torch.Generator().manual_seed(10)
-    scale = 128 ** -0.5
-    key_tile = build.load("flash_mha_bf16").flash_mha_fwd_bf16_key_tile()
+    gen = torch.Generator().manual_seed(10 + d)
+    scale = d ** -0.5
+    wide = d == D256
+    key_tile = (build.load("flash_mha_bf16_d256").flash_mha_bf16_d256_key_tile
+                if wide else
+                build.load("flash_mha_bf16").flash_mha_fwd_bf16_key_tile)()
+    want = (0,) * 3 + ((0,) * 6 + (1,) * 3 if wide else (1,) * 3 + (0,) * 6)
     worst = [0.0, 0.0, 0.0]
     margin = 0.0  # the forward's worst max|diff| over its bound
     recipe = tuple((b, t, prefixes(*recipe_lengths(b, t)))
                    for b, t in RECIPE_CASES)
     for b, t, rows in FLASH_BF16_CASES + recipe:
         q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
-                         for x in flash_inputs(b, t, rows, gen))
+                         for x in flash_inputs(b, t, rows, gen, h, d))
         dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
-        reset_flash_counts()
-        reset_bf16_counts()
+        before = flash_all_counts()
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
-        launched = (bf16_counts(), flash_counts())
+        launched = tuple(a - b for a, b in zip(flash_all_counts(), before))
         ref = fa.flash_mha_blocked_plain(q, k, v, mask, scale, key_tile)
         refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
         line = []
-        ok = launched == ((1, 1, 1), (0, 0, 0))
+        ok = launched == want
         for i, (name, x, r, rel) in enumerate(zip(
                 ("out", "dq", "dk", "dv"), (out, *grads), (ref, *refs),
                 (FLASH_BF16_OUT_REL,) + (FLASH_BF16_GRAD_REL,) * 3)):
@@ -3525,12 +3566,15 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
                 and all(torch.equal(a, g)
                         for a, g in zip(again_grads, grads)))
         smoke.check(ok and same,
-                    f"bf16 B={b} T={t:5d} {shown_rows(rows)}: max|diff| "
-                    f"{', '.join(line)}; lse {lse_diff:.3e}; launches "
-                    f"(bf16, float32) {launched}; rows of length 0 exactly "
-                    f"0; a rerun bit-identical: {same}")
+                    f"bf16 D={d} B={b} H={h} T={t:5d} {shown_rows(rows)}: "
+                    f"max|diff| {', '.join(line)}; lse {lse_diff:.3e}; "
+                    f"launches (flash_all_counts) {launched}; rows of length"
+                    f" 0 exactly 0; a rerun bit-identical: {same}")
         del q, k, v, mask, dout, out, lse, grads, ref, refs, again
-    q, k, v, dout, mask = layout_witness()
+    # At D = 256: five key tiles, the two-hot P over all four 64-column
+    # chunks of q and k.
+    q, k, v, dout, mask = (layout_witness(320, (320, 150), d=d) if wide
+                           else layout_witness())
     out64 = fa.flash_mha_plain(q, k, v, mask, 1.0)
     grads64 = fa.flash_mha_bwd_plain(q, k, v, mask, out64, dout, 1.0)
     exact_in_bf16 = all(torch.equal(x, x.bfloat16().double())
@@ -3543,7 +3587,7 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
              zip((out, *grads), (out64, *grads64))]
     nonzero = [int(torch.count_nonzero(x)) for x in (out64, *grads64)]
     smoke.check(exact_in_bf16 and wrong == [0, 0, 0, 0],
-                f"layout witness (2, 2, 192, 128), two-hot P: out, dq, dk, "
+                f"layout witness {tuple(q.shape)}, two-hot P: out, dq, dk, "
                 f"dv exact (elements off: {wrong}; nonzero in the "
                 f"reference: {nonzero})")
     print(f"  bf16 forward against flash_mha_blocked_plain on its "
@@ -3552,8 +3596,9 @@ def phase_flash_bf16_vs_plain(smoke: Smoke):
     return worst
 
 
-def flash_bf16_bounds_ms(mask, kernel: str) -> dict:
-    """Least times for a bf16 flash kernel at H = 2, D = 128 on a (B, T)
+def flash_bf16_bounds_ms(mask, kernel: str, h: int = 2,
+                         d: int = 128) -> dict:
+    """Least times for a bf16 flash kernel at H = h, D = d on a (B, T)
     key mask, each the larger of operations at the bf16 tensor-core rate
     (989 TF/s) and bytes at the memory rate, counting the keys of the
     BOUND_KEY_TILE-key tiles with a valid key: "fwd", 4·H·D flops per
@@ -3576,8 +3621,8 @@ def flash_bf16_bounds_ms(mask, kernel: str) -> dict:
     stats = {"fwd": 1, "dq": 2, "dkv": 2, "both": 1}[kernel]
 
     def bound(keys):
-        flops = per * 2 * t * keys * 128
-        n_bytes = 2 * 2 * 128 * tensors * b * t + 4 * 2 * stats * b * t \
+        flops = per * h * t * keys * d
+        n_bytes = 2 * h * d * tensors * b * t + 4 * h * stats * b * t \
             + b * t
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
         return (1e3 * max(t_ops, t_bytes),
@@ -3589,16 +3634,21 @@ def flash_bf16_bounds_ms(mask, kernel: str) -> dict:
             "flops_live": flops}
 
 
-def tuned_configs(root: Path, corpus: str) -> dict[str, str]:
+def tuned_configs(root: Path, corpus: str, impl: str = "flash",
+                  heads: int | None = None) -> dict[str, str]:
     """The shipped ESD preprocess.yaml and model.yaml and train_tuned.yaml
-    with the corpus at ``corpus``, ``attention_impl: "flash"``, the train
-    paths under ``root`` and TUNED_CADENCE; the recipe (batch 32, bf16 amp,
-    the optimizer, steps_per_call 10) is the shipped one."""
+    with the corpus at ``corpus``, ``attention_impl: impl``, ``heads``
+    encoder and decoder heads if given, the train paths under ``root`` and
+    TUNED_CADENCE; the recipe (batch 32, bf16 amp, the optimizer,
+    steps_per_call 10) is the shipped one."""
     root.mkdir(parents=True, exist_ok=True)
     pre = _yaml_set((CONFIG_DIR / "preprocess.yaml").read_text(),
                     "preprocessed_path", corpus)
     model = (CONFIG_DIR / "model.yaml").read_text().replace(
-        "transformer:\n", 'transformer:\n  attention_impl: "flash"\n', 1)
+        "transformer:\n", f'transformer:\n  attention_impl: "{impl}"\n', 1)
+    if heads is not None:
+        for key in ("encoder_head", "decoder_head"):
+            model = _yaml_set(model, key, heads)
     train = (CONFIG_DIR / "train_tuned.yaml").read_text()
     for key in ("ckpt_path", "log_path", "result_path"):
         train = _yaml_set(train, key, root / key.split("_")[0])
@@ -6808,10 +6858,17 @@ def d256_counts() -> tuple[int, int, int]:
             fa.d256_bwd_dkv_launch_count)
 
 
+def bf16_d256_counts() -> tuple[int, int, int]:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    return (fa.bf16_d256_launch_count, fa.bf16_d256_bwd_dq_launch_count,
+            fa.bf16_d256_bwd_dkv_launch_count)
+
+
 def flash_all_counts() -> tuple[int, ...]:
-    """Every flash counter: float32 D = 128, bf16 D = 128, float32 D = 256
-    (forward, dQ, dK/dV each)."""
-    return flash_counts() + bf16_counts() + d256_counts()
+    """Every flash counter: float32 D = 128, bf16 D = 128, float32 D = 256,
+    bf16 D = 256 (forward, dQ, dK/dV each)."""
+    return flash_counts() + bf16_counts() + d256_counts() + bf16_d256_counts()
 
 
 def h1d256(cfg):
@@ -6848,10 +6905,10 @@ def phase_d256_d64_vs_plain(smoke: Smoke):
                                                    h=1, d=D256)
     counts = tuple(a - b for a, b in zip(flash_all_counts(), before))
     n_fwd, n_bwd = len(FLASH_CASES), len(FLASH_BWD_CASES)
-    want = (0,) * 6 + (n_fwd + n_bwd, 2 * n_bwd, 2 * n_bwd)
+    want = (0,) * 6 + (n_fwd + n_bwd, 2 * n_bwd, 2 * n_bwd) + (0,) * 3
     smoke.check(counts == want,
-                f"D = 256: flash launches (float32 D = 128, bf16, float32 "
-                f"D = 256; forward, dQ, dK/dV) {counts}, expected {want}")
+                f"D = 256: flash launches (float32 D = 128, bf16, float32 and "
+                f"bf16 D = 256; forward, dQ, dK/dV) {counts}, expected {want}")
 
     # D = 64, both dtypes: the D = 128 kernels on zero-padded inputs.
     b, t, rows = D64_CASE
@@ -6865,7 +6922,7 @@ def phase_d256_d64_vs_plain(smoke: Smoke):
         out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
         grads = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
         counts = tuple(a - b for a, b in zip(flash_all_counts(), before))
-        want = tuple(int(first <= i < first + 3) for i in range(9))
+        want = tuple(int(first <= i < first + 3) for i in range(12))
         if dtype == torch.float32:
             ref = fa.flash_mha_plain(q, k, v, mask, scale)
             bounds = (FLASH_REL_BOUND, FLASH_BWD_REL_BOUND)
@@ -6917,7 +6974,7 @@ def phase_h1d256_synthesis(smoke: Smoke, device) -> int:
     synth = Synthesizer(cfg, fs2, voc, emotion_maps=EMOTION_MAPS,
                         device=device)
     per_call = 2 * len(DILATIONS) * len(synth.vocoder.resblocks)  # bf16 MRF
-    want = (0,) * 6 + (n_dec, 0, 0)
+    want = (0,) * 6 + (n_dec, 0, 0) + (0,) * 3
     counts, launches = {}, 0
 
     def counted(name, fn):
@@ -6947,7 +7004,7 @@ def phase_h1d256_synthesis(smoke: Smoke, device) -> int:
                 f"(2048, {LONG_MAX_MEL}); finite mel and wav")
     smoke.check(all(c == (want, (per_call, 0)) for c in counts.values()),
                 f"h1d256 long-form under 'auto', launches a call (flash "
-                f"float32 D = 128, bf16, float32 D = 256; MRF bf16, "
+                f"float32 D = 128, bf16, float32 and bf16 D = 256; MRF bf16, "
                 f"float32): {counts} (expected {want}, ({per_call}, 0)): "
                 f"the D = 256 forward once a decoder layer")
     same_dur = all(np.array_equal(a.durations, b.durations)
@@ -7018,7 +7075,7 @@ def phase_h1d256_training(smoke: Smoke, device) -> tuple[int, int, int]:
             cfg = h1d256(training_config(corpus, out, impl))
             t = cfg.model.transformer
             n_blocks = t.encoder_layer + t.decoder_layer
-            bf16_before = bf16_counts()
+            bf16_before = bf16_counts() + bf16_d256_counts()
             t0 = time.perf_counter()
             state, calls, counts = counted_training(
                 lambda: train(cfg, total_steps=TRAIN_STEPS,
@@ -7027,13 +7084,14 @@ def phase_h1d256_training(smoke: Smoke, device) -> tuple[int, int, int]:
             seconds = time.perf_counter() - t0
             # counted_training set the float32 D = 128 counts to 0 first.
             others = flash_counts() + tuple(
-                a - b for a, b in zip(bf16_counts(), bf16_before))
+                a - b for a, b in zip(bf16_counts() + bf16_d256_counts(),
+                                      bf16_before))
             check_flash_calls(smoke, "h1d256 train()", impl, calls,
                               n_blocks, TRAIN_STEPS)
-            smoke.check(others == (0,) * 6 and state.step == TRAIN_STEPS,
+            smoke.check(others == (0,) * 9 and state.step == TRAIN_STEPS,
                         f"h1d256 train() {impl!r}: {state.step} steps in "
                         f"{seconds:.1f} s; D = 256 launches {counts}, the "
-                        f"D = 128 kernels' {others} (expected none) "
+                        f"other flash kernels' {others} (expected none) "
                         f"[{card}]")
             if impl == "flash":
                 totals = counts
@@ -7165,9 +7223,301 @@ def phase_head_dims(smoke: Smoke, device):
             for name, n, err in zip(("fwd", "dq", "dkv"), launches, worst)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the bf16 flash kernels at D = 256 (csrc/flash_mha_bf16_d256.cu),
+# through amp bf16 training of h1d256 on the tuned recipe.
+
+# "flash" against "auto" from one seed: the first and the last logged loss
+# (tests/test_torch_flash_bf16.py: test_amp_bf16_flash_tracks_amp_bf16_xla's
+# bounds; bf16 rounds at other points on the two paths).
+BF16_D256_FIRST_RTOL = 0.05
+BF16_D256_LAST_RTOL = 0.08
+# Phase 17c's shapes at H = 1, D = 256: the recipe's batch of 32 at the
+# 1000-frame bucket with seeded key lengths (the `kernels` line's rows),
+# and B = 4 at T = 4096 with phase 11b's masks.
+BF16_D256_TIMED = (32, 1000)
+
+
+def reset_all_flash_counts() -> None:
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    for name in fa.COUNTERS:
+        setattr(fa, name, 0)
+
+
+def phase_bf16_d256_training(smoke: Smoke, device) -> dict:
+    """17b: efs2-torch-train on train_tuned.yaml (batch 32, amp bf16,
+    steps_per_call 10, graphed) with one encoder and one decoder head
+    (D = 256) on phase 5's corpus, 20 steps under "flash" and under "auto"
+    (the math path at these lengths) from one seed: under "flash" each train
+    step launches each bf16 D = 256 kernel once an FFT block and no other
+    flash kernel, each val and synth step (the float32 model) the float32
+    D = 256 forward once a block and nothing else; under "auto" no flash
+    kernel. Losses finite and falling, the first and the last logged loss
+    within BF16_D256_FIRST_RTOL and BF16_D256_LAST_RTOL of "auto"'s; then
+    the graphed train step of each at B = 32, bucket (128, 1000), in turns.
+    Returns the "flash" run's bf16 D = 256 launches."""
+    import numpy as np
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch import config as C
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.step import (
+        make_train_step,
+    )
+
+    card = nvidia_smi_line()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        corpus = write_training_corpus(str(tmp / "corpus"), 0)
+        for impl in ("flash", "auto"):
+            calls: dict[str, list] = {"train_step": [], "eval_step": [],
+                                      "synth_step": []}
+            losses: list[float] = []
+
+            def counting(key, steps, fn, *args):
+                before = flash_all_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                calls[key].append((steps, tuple(
+                    a - b for a, b in zip(flash_all_counts(), before)),
+                    1e3 * (time.perf_counter() - t0)))
+                if key == "train_step":
+                    losses.append(float(out.total))
+                return out
+
+            y = tuned_configs(tmp / impl, corpus, impl=impl, heads=1)
+            cfg = C.load_config(y["preprocess"], y["model"], y["train"])
+            reset_all_flash_counts()
+            with compiled_step_calls(functools.partial(
+                    counting, "train_step")), inference_step_calls(
+                    lambda name, fn, *a: counting(name, 1, fn, *a)):
+                _, seconds = run_cli("train", [
+                    "-p", y["preprocess"], "-m", y["model"], "-t",
+                    y["train"], "--total_steps", TUNED_STEPS, "--device",
+                    str(device)])
+            runs[impl] = {"cfg": cfg, "calls": calls, "losses": losses,
+                          "seconds": seconds, "launches": bf16_d256_counts(),
+                          "log": _metrics(tmp / impl / "log" / "train"
+                                          / "metrics.jsonl")}
+
+    for impl, run in runs.items():
+        cfg, calls = run["cfg"], run["calls"]
+        t = cfg.model.transformer
+        n = t.encoder_layer + t.decoder_layer
+        flash = impl == "flash"
+        per_step = (0,) * 9 + ((n,) * 3 if flash else (0,) * 3)
+        per_eval = (0,) * 6 + (n if flash else 0,) + (0,) * 5
+        train_calls = calls["train_step"]
+        inference = [c for _, c, _ in calls["eval_step"]
+                     + calls["synth_step"]]
+        n_steps = sum(k for k, _, _ in train_calls)
+        smoke.check(
+            cfg.train.amp_dtype == "bfloat16"
+            and t.attention_impl == impl and cfg.train.steps_per_call == 10
+            and cfg.train.optimizer.batch_size == 32
+            and t.encoder_head == t.decoder_head == 1
+            and t.encoder_hidden // t.encoder_head == D256
+            and n_steps == TUNED_STEPS
+            and all(c == tuple(k * x for x in per_step)
+                    for k, c, _ in train_calls)
+            and calls["eval_step"] and calls["synth_step"]
+            and all(c == per_eval for c in inference),
+            f"h1d256 efs2-torch-train, train_tuned.yaml (batch "
+            f"{cfg.train.optimizer.batch_size}, amp {cfg.train.amp_dtype}, "
+            f"steps_per_call {cfg.train.steps_per_call}, heads "
+            f"{t.encoder_head}/{t.decoder_head}) under {impl!r}: {n_steps} "
+            f"train steps in {len(train_calls)} compiled calls in "
+            f"{run['seconds']:.2f} s, each step launching (flash_all_counts:"
+            f" float32, bf16 at D = 128, float32, bf16 at D = 256) "
+            f"{sorted({tuple(x // k for x in c) for k, c, _ in train_calls})}"
+            f" (expected {per_step}); {len(calls['eval_step'])} val and "
+            f"{len(calls['synth_step'])} synth steps, each "
+            f"{sorted(set(inference))} (expected {per_eval}); the run's "
+            f"bf16 D = 256 launches {run['launches']} [{card}]")
+        series = [x for (k, _, _), x in zip(train_calls, run["losses"])
+                  for _ in range(k)]
+        first, last = sum(series[:5]) / 5, sum(series[-5:]) / 5
+        means = [r["total_loss"] for r in run["log"]]
+        smoke.check([r["step"] for r in run["log"]] == [10, 20]
+                    and all(math.isfinite(x) for x in series + means)
+                    and last < first,
+                    f"h1d256 amp bf16 {impl!r}: total loss, mean of the "
+                    f"first and the last 5 steps {first:.4f} -> {last:.4f} "
+                    f"(falling); logged chunk means {means}; each compiled "
+                    f"call's ms a step "
+                    f"{[round(ms / k, 2) for k, _, ms in train_calls]}")
+    logged = {impl: [r["total_loss"] for r in run["log"]]
+              for impl, run in runs.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(logged["flash"],
+                                               logged["auto"])]
+    smoke.check(len(rel) == 2 and rel[0] <= BF16_D256_FIRST_RTOL
+                and rel[-1] <= BF16_D256_LAST_RTOL,
+                f"h1d256 amp bf16 logged total losses, 'flash' "
+                f"{logged['flash']} vs 'auto' {logged['auto']}: relative "
+                f"differences {[f'{x:.3e}' for x in rel]} (bounds "
+                f"{BF16_D256_FIRST_RTOL}, {BF16_D256_LAST_RTOL})")
+
+    # The graphed train step of each at the recipe's batch, in turns.
+    b, s, t = TUNED_TIMED[-1]
+    batch = stage_batch(synthetic_train_batch(b, s, t, seed=5), device)
+    steps, ms, counts = {}, {}, {}
+    for impl, run in runs.items():
+        state = create_train_state(run["cfg"], None, device)
+        steps[impl] = (state, make_train_step(state, run["cfg"]))
+        ms[impl] = []
+    for _ in range(3):
+        for _, step in steps.values():
+            step(batch)
+    for _ in range(GRAPH_TUNED_STEPS):
+        for impl, (_, step) in steps.items():
+            ms[impl].append(synced_ms(lambda: step(batch)))
+    for impl, (_, step) in steps.items():
+        before = flash_all_counts()
+        step(batch)
+        counts[impl] = tuple(a - b for a, b in zip(flash_all_counts(),
+                                                   before))
+    print("  " + f"h1d256 amp bf16 train step graphed, B = {b}, bucket "
+          f"({s}, {t}), {GRAPH_TUNED_STEPS} steps after 3, in turns: "
+          + "; ".join(f"{k} median {float(np.median(v)):.3f} ms "
+                      f"({min(v):.3f}-{max(v):.3f}), launches {counts[k]}"
+                      for k, v in ms.items())
+          + f"; 'flash' / 'auto' "
+          f"{float(np.median(ms['flash'])) / float(np.median(ms['auto'])):.3f}"
+          f" [{card}]", flush=True)
+    del steps, batch
+    return {"launches": runs["flash"]["launches"],
+            "step_ms": {k: float(np.median(v)) for k, v in ms.items()}}
+
+
+def phase_bf16_d256_times(smoke: Smoke) -> dict:
+    """17c: the bf16 kernels at D = 256, each call timed from a CUDA graph,
+    at the recipe's (32, 1, 1000, 256) with seeded key lengths and at
+    (4, 1, 4096, 256) with phase 11b's masks, against their bounds (bf16
+    rate over the live 32-key tiles, the function's flops: 4, 6 and 8·D per
+    query and live key, not the column split's recomputation), their plain
+    versions and SDPA in bf16 with the same bool mask (its backend named;
+    its backward timed with CUDA events, as phase 11b's).
+    Returns the rows at the recipe's shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    card = nvidia_smi_line()
+    gen = torch.Generator().manual_seed(17)
+    scale = D256 ** -0.5
+    rows = {}
+    b0, t0 = BF16_D256_TIMED
+    cases = ((b0, t0, recipe_lengths(b0, t0), recipe_lengths(b0, t0)),
+             (4, 4096, (4096, 1, 0, 3001), (4096, 3072, 2048, 1024)))
+
+    def backend(q, k, v, keep):
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, keep, 0.0, False, scale=scale)).name.lower()
+
+    for b, t, fwd_lens, bwd_lens in cases:
+        shown = (f"key lengths {b} seeded in [{t // 2}, {t}]" if b > 4
+                 else None)
+        # The forward.
+        q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                         for x in flash_inputs(b, t, prefixes(*fwd_lens),
+                                               gen, 1, D256))
+        keep = ~mask[:, None, None, :]
+        ms, how = graph_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale))
+        plain = cuda_time_ms(lambda: fa.flash_mha_blocked_plain(
+            q, k, v, mask, scale, 64), 10)
+        lib, _ = graph_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, scale=scale))
+        ran = backend(q, k, v, keep)
+        bd = flash_bf16_bounds_ms(mask, "fwd", 1, D256)
+        what = shown or f"valid keys {fwd_lens}"
+        rows[("fwd", b, t)] = {
+            "shape": f"({b}, 1, {t}, 256) bf16, {what}", "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bd["live"],
+            "bound_by": bd["bound_by"]}
+        print(f"  flash_mha bf16 D = 256 ({b}, 1, {t}, 256), {what}: kernel "
+              f"{ms:.4f} ms ({how}; {bd['flops_live'] / ms / 1e9:.1f} TF/s "
+              f"over the {bd['live_tiles']} of {bd['tiles']} live "
+              f"{bd['tile']}-key tiles, {bd['live'] / ms:.3f} of the bound); "
+              f"bound (bf16 rate) {bd['live']:.4f} ms live, "
+              f"{bd['dense']:.4f} dense ({bd['bound_by']}); plain "
+              f"{plain:.4f} ms; SDPA bf16 {lib:.4f} ms (the {ran} backend); "
+              f"kernel / SDPA {ms / lib:.3f} [{card}]", flush=True)
+        del q, k, v, mask, keep
+        # The backward pair.
+        q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                         for x in flash_inputs(b, t, prefixes(*bwd_lens),
+                                               gen, 1, D256))
+        dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
+        out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+        _, delta = fa._flash_mha_bwd_dq_cuda(q, k, v, mask, out, dout, lse,
+                                             scale)
+        dq_ms, how = graph_time_ms(lambda: fa._flash_mha_bwd_dq_cuda(
+            q, k, v, mask, out, dout, lse, scale))
+        dkv_ms, _ = graph_time_ms(lambda: fa._flash_mha_bwd_dkv_cuda(
+            q, k, v, mask, dout, lse, delta, scale))
+        plain = cuda_time_ms(lambda: fa.flash_mha_bwd_plain(
+            q, k, v, mask, out, dout, scale), 10)
+        keep = ~mask[:, None, None, :]
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep,
+                                           scale=scale)
+        # CUDA events, as phase 11b: autograd's backward may not capture
+        # into a graph (and the profiler's fallback misses its kernels).
+        lib = cuda_time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), dout, retain_graph=True), 10)
+        ran = backend(qs, ks, vs, keep)
+        bd = {name: flash_bf16_bounds_ms(mask, name, 1, D256)
+              for name in ("dq", "dkv", "both")}
+        what = shown or f"key lengths {bwd_lens}"
+        for name, kms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            rows[(name, b, t)] = {
+                "shape": f"({b}, 1, {t}, 256) bf16, {what}", "ms": kms,
+                "plain_ms": plain, "bound_ms": bd[name]["live"],
+                "bound_by": bd[name]["bound_by"], "library_ms": lib}
+        flops = 14 * t * BOUND_KEY_TILE * bd["both"]["live_tiles"] * D256
+        print(f"  flash_mha backward bf16 D = 256 ({b}, 1, {t}, 256), {what}"
+              f": dQ kernel {dq_ms:.4f} ms (bound {bd['dq']['live']:.4f} "
+              f"live, {bd['dq']['live'] / dq_ms:.3f} of it), dK/dV kernel "
+              f"{dkv_ms:.4f} ms (bound {bd['dkv']['live']:.4f} live, "
+              f"{bd['dkv']['live'] / dkv_ms:.3f} of it) ({how}), together "
+              f"{dq_ms + dkv_ms:.4f} ms = "
+              f"{flops / (dq_ms + dkv_ms) / 1e9:.1f} TF/s over the live "
+              f"tiles; whole-backward bound {bd['both']['live']:.4f} ms; "
+              f"plain backward {plain:.4f} ms; SDPA bf16 backward "
+              f"{lib:.4f} ms (CUDA events; the {ran} backend); pair / SDPA "
+              f"{(dq_ms + dkv_ms) / lib:.3f} [{card}]", flush=True)
+        del q, k, v, mask, dout, out, lse, delta, qs, ks, vs, o, keep
+    smoke.check(all(math.isfinite(r["ms"]) and r["ms"] > 0
+                    for r in rows.values()),
+                "bf16 D = 256 kernel times measured")
+    return {name: rows[(name, b0, t0)] for name in ("fwd", "dq", "dkv")}
+
+
+def phase_bf16_d256(smoke: Smoke, device):
+    """Phase 17: returns the bf16 D = 256 kernels' rows of the kernels
+    line."""
+    worst = phase_flash_bf16_vs_plain(smoke, h=1, d=D256)
+    train = phase_bf16_d256_training(smoke, device)
+    times = phase_bf16_d256_times(smoke)
+    return {name: {"launches": n, "max_abs_err": err, **times[name]}
+            for name, n, err in zip(("fwd", "dq", "dkv"), train["launches"],
+                                    worst)}
+
+
 PHASES = ("1", "2", "2b", "2c", "2d", "2e", "3", "3b", "4", "4b", "5", "6",
           "7", "8", "8b", "9", "10", "11", "11b", "12", "13", "14", "14c",
-          "15", "16")
+          "15", "16", "17")
 # Phases run only when named: the 5,000-step deep convergence runs.
 EXTRA_PHASES = ("15d", "15s", "15t")
 
@@ -7275,6 +7625,9 @@ def main(argv=None) -> int:
                     "the float32 kernels at D = 256 through h1d256 "
                     "long-form synthesis and training, D = 64 through the "
                     "padding", phase_head_dims, smoke, device)
+    bf16_d256 = run("17", "the bf16 flash kernels at D = 256 through amp "
+                    "bf16 training of h1d256 on the tuned recipe",
+                    phase_bf16_d256, smoke, device)
     run("15d", "convergence_deep: 5,000 steps under 'auto' and 'flash'",
         phase_deep_convergence, smoke, device)
     run("15s", "convergence_deep again, the mel targets staged in "
@@ -7405,6 +7758,18 @@ def main(argv=None) -> int:
         ("flash_mha_bwd_dq_d256", "dq",
          "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
         ("flash_mha_bwd_dkv_d256", "dkv",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:941"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_mha_bf16_d256.cu",
+        "replaces": replaces,
+        **bf16_d256[key],
+    } for name, key, replaces in (
+        ("flash_mha_bf16_d256", "fwd",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:589"),
+        ("flash_mha_bwd_dq_bf16_d256", "dq",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+        ("flash_mha_bwd_dkv_bf16_d256", "dkv",
          "jax/experimental/pallas/ops/tpu/flash_attention.py:941"))]
     print(f"card: {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,8 @@ comes out as zeros. The projections are ``nn.Linear`` weights, ``(H*D, D_model)`
   the CPU;
 * ``"auto"``: flash on the card when T > 2048 and D is a multiple of 128
   with a kernel for the inputs' dtype (the JAX rule, with "on a TPU" read as
-  "on the card"; ``flash_mha.supported``: D = 128 in float32 and bfloat16,
-  D = 256 in float32), else the math path.
+  "on the card"; ``flash_mha.supported``: D = 128 and 256 in float32 and
+  bfloat16), else the math path.
 """
 
 from __future__ import annotations

@@ -19,28 +19,31 @@ gradient, with P the probabilities and dO the output's gradient::
 On CUDA tensors ``flash_mha`` launches the forward kernel of the inputs'
 dtype and head dim: at D = 128 ``csrc/flash_mha.cu`` for float32 (counted
 in ``launch_count``), ``csrc/flash_mha_bf16.cu`` for bfloat16
-(``bf16_launch_count``); at D = 256, float32 only, ``csrc/flash_mha_d256.cu``
-(``d256_launch_count``). When a gradient is wanted it goes through
+(``bf16_launch_count``); at D = 256 ``csrc/flash_mha_d256.cu`` for float32
+(``d256_launch_count``), ``csrc/flash_mha_bf16_d256.cu`` for bfloat16
+(``bf16_d256_launch_count``). When a gradient is wanted it goes through
 ``FlashMHA``, whose forward also stores each row's float32 log-sum-exp and
 whose backward launches the dQ kernel (which also writes Δ in float32) and
 then the dK/dV kernel of the same dtype and head dim: ``csrc/flash_mha_bwd.cu``
 (``bwd_dq_launch_count``, ``bwd_dkv_launch_count``),
 ``csrc/flash_mha_bwd_bf16.cu`` (``bf16_bwd_dq_launch_count``,
-``bf16_bwd_dkv_launch_count``) or ``csrc/flash_mha_d256.cu``
-(``d256_bwd_dq_launch_count``, ``d256_bwd_dkv_launch_count``). A head dim
-under 128 goes to the D = 128 kernels of its dtype zero-padded to 128, and
-out, dq, dk and dv are sliced back (``through_padding``): exact, since zero
-columns add nothing to q kᵀ or dO vᵀ and the padded columns of every output
-are zero. So the kernels take float32 at D ≤ 128 and D = 256, bfloat16 at
-D ≤ 128, contiguous tensors and a bool mask on the same device, or raise:
-bfloat16 at D = 256 and every other head dim (the JAX package's TPU kernel
-also takes the other multiples of 128) have no kernel yet. The bf16
-kernels round where the TPU kernel rounds in bf16: the unnormalised P of
-each key tile to bf16 before P·V, Pᵀ and dS·sm_scale to bf16 before their
-products, the outputs stored in bf16, everything else float32. On CPU
-tensors the plain versions run: the forward ``flash_mha_plain`` (float32
-and float64) or, for bf16, ``flash_mha_blocked_plain`` on the TPU
-kernel's 128-key blocks; the backward ``flash_mha_bwd_plain``, with the
+``bf16_bwd_dkv_launch_count``), ``csrc/flash_mha_d256.cu``
+(``d256_bwd_dq_launch_count``, ``d256_bwd_dkv_launch_count``) or
+``csrc/flash_mha_bf16_d256.cu`` (``bf16_d256_bwd_dq_launch_count``,
+``bf16_d256_bwd_dkv_launch_count``). A head dim under 128 goes to the
+D = 128 kernels of its dtype zero-padded to 128, and out, dq, dk and dv are
+sliced back (``through_padding``): exact, since zero columns add nothing to
+q kᵀ or dO vᵀ and the padded columns of every output are zero. So the
+kernels take float32 and bfloat16 at D ≤ 128 and D = 256, contiguous
+tensors and a bool mask on the same device, or raise: every other head dim
+(the JAX package's TPU kernel also takes the other multiples of 128) has no
+kernel yet. The bf16 kernels round where the TPU kernel rounds in bf16: the
+unnormalised P of each key tile to bf16 before P·V, Pᵀ and dS·sm_scale to
+bf16 before their products, the outputs stored in bf16, everything else
+float32. On CPU tensors the plain versions run: the forward
+``flash_mha_plain`` (float32 and float64) or, for bf16,
+``flash_mha_blocked_plain`` on the TPU kernel's 128-key blocks; the
+backward ``flash_mha_bwd_plain``, with the
 same rounding points for bf16 inputs. Nothing else selects between kernel
 and plain version. The kernels mask keys only, so they equal the plain
 versions at every query row; the TPU kernel agrees with both at the valid
@@ -57,7 +60,8 @@ import torch.nn.functional as F
 
 # The tensor-core kernels' head dim; a head dim under it is zero-padded to it.
 HEAD_DIM = 128
-# The head dim of the CUDA-core float32 kernels (csrc/flash_mha_d256.cu).
+# The head dim of csrc/flash_mha_d256.cu (float32, CUDA cores) and
+# csrc/flash_mha_bf16_d256.cu (bfloat16, tensor cores).
 WIDE_HEAD_DIM = 256
 # As in the JAX package (flash_mha.py:supported), the kernel is taken past
 # the reference's 2000-frame cap.
@@ -67,7 +71,8 @@ MIN_SEQ_LEN = 2048
 JAX_BLOCK = 128
 
 # Kernel launches on CUDA tensors: the forward, the dQ kernel (with Δ) and
-# the dK/dV kernel, float32 and bfloat16 at D = 128, float32 at D = 256.
+# the dK/dV kernel, float32 and bfloat16 at D = 128, float32 and bfloat16 at
+# D = 256.
 launch_count = 0
 bwd_dq_launch_count = 0
 bwd_dkv_launch_count = 0
@@ -77,11 +82,16 @@ bf16_bwd_dkv_launch_count = 0
 d256_launch_count = 0
 d256_bwd_dq_launch_count = 0
 d256_bwd_dkv_launch_count = 0
+bf16_d256_launch_count = 0
+bf16_d256_bwd_dq_launch_count = 0
+bf16_d256_bwd_dkv_launch_count = 0
 # Their names, for what counts launches in bulk (``graphs``' replays).
 COUNTERS = ("launch_count", "bwd_dq_launch_count", "bwd_dkv_launch_count",
             "bf16_launch_count", "bf16_bwd_dq_launch_count",
             "bf16_bwd_dkv_launch_count", "d256_launch_count",
-            "d256_bwd_dq_launch_count", "d256_bwd_dkv_launch_count")
+            "d256_bwd_dq_launch_count", "d256_bwd_dkv_launch_count",
+            "bf16_d256_launch_count", "bf16_d256_bwd_dq_launch_count",
+            "bf16_d256_bwd_dkv_launch_count")
 
 # The kernels by (dtype, head dim): the sources of the forward and of the
 # backward pair (csrc/<name>.cu), the suffix of their C entries
@@ -94,6 +104,9 @@ _KERNELS = {
                                  "bf16", COUNTERS[3:6]),
     (torch.float32, WIDE_HEAD_DIM): ("flash_mha_d256", "flash_mha_d256",
                                      "f32_d256", COUNTERS[6:9]),
+    (torch.bfloat16, WIDE_HEAD_DIM): ("flash_mha_bf16_d256",
+                                      "flash_mha_bf16_d256", "bf16_d256",
+                                      COUNTERS[9:12]),
 }
 # flash_mha_fwd_<suffix>(q, k, v, mask, out, lse, B, H, T, scale, stream)
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
@@ -109,8 +122,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 def kernel_head_dim(head_dim: int, dtype: torch.dtype) -> int | None:
     """The head dim of the kernels that take ``head_dim`` in ``dtype`` (128
-    for 0 < D ≤ 128, through zero padding; 256 for float32 at D = 256), or
-    None where no kernel takes it."""
+    for 0 < D ≤ 128, through zero padding; 256 at D = 256), or None where no
+    kernel takes it."""
     d = HEAD_DIM if 0 < head_dim <= HEAD_DIM else head_dim
     return d if (dtype, d) in _KERNELS else None
 
@@ -120,10 +133,10 @@ def supported(device: torch.device, seq_len: int, head_dim: int,
     """Whether ``attention_impl="auto"`` takes the kernels: the JAX
     package's rule (``supported`` there: a multiple of 128 as the head dim,
     sequences past 2048), with "on a TPU" read as "on the card", wherever
-    the port has a kernel for that head dim and dtype: D = 128 in float32
-    and bfloat16, D = 256 in float32. bfloat16 at D = 256, and D = 384,
-    512, ..., stay on the math path, where the JAX package's TPU kernel
-    would take them; D < 128 stays there as in the JAX package."""
+    the port has a kernel for that head dim and dtype: D = 128 and 256 in
+    float32 and bfloat16. D = 384, 512, ... stay on the math path, where the
+    JAX package's TPU kernel would take them; D < 128 stays there as in the
+    JAX package."""
     return (device.type == "cuda" and head_dim % HEAD_DIM == 0
             and seq_len > MIN_SEQ_LEN
             and kernel_head_dim(head_dim, dtype) == head_dim)
@@ -295,8 +308,8 @@ def _check(q, k, v, key_padding_mask, *more):
                         f"{q.dtype}")
     if kernel_head_dim(d, q.dtype) is None:
         raise ValueError(
-            f"flash_mha kernels take D <= {HEAD_DIM} (float32 and bfloat16) "
-            f"and D = {WIDE_HEAD_DIM} (float32), got D = {d} in {q.dtype}; "
+            f"flash_mha kernels take D <= {HEAD_DIM} and D = {WIDE_HEAD_DIM} "
+            f"(float32 and bfloat16), got D = {d} in {q.dtype}; "
             f"the JAX package's TPU kernel also takes the other multiples "
             f"of {HEAD_DIM}, which have no kernel here yet")
     for x in (q, k, v, *more):

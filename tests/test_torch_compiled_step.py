@@ -269,7 +269,7 @@ def test_capture_counts_what_the_capture_launched_once_per_replay():
     """Counters: the warm-up and the capture leave them as found; each
     replay adds what the capture counted."""
     before = graphs.read_counters()
-    assert len(before) == 12  # 9 flash counters, 3 MRF
+    assert len(before) == 15  # 12 flash counters, 3 MRF
 
     def launch(n_flash, n_mrf):
         fa.launch_count += n_flash

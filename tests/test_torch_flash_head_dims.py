@@ -4,7 +4,9 @@ The JAX package's ``flash_mha`` hands any head dim to JAX's TPU kernel,
 which takes D < 128 and the multiples of 128 (JAX 0.9.0
 ``flash_attention.py:455-462``). The port's kernels take D ≤ 128 in both
 dtypes (zero-padded to the D = 128 kernels: ``through_padding``) and D = 256
-in float32 (``csrc/flash_mha_d256.cu``, on the CUDA cores). Here, with the
+in float32 (``csrc/flash_mha_d256.cu``, on the CUDA cores) and in bf16
+(``csrc/flash_mha_bf16_d256.cu``; tests/test_torch_flash_bf16_d256.py).
+Here, with the
 JAX kernel in Pallas interpret mode and the port's plain versions standing
 in for its kernels on CPU tensors:
 
@@ -98,11 +100,12 @@ GROUP = 8              # csrc/flash_mha_d256.cu: kGroup (lanes sharing a row)
 
 @pytest.fixture(scope="module", autouse=True)
 def settled_torch():
-    """In about 2 % of fresh processes on this repo's CPU runs, the first
-    float32 ``masked_softmax`` of a process at these sizes came out up to
-    1e-5 off, and every later call in the process exact (seen without JAX
-    too; not understood, PERF.md §7). One plain forward at the tested
-    shape, discarded, keeps the comparisons below off that first call."""
+    """In some fresh processes the first float32 ``torch.exp`` of a
+    thread runs in oneMKL's low-accuracy EP mode (torch's CPU build links
+    oneMKL; up to 1e-4 off, every later call exact; PERF.md §7,
+    reports/first_exp/first_exp_probe.py). One plain forward at the
+    tested shape, discarded, keeps the comparisons below off that first
+    call."""
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(2, 1, 300, 256)).astype(np.float32))
     fm.flash_mha_plain(x, x, x, torch.zeros(2, 300, dtype=torch.bool),
@@ -207,7 +210,7 @@ def test_padding_to_128_is_exact_around_the_plain_versions(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [2048, 2049])
 def test_supported_is_the_jax_rule_where_the_port_has_a_kernel(d, dtype, t):
-    kernel = d == 128 or (d == 256 and dtype == torch.float32)
+    kernel = d in (128, 256)
     assert fm.supported(torch.device("cuda"), t, d, dtype) is (
         kernel and t > 2048)
     assert fm.supported(torch.device("cpu"), t, d, dtype) is False

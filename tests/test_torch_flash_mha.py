@@ -94,8 +94,8 @@ def test_cpu_tensors_take_the_plain_version():
     ("cpu", 4096, 128, False)])
 def test_supported_takes_the_kernel_head_dim_past_2048_on_the_card(
         device, t, d, expected):
-    # ``expected`` in float32, which has kernels at D = 128 and 256;
-    # bfloat16 has D = 128 only. D = 64 stays on the math path, as in JAX.
+    # ``expected`` in both dtypes, which have kernels at D = 128 and 256.
+    # D = 64 stays on the math path, as in JAX.
     dev = torch.device(device)
     assert fm.supported(dev, t, d, torch.float32) is expected
-    assert fm.supported(dev, t, d, torch.bfloat16) is (expected and d == 128)
+    assert fm.supported(dev, t, d, torch.bfloat16) is expected

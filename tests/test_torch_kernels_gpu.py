@@ -525,7 +525,7 @@ def test_d64_takes_the_d128_kernels_through_padding_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,dtype", [(192, torch.float32),
                                      (384, torch.float32),
-                                     (256, torch.bfloat16),
+                                     (384, torch.bfloat16),
                                      (512, torch.bfloat16)])
 def test_a_head_dim_with_no_kernel_raises_on_card(d, dtype):
     _cuda_or_skip()
@@ -625,22 +625,22 @@ def test_bf16_flash_kernels_match_plain_on_card(t, rows):
         assert torch.equal(a, b)
 
 
-def _layout_witness(t=192, lens=(192, 100), seed=3):
+def _layout_witness(t=192, lens=(192, 100), seed=3, d=128):
     """Inputs whose every product is exact in bf16 and float32: keys
-    k_j = 64 e_j (j < 128) and -64 e_(j-128); each query row i scores 1024
+    k_j = 64 e_j (j < D) and -64 e_(j-D); each query row i scores 1024
     against exactly two valid keys a_i, b_i (q_i = 16 (e_a + e_b)), 0 or
     -1024 against the rest, so with sm_scale 1 its P is 1/2 at a_i and b_i
     and exp(-1024) = 0 elsewhere, in float64 too; v and dO in {-1, 0, 1}.
     A swizzle, descriptor or transpose bit that reads the wrong element
     moves a product by far more than round-off."""
     rng = np.random.default_rng(seed)
-    b, h, d = len(lens), 2, 128
+    b, h = len(lens), 2
     k = np.zeros((b, h, t, d))
     for j in range(t):
-        k[:, :, j, j % 128] = 64.0 if j < 128 else -64.0
+        k[:, :, j, j % d] = 64.0 if j < d else -64.0
     q = np.zeros((b, h, t, d))
     for i, n in enumerate(lens):
-        pool = min(n, 128)
+        pool = min(n, d)
         for hh in range(h):
             for r in range(t):
                 a, c = rng.choice(pool, size=2, replace=False)
@@ -695,6 +695,110 @@ def test_auto_takes_the_bf16_kernels_past_2048_frames_on_card():
         assert out.dtype == torch.bfloat16
         assert _bf16_counts() == tuple(n + launched * (i == 0)
                                        for i, n in enumerate(before))
+
+
+# The bf16 kernels at D = 256 (csrc/flash_mha_bf16_d256.cu: the output's
+# head dim split in halves of 128 columns, S and dP over all 256) against
+# the same plain versions and bounds as at D = 128; H = 1, as the one-head
+# configuration. Each call launches the three D = 256 bf16 kernels once
+# and no other flash kernel.
+
+
+def _all_flash_counts():
+    return tuple(getattr(fa, c) for c in fa.COUNTERS)
+
+
+def _only_bf16_d256(before):
+    wide = {"bf16_d256_launch_count", "bf16_d256_bwd_dq_launch_count",
+            "bf16_d256_bwd_dkv_launch_count"}
+    return tuple(n + (c in wide) for c, n in zip(fa.COUNTERS, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,rows", [
+    (20, _prefixes(20, 1, 0, 13)),
+    (300, _prefixes(300, 37, 0, 299)),
+    (320, _prefixes(320, 64, 0, 200)),
+    (1000, [[(0, 100), (300, 1000)], [(64, 128), (640, 700)], [(999, 1000)],
+            []]),
+    (2300, _prefixes(2300, 63, 0, 2049)),
+    (1000, _prefixes(*_recipe_lengths(32, 1000)))])
+def test_bf16_d256_flash_kernels_match_plain_on_card(t, rows):
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = (x[:, :1].bfloat16().contiguous() if x.ndim == 4 else x
+                     for x in _flash_inputs(t, rows, seed=t + 11, d=256))
+    dout = torch.randn_like(q)
+    before = _all_flash_counts()
+    out, dq, dk, dv = _flash_grads(q, k, v, mask, dout, scale=D256_SCALE)
+    assert _all_flash_counts() == _only_bf16_d256(before)
+    assert all(x.dtype == torch.bfloat16 and x.shape == q.shape
+               for x in (out, dq, dk, dv))
+    ref = fa.flash_mha_blocked_plain(q, k, v, mask, D256_SCALE, 64)
+    assert _rel(out, ref) <= BF16_OUT_REL
+    refs = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, D256_SCALE)
+    for g, r in zip((dq, dk, dv), refs):
+        assert _rel(g, r) <= BF16_GRAD_REL
+    for i in range(len(rows)):
+        if bool(mask[i].all()):  # no valid key → exactly 0
+            for x in (out, dq, dk, dv):
+                assert torch.count_nonzero(x[i]).item() == 0
+    _, lse = fa._flash_mha_cuda(q, k, v, mask, D256_SCALE, with_lse=True)
+    lse_ref = fa.flash_mha_lse_plain(q, k, mask, D256_SCALE)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isposinf(lse), ~finite)
+    assert _rel(lse[finite], lse_ref[finite]) <= 1e-5
+    again = _flash_grads(q, k, v, mask, dout, scale=D256_SCALE)
+    for a, b in zip((out, dq, dk, dv), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_d256_flash_kernels_layout_witness_is_exact_on_card():
+    """The layout witness at D = 256 (two-hot P over all four 64-column
+    chunks, five key tiles, a row of 150 valid keys): out, dq, dk, dv exact,
+    which a wrong chunk, column half or box would not be."""
+    _cuda_or_skip()
+    q, k, v, dout, mask = _layout_witness(t=320, lens=(320, 150), d=256)
+    ref64 = [torch.from_numpy(x) for x in (q, k, v, dout)]
+    tmask = torch.from_numpy(mask)
+    out64 = fa.flash_mha_plain(*ref64[:3], tmask, 1.0)
+    grads64 = fa.flash_mha_bwd_plain(*ref64[:3], tmask, out64, ref64[3], 1.0)
+    for x in (out64, *grads64):  # the premise: every value exact in bf16
+        assert torch.equal(x, x.bfloat16().double())
+    args = [x.to("cuda", torch.bfloat16) for x in ref64]
+    before = _all_flash_counts()
+    out, dq, dk, dv = _flash_grads(*args[:3], tmask.to("cuda"), args[3],
+                                   scale=1.0)
+    assert _all_flash_counts() == _only_bf16_d256(before)
+    for got, want in zip((out, dq, dk, dv), (out64, *grads64)):
+        assert torch.equal(got.double().cpu(), want)
+
+
+@pytest.mark.gpu
+def test_auto_takes_the_bf16_d256_kernels_past_2048_frames_on_card():
+    """attention_impl="auto" in bf16 at one head of 256: the math path at
+    T = 2048, the bf16 D = 256 forward past it."""
+    _cuda_or_skip()
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import (
+        multi_head_attention,
+    )
+
+    gen = torch.Generator().manual_seed(13)
+    w = [(torch.randn(256, 256, generator=gen) * 0.05).to("cuda",
+                                                         torch.bfloat16)
+         for _ in range(3)]
+    bias = torch.zeros(256, device="cuda", dtype=torch.bfloat16)
+    for t, launched in ((2048, 0), (2100, 1)):
+        x = torch.randn(2, t, 256, generator=gen).to("cuda", torch.bfloat16)
+        mask = torch.zeros(2, t, dtype=torch.bool, device="cuda")
+        mask[1, t // 2:] = True
+        before = fa.bf16_d256_launch_count, _all_flash_counts()
+        out = multi_head_attention(x, w[0], bias, w[1], bias, w[2], bias, 1,
+                                   mask, impl="auto")
+        assert out.dtype == torch.bfloat16
+        assert fa.bf16_d256_launch_count == before[0] + launched
+        assert sum(_all_flash_counts()) == sum(before[1]) + launched
 
 
 def _preprocess(root, tg_root, raw, name, device):
