@@ -16,7 +16,8 @@ Phases:
      memory and spill lines and the flash kernels' dynamic shared memory
      and tile widths; for the bf16 forward and backward kernels also the
      registers of each warpgroup role (setmaxnreg), the ring stages and
-     the waves of blocks at the timed shapes;
+     the waves of blocks at the timed shapes; for the float32 backward at
+     D = 256 its registers, shared memory and cluster shape;
      the tensor-core kernels (MRF, flash forward, flash backward dQ and
      dK/dV) must not spill, and no wgmma may be serialized; the bf16
      kernels must be given at launch the registers their setmaxnreg split
@@ -224,9 +225,10 @@ Phases:
      (chunks of 2, evaluations and rank-0 samples inside the run: the
      train graphs kept across each sample), its checkpoint and its flash
      launches. The ranks' flash launches join the ``kernels`` line's.
-     The 1-rank configuration again, and at B = 4 with grad_acc_step 2
-     over the 2-rank run's row halves: their parameters' change against
-     the first 1-rank run's, read and printed;
+     Gradient accumulation: 1 rank at B = 4 with grad_acc_step 2 over the
+     2-rank run's row halves, its parameters bit-equal through each
+     update's first micro-step, 6 updates, 2 flash launches a block an
+     update, and moved; its change against the 1-rank run's printed;
   14. the compiled steps, CUDA graphs against the eager bodies from the
      same weights and state, at ``Config()`` width: ``synthesize`` short
      (4 utterances, mel bucket 250) and long-form (``max_mel_len=4096``)
@@ -297,10 +299,14 @@ Phases:
      "flash".
   16. flash attention at head dims other than 128, on "h1d256" (Config()
      with one encoder and one decoder head: D = 256 at the parameters'
-     shapes of Config()): (a) the float32 forward, dQ and dK/dV kernels at
-     D = 256 (csrc/flash_mha_d256.cu) against their plain versions at
-     phases 2b's and 2d's cases with H = 1 and their bounds (also against
-     float64), each call on the D = 256 kernels and no other; at D = 64,
+     shapes of Config()): (a) the float32 forward at D = 256
+     (csrc/flash_mha_d256.cu, CUDA cores) and the dQ and dK/dV kernels
+     (csrc/flash_mha_bwd_d256.cu, 3xTF32 wgmma in clusters of two blocks)
+     against their plain versions at phases 2b's and 2d's cases with H = 1
+     and their bounds (also against float64), each call on the D = 256
+     kernels and no other; the backward pair on an exact layout witness
+     (two-hot P from a given lse, small integers: dq, dk, dv equal to
+     float64) and a row of one valid key (dq and dk exactly 0); at D = 64,
      the six D = 128 kernels on zero-padded inputs at (4, 2, 1000, 64)
      against the plain versions at D = 64 (float32: phases 2b and 2d's
      bounds; bf16: phase 2e's); (b) h1d256 long-form synthesis
@@ -311,12 +317,15 @@ Phases:
      ``train()`` of h1d256 under "flash" for 20 steps on phase 5's corpus
      and recipe (graphed on the card), 10 launches of each D = 256 kernel
      a train step and none of the D = 128 kernels, against the same run
-     under "auto": the logged losses within phase 5's 1e-5 relative; (d)
-     times, each kernel call from a CUDA graph: the D = 256 forward at
+     under "auto": the logged losses within phase 5's 1e-5 relative; the
+     graphed train step of each at B = 4, bucket (128, 1000), in turns;
+     (d) times, each kernel call from a CUDA graph: the D = 256 forward at
      (4, 1, T, 256) for T = 2300 and 4096 and the backward pair at
      T = 1000 and 4096 against their bounds (TF32 rate over the live key
-     tiles, and the same flops at the float32 rate), plain versions and
-     SDPA in float32 with the same bool mask; D = 64 at (4, 2, 4096, 64)
+     tiles; the forward also the same flops at the float32 rate; TF/s and
+     the share of the bound), plain versions and SDPA in float32 with the
+     same bool mask, and the backward pair beside the D = 128 pair at the
+     same H·D (4, 2, T, 128); D = 64 at (4, 2, 4096, 64)
      through the padding against the D = 128 kernel on inputs padded
      beforehand and SDPA.
   17. the bf16 flash kernels at D = 256 (csrc/flash_mha_bf16_d256.cu, the
@@ -523,7 +532,7 @@ SETMAXNREG_KERNELS = {
     **{f"flash_mha_{k}_bf16_d256_kernel": ("flash_mha_bf16_d256",
                                            "flash_mha_bf16_d256")
        for k in ("fwd", "bwd_dq", "bwd_dkv")}}
-# The tensor-core kernels and the float32 flash kernels at D = 256 (CUDA
+# The tensor-core kernels and the float32 flash forward at D = 256 (CUDA
 # cores), which must compile without spills.
 TC_KERNELS = ("mrf_conv_tc_kernel", "mrf_conv_f32_tc_kernel",
               "flash_mha_fwd_kernel",
@@ -586,12 +595,30 @@ def phase_environment(smoke: Smoke):
           f"bytes a block, {bwd.flash_mha_bwd_block_rows()} keys, "
           f"{bwd.flash_mha_bwd_stream_tile()}-query tiles")
     d256 = build.load("flash_mha_d256")
-    print(f"  flash_mha_fwd_d256_kernel, flash_mha_bwd_dq_d256_kernel, "
-          f"flash_mha_bwd_dkv_d256_kernel: "
-          f"{[d256.flash_mha_d256_smem_bytes(i) for i in range(3)]} bytes "
-          f"of dynamic shared memory a block, 256 threads, "
-          f"{d256.flash_mha_d256_key_tile()}-key tiles (the dK/dV kernel's "
-          f"keys a block), 64 query rows")
+    print(f"  flash_mha_fwd_d256_kernel (CUDA cores): "
+          f"{d256.flash_mha_d256_smem_bytes()} bytes of dynamic shared "
+          f"memory a block, 256 threads, {d256.flash_mha_d256_key_tile()}-key"
+          f" tiles, 64 query rows")
+    bwd256 = build.load("flash_mha_bwd_d256")
+    regs256 = {}
+    for line in build.ptxas_report("flash_mha_bwd_d256").splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        elif "Used" in line and "registers" in line:
+            for k in ("flash_mha_bwd_dq_d256_kernel",
+                      "flash_mha_bwd_dkv_d256_kernel"):
+                if k in current:
+                    regs256[k] = int(line.split("Used")[1].split()[0])
+    smem256 = [bwd256.flash_mha_bwd_d256_smem_bytes(i) for i in range(2)]
+    print(f"  flash_mha_bwd_dq_d256_kernel, flash_mha_bwd_dkv_d256_kernel "
+          f"(3xTF32 wgmma): {smem256} bytes of dynamic shared memory a "
+          f"block, 256 threads (two "
+          f"consumer warpgroups), registers a thread {regs256}; clusters of "
+          f"{bwd256.flash_mha_bwd_d256_cluster()} blocks (one a 128-column "
+          f"chunk of the head dim, partial S and dP swapped through "
+          f"distributed shared memory), "
+          f"{bwd256.flash_mha_bwd_d256_block_rows()} resident rows, "
+          f"{bwd256.flash_mha_bwd_d256_key_tile()}-row streamed tiles")
     wide16 = build.load("flash_mha_bf16_d256")
     print(f"  flash_mha_fwd_bf16_d256_kernel, flash_mha_bwd_dq_bf16_d256_"
           f"kernel, flash_mha_bwd_dkv_bf16_d256_kernel: "
@@ -1853,7 +1880,7 @@ def flash_bwd_bounds_ms(mask, kernel: str, h: int = 2, d: int = 128,
     the 32-key tiles with a valid key (a padded key adds nothing), which is
     this run's ``bound_ms``; "dense" every key. The tile is the dQ
     kernel's key tile (``flash_mha_bwd_stream_tile``, or
-    ``flash_mha_d256_key_tile`` for ``lib="flash_mha_d256"``)."""
+    ``flash_mha_bwd_d256_key_tile`` for ``lib="flash_mha_bwd_d256"``)."""
     import torch
 
     from expressive_fastspeech2_mandarin_tpu_torch.kernels import build
@@ -4684,7 +4711,9 @@ def dp_worker(spec_path: str) -> int:
     DP_STEPS train steps by hand over the row-sharded batches (evaluation
     before and after, each step timed; with ``grad_acc_step`` k in the
     spec, one process takes each batch as k micro-steps over its row
-    slices, the slices the ranks of a k-rank run take), then, on more than
+    slices, the slices the ranks of a k-rank run take, and reads whether
+    the parameters stayed bit-equal through each update's first k - 1
+    micro-steps and the optimizer's count of updates), then, on more than
     one rank, times
     the gradients' all-reduce alone on tensors of their sizes; ``nccl``
     runs ``train()`` graphed in a world of one over NCCL (chunks, an
@@ -4775,7 +4804,7 @@ def dp_worker(spec_path: str) -> int:
         if layout is not None:
             broadcast_state(state)
         torch.save(flat_params(state), spec["result"] + ".p0")
-        losses, ms, shapes = [], [], set()
+        losses, ms, shapes, held = [], [], set(), []
         eval0 = loop.evaluate(loop.make_eval_step(state, cfg), val_ds,
                               device)
         epoch = 0
@@ -4787,11 +4816,21 @@ def dp_worker(spec_path: str) -> int:
                     device, tc.transfer_dtype) for i in range(acc)]
                 shapes.add((raw["texts"].shape[1],
                             raw["mels"].shape[1], rows))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                totals = [train_step(state, b, cfg).total for b in parts]
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
+                before = ([p.detach().clone()
+                           for p in state.model.parameters()]
+                          if acc > 1 else [])
+                totals, step_ms = [], 0.0
+                for i, b in enumerate(parts):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    totals.append(train_step(state, b, cfg).total)
+                    torch.cuda.synchronize()
+                    step_ms += (time.perf_counter() - t0) * 1e3
+                    if i < acc - 1:  # outside the timed micro-steps
+                        held.append(all(torch.equal(p, q) for p, q in zip(
+                            state.model.parameters(), before)))
+                del before
+                ms.append(step_ms)
                 losses.append(sum(float(x) for x in totals) / acc)
                 if len(losses) == DP_STEPS:
                     break
@@ -4809,7 +4848,9 @@ def dp_worker(spec_path: str) -> int:
                 torch.cuda.synchronize()
                 reduce_ms.append((time.perf_counter() - t0) * 1e3)
         result.update(losses=losses, ms=ms, reduce_ms=reduce_ms,
-                      eval0=eval0, eval=evals,
+                      eval0=eval0, eval=evals, held=held,
+                      updates=int(state.optimizer.count),
+                      mini_step=int(state.optimizer.mini_step),
                       shapes=sorted(shapes),
                       host_rows=train_ds.host_rows(0))
     params = list(state.model.parameters())
@@ -4875,8 +4916,8 @@ def dp_graphed(spec: dict, device, result: dict):
 
     # (b) The DP step graphed against eager, with the recipe's warm-up, as
     # phase 14 (whose bounds these are) takes it: past DP_WARM_UP's steps
-    # the eager step's float noise grows by chaos (phase 13's "1 rank
-    # again").
+    # the eager step's float noise grows by chaos (a repeated 1-rank run
+    # showed it).
     cfg = dp_config(spec["corpus"], spec["out"], DP_STEPS,
                     warm_up=DP_GRAPH_WARM_UP)
     tc = cfg.train
@@ -5177,12 +5218,10 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
         tmp = Path(tmp_dir)
         corpus = write_training_corpus(str(tmp / "corpus"), 0)
         runs = {}
-        # The 1-rank run again, and at the 2-rank run's shapes (B = 4 a
-        # micro-step, two an update), both at once: the noise in the
-        # parameters' change.
+        # Gradient accumulation: 1 rank, B = 4 a micro-step (the 2-rank
+        # run's row slices), two micro-steps an update.
         for groups in ({"one": (1, {})}, {"two": (2, {})},
-                       {"again": (1, {}),
-                        "acc2": (1, {"grad_acc_step": 2})}):
+                       {"acc2": (1, {"grad_acc_step": 2})}):
             t0 = time.perf_counter()
             runs.update(dp_runs(tmp, "steps", groups, corpus, root))
             for name, (n, _) in groups.items():
@@ -5232,8 +5271,7 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
                         f"{p_rel:.2e} (bound {DP_PARAM_RTOL:.0e}); "
                         f"evaluation at the initial parameters rel diff "
                         f"{e_rel:.2e} (bound {DP_EVAL_RTOL:.0e})")
-            names = [k for k in ("one_0", "two_0", "again_0", "acc2_0")
-                     if runs[k.split("_")[0]]]
+            names = ["one_0", "two_0"] + ["acc2_0"] * bool(runs["acc2"])
             flat = {(k, v): torch.load(
                 tmp / f"{k}.result.json.{v}").double()
                 for k in names for v in ("p0", "p1")}
@@ -5242,16 +5280,6 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
             move = float(d1.norm() / p0.norm())
             d_rel = float((flat["two_0", "p1"] - flat["one_0", "p1"]).norm()
                           / d1.norm())
-            for k, what in (("again_0", "1 rank again"),
-                            ("acc2_0", "1 rank, B = 4 a micro-step, "
-                             "grad_acc_step 2 (masks drawn per micro-step, "
-                             "the loss a mean of the halves' means)")):
-                if (k, "p1") in flat:
-                    r = float((flat[k, "p1"] - flat["one_0", "p1"]).norm()
-                              / d1.norm())
-                    print(f"  ||d - d1|| / ||d1||, {what}: {r:.3e}; losses "
-                          f"{runs[k.split('_')[0]][0]['losses']} against "
-                          f"{one['losses']} [{card}]", flush=True)
             smoke.check(torch.equal(flat["two_0", "p0"], p0)
                         and move >= DP_MIN_MOVE and d_rel <= DP_DELTA_RTOL,
                         f"the parameters' change over {DP_STEPS} steps: "
@@ -5259,6 +5287,36 @@ def phase_data_parallel(smoke: Smoke, device, root: Path):
                         f"{DP_MIN_MOVE:.0e}); 2 ranks against 1 "
                         f"||d2 - d1|| / ||d1|| = {d_rel:.3e} (bound "
                         f"{DP_DELTA_RTOL:.0e}); the same initial parameters")
+            if runs["acc2"]:
+                (acc2,) = runs["acc2"]
+                d_acc = flat["acc2_0", "p1"] - p0
+                a_move = float(d_acc.norm() / p0.norm())
+                a_rel = float((d_acc - d1).norm() / d1.norm())
+                want = [n_blocks * (2 * DP_STEPS + forwards - DP_STEPS),
+                        2 * n_blocks * DP_STEPS, 2 * n_blocks * DP_STEPS]
+                smoke.check(torch.equal(flat["acc2_0", "p0"], p0)
+                            and acc2["held"] == [True] * DP_STEPS
+                            and acc2["updates"] == DP_STEPS
+                            and acc2["mini_step"] == 0
+                            and acc2["flash"] == want
+                            and acc2["shapes"] == [[*DP_BUCKET,
+                                                    DP_BATCH // 2]]
+                            and all(map(math.isfinite, acc2["losses"]))
+                            and a_move >= DP_MIN_MOVE,
+                            f"grad_acc_step 2, 1 rank, B = "
+                            f"{DP_BATCH // 2} a micro-step: parameters "
+                            f"bit-equal through each update's first "
+                            f"micro-step {acc2['held']}; "
+                            f"{acc2['updates']} updates of {DP_STEPS} "
+                            f"batches, mini_step {acc2['mini_step']}; flash "
+                            f"launches {acc2['flash']} (expected {want}); "
+                            f"||d|| / ||p0|| = {a_move:.3e} (at least "
+                            f"{DP_MIN_MOVE:.0e}); losses {acc2['losses']}; "
+                            f"||d - d1|| / ||d1|| = {a_rel:.3e}, printed "
+                            f"only (BatchNorm's moments over 4 rows, masks "
+                            f"drawn per micro-step, the loss a mean of the "
+                            f"halves' means) [{card}]")
+                del d_acc
             del flat, p0, d1
             r0, r1 = two[0]["host_rows"], two[1]["host_rows"]
             smoke.check(not set(r0) & set(r1)
@@ -6843,7 +6901,8 @@ def phase_deep_times(smoke: Smoke, device):
 # Phase 16: flash attention at head dims other than 128. "h1d256" is
 # Config() with one encoder and one decoder head, so D = 256 in every FFT
 # block at the parameters' shapes of Config(); its attention runs on the
-# float32 kernels at D = 256 (csrc/flash_mha_d256.cu, the CUDA cores). A
+# float32 kernels at D = 256 (the forward csrc/flash_mha_d256.cu, on the
+# CUDA cores; the backward csrc/flash_mha_bwd_d256.cu, on 3xTF32 wgmma). A
 # head dim under 128 runs on the D = 128 kernels of its dtype, zero-padded.
 
 D256 = 256
@@ -6950,7 +7009,78 @@ def phase_d256_d64_vs_plain(smoke: Smoke):
             f"{lse_rel:.3e}; launches "
             f"{counts} (expected {want})")
         del q, k, v, mask, dout, out, lse, grads, ref, refs
+    phase_d256_bwd_exact(smoke)
     return worst_fwd, worst_dq, worst_dkv
+
+
+def bwd_formulas(q, k, v, mask, out, dout, lse, scale):
+    """(dq, dk, dv) of the backward's formulas from a given lse (not the
+    forward's), in the inputs' dtype: P = exp(s - lse), 0 at padded keys;
+    dS = P (dO vᵀ - Δ), Δ = rowsum(dO ∘ out)."""
+    import torch
+
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill(mask[:, None, None, :],
+                                                  0.0)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dout, v.transpose(-1, -2)) - delta)
+    return (torch.matmul(ds, k) * scale,
+            torch.matmul(ds.transpose(-1, -2), q) * scale,
+            torch.matmul(p.transpose(-1, -2), dout))
+
+
+def phase_d256_bwd_exact(smoke: Smoke) -> None:
+    """16a: the float32 backward pair at D = 256 where its result is exact.
+    (1) The layout witness at T = 300 (not a multiple of the 32-row tile or
+    the 64-key block; row 1's 150 valid keys leave the blocks [192, 256)
+    and [256, 300) wholly padded), H = 1, sm_scale 1, given lse = 1024 and
+    an out in {-1, 0, 1}: P is 1 at each query's two keys and exp(-1024) =
+    0 elsewhere, so every product and sum is an integer that TF32's hi part
+    and float32 hold exactly, and dq, dk, dv must equal float64's formulas
+    bit for bit, which a wrong chunk, cluster half, swizzle or transpose
+    would not. (2) A row with one valid key: out is that key's v, dP - Δ is
+    0 in exact arithmetic, and the pair (Δ formed as dP is) leaves dq and
+    dk of that row exactly 0. Each call launches the D = 256 pair once."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    q, k, v, dout, mask = layout_witness(300, (300, 150), d=D256)
+    q, k, v, dout = (x[:, :1].contiguous() for x in (q, k, v, dout))
+    gen = torch.Generator().manual_seed(22)
+    out = torch.randint(-1, 2, q.shape, generator=gen).double()
+    lse = torch.full(q.shape[:-1], 1024.0, dtype=torch.float64)
+    want = bwd_formulas(q, k, v, mask, out, dout, lse, 1.0)
+    args = [x.to("cuda", torch.float32) for x in (q, k, v)] + [
+        mask.to("cuda")] + [x.to("cuda", torch.float32)
+                            for x in (out, dout, lse)]
+    before = flash_all_counts()
+    got = fa._flash_mha_bwd_cuda(*args, 1.0)
+    counts = tuple(a - b for a, b in zip(flash_all_counts(), before))
+    exact = [torch.equal(g.double().cpu(), w) for g, w in zip(got, want)]
+    zero = all(torch.count_nonzero(g[1, :, 150:]).item() == 0
+               for g in got[1:])
+    smoke.check(all(exact) and zero and counts == (0,) * 7 + (1, 1)
+                + (0,) * 3 and float(want[1].abs().max()) > 1,
+                f"D = 256 backward layout witness (2, 1, 300, 256), two-hot "
+                f"P, lse given: dq, dk, dv equal to float64 {exact}, the "
+                f"wholly padded key blocks' dk, dv zero {zero}; launches "
+                f"{counts}")
+
+    q, k, v, mask = flash_inputs(2, 300, prefixes(1, 211), gen, 1, D256)
+    dout = torch.randn(q.shape, generator=gen).to("cuda")
+    scale = D256 ** -0.5
+    out, lse = fa._flash_mha_cuda(q, k, v, mask, scale, with_lse=True)
+    dq, dk, _ = fa._flash_mha_bwd_cuda(q, k, v, mask, out, dout, lse, scale)
+    nonzero = (torch.count_nonzero(dq[0]).item(),
+               torch.count_nonzero(dk[0]).item())
+    plain = fa.flash_mha_bwd_plain(q, k, v, mask, out, dout, scale)
+    smoke.check(nonzero == (0, 0),
+                f"D = 256 backward, a row of one valid key (2, 1, 300, 256): "
+                f"non-zero dq, dk {nonzero} (Δ formed as dP is: exactly 0; "
+                f"float32 plain's dk there "
+                f"{torch.count_nonzero(plain[1][0]).item()} non-zero, max "
+                f"{plain[1][0].abs().max().item():.2e})")
 
 
 def phase_h1d256_synthesis(smoke: Smoke, device) -> int:
@@ -7061,18 +7191,29 @@ def phase_h1d256_training(smoke: Smoke, device) -> tuple[int, int, int]:
     each D = 256 kernel once an FFT block and no other flash kernel, each
     eval and synth step the D = 256 forward once a block; the logged losses
     against the same run under "auto" (the math path at these lengths)
-    within phase 5's bound. Returns the run's D = 256 launches."""
+    within phase 5's bound; then the graphed train step of each at B = 4,
+    bucket (128, 1000), in turns. Returns the run's D = 256 launches."""
+    import numpy as np
     import torch
 
-    from expressive_fastspeech2_mandarin_tpu_torch.train import train
+    from expressive_fastspeech2_mandarin_tpu_torch.train import (
+        create_train_state,
+        train,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.loop import (
+        stage_batch,
+    )
+    from expressive_fastspeech2_mandarin_tpu_torch.train.step import (
+        make_train_step,
+    )
 
     card = nvidia_smi_line()
-    losses, totals = {}, None
+    losses, totals, cfgs = {}, None, {}
     with tempfile.TemporaryDirectory() as tmp:
         corpus = write_training_corpus(os.path.join(tmp, "corpus"), 0)
         for impl in ("flash", "auto"):
             out = os.path.join(tmp, impl)
-            cfg = h1d256(training_config(corpus, out, impl))
+            cfg = cfgs[impl] = h1d256(training_config(corpus, out, impl))
             t = cfg.model.transformer
             n_blocks = t.encoder_layer + t.decoder_layer
             bf16_before = bf16_counts() + bf16_d256_counts()
@@ -7106,6 +7247,34 @@ def phase_h1d256_training(smoke: Smoke, device) -> tuple[int, int, int]:
                 f"{losses['flash']} vs 'auto' {losses['auto']}: relative "
                 f"differences {[f'{x:.2e}' for x in rel]} (bound "
                 f"{LOSS_REL_BOUND:.0e})")
+
+    # The graphed train step of each at phase 6's batch, in turns.
+    b, s, t = TRAIN_TIMED
+    batch = stage_batch(synthetic_train_batch(b, s, t, seed=5), device)
+    steps, ms, counts = {}, {}, {}
+    for impl, cfg in cfgs.items():
+        state = create_train_state(cfg, None, device)
+        steps[impl] = (state, make_train_step(state, cfg))
+        ms[impl] = []
+    for _ in range(3):
+        for _, step in steps.values():
+            step(batch)
+    for _ in range(GRAPH_TUNED_STEPS):
+        for impl, (_, step) in steps.items():
+            ms[impl].append(synced_ms(lambda: step(batch)))
+    for impl, (_, step) in steps.items():
+        before = d256_counts()
+        step(batch)
+        counts[impl] = tuple(a - b for a, b in zip(d256_counts(), before))
+    print("  " + f"h1d256 float32 train step graphed, B = {b}, bucket "
+          f"({s}, {t}), {GRAPH_TUNED_STEPS} steps after 3, in turns: "
+          + "; ".join(f"{k} median {float(np.median(v)):.3f} ms "
+                      f"({min(v):.3f}-{max(v):.3f}), D = 256 launches "
+                      f"{counts[k]}" for k, v in ms.items())
+          + f"; 'flash' / 'auto' "
+          f"{float(np.median(ms['flash'])) / float(np.median(ms['auto'])):.3f}"
+          f" [{card}]", flush=True)
+    del steps, batch
     return totals
 
 
@@ -7175,18 +7344,39 @@ def phase_d256_times(smoke: Smoke):
             o, (qs, ks, vs), dout, retain_graph=True), 10)
         line = []
         for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
-            bd = flash_bwd_bounds_ms(mask, name, 1, D256, "flash_mha_d256")
+            bd = flash_bwd_bounds_ms(mask, name, 1, D256,
+                                     "flash_mha_bwd_d256")
+            flops = ({"dq": 6, "dkv": 8}[name] * t * bd["tile"]
+                     * bd["live_tiles"] * D256)
             rows.setdefault(name, {
                 "shape": f"(4, 1, {t}, 256) float32, key lengths {lens}",
                 "ms": ms, "plain_ms": plain, "bound_ms": bd["live"],
                 "bound_by": bd["bound_by"], "library_ms": lib})
-            line.append(f"{name} kernel {ms:.4f} ms (bound {bd['live']:.4f}"
-                        f" live, {bd['dense']:.4f} dense)")
+            line.append(f"{name} kernel {ms:.4f} ms ({flops / ms / 1e9:.1f}"
+                        f" TF/s over the live tiles, {bd['live'] / ms:.3f} "
+                        f"of the bound; bound {bd['live']:.4f} live, "
+                        f"{bd['dense']:.4f} dense)")
+        # The D = 128 pair at the same H·D and mask: a block of it does the
+        # work of a D = 256 block without the cluster's exchange.
+        q2, k2, v2, dout2 = (torch.randn(4, 2, t, 128, generator=gen).to(
+            "cuda") for _ in range(4))
+        out2, lse2 = fa._flash_mha_cuda(q2, k2, v2, mask, 128 ** -0.5,
+                                        with_lse=True)
+        _, delta2 = fa._flash_mha_bwd_dq_cuda(q2, k2, v2, mask, out2, dout2,
+                                              lse2, 128 ** -0.5)
+        dq2_ms = graph_time_ms(lambda: fa._flash_mha_bwd_dq_cuda(
+            q2, k2, v2, mask, out2, dout2, lse2, 128 ** -0.5))[0]
+        dkv2_ms = graph_time_ms(lambda: fa._flash_mha_bwd_dkv_cuda(
+            q2, k2, v2, mask, dout2, lse2, delta2, 128 ** -0.5))[0]
         print(f"  flash_mha backward float32 D = 256 (4, 1, {t}, 256), key "
-              f"lengths {lens}: " + ", ".join(line) + f" ({how}); plain "
+              f"lengths {lens}, flash_mha_bwd_d256.cu: " + ", ".join(line)
+              + f" ({how}); the pair {dq_ms + dkv_ms:.4f} ms; the D = 128 "
+              f"pair at the same H·D, (4, 2, {t}, 128): dq {dq2_ms:.4f}, dkv"
+              f" {dkv2_ms:.4f}, the pair {dq2_ms + dkv2_ms:.4f} ms; plain "
               f"backward {plain:.4f} ms; SDPA backward {lib:.4f} ms "
               f"[{card}]", flush=True)
         del q, k, v, mask, dout, out, lse, delta, qs, ks, vs, o
+        del q2, k2, v2, dout2, out2, lse2, delta2
     # D = 64: the padding's cost, at (4, 2, 4096, 64).
     b, t, case_rows = D64_TIMED
     q, k, v, mask = flash_inputs(b, t, case_rows, gen, 2, 64)
@@ -7749,15 +7939,15 @@ def main(argv=None) -> int:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": f"{PKG}/csrc/flash_mha_d256.cu",
+        "source": f"{PKG}/csrc/{source}.cu",
         "replaces": replaces,
         **head_dims[key],
-    } for name, key, replaces in (
-        ("flash_mha_d256", "fwd",
+    } for name, key, source, replaces in (
+        ("flash_mha_d256", "fwd", "flash_mha_d256",
          "jax/experimental/pallas/ops/tpu/flash_attention.py:589"),
-        ("flash_mha_bwd_dq_d256", "dq",
+        ("flash_mha_bwd_dq_d256", "dq", "flash_mha_bwd_d256",
          "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
-        ("flash_mha_bwd_dkv_d256", "dkv",
+        ("flash_mha_bwd_dkv_d256", "dkv", "flash_mha_bwd_d256",
          "jax/experimental/pallas/ops/tpu/flash_attention.py:941"))] + [{
         "name": name,
         "route": "cuda",

@@ -88,6 +88,9 @@
 //     exactly 0;
 //   * ragged T needs no padding; offsets are 64-bit; exp is the accurate
 //     expf.
+// The block's constants, loads, products and stores are in
+// csrc/tf32_flash_bwd.cuh, which the D = 256 backward
+// (csrc/flash_mha_bwd_d256.cu) shares.
 //
 // Layouts: q, k, v, out, dout, dq, dk, dv (B, H, T, 128) float32,
 // contiguous, 16-byte aligned; mask (B, T) bytes, nonzero at padded keys;
@@ -95,302 +98,26 @@
 
 #include <math_constants.h>
 
-#include "tf32_wgmma.cuh"
+#include "tf32_flash_bwd.cuh"
 
 namespace {
 
-using namespace sm90;
-using namespace tf32x3;
+using namespace tf32_bwd;
 
-constexpr int kD = 128;                      // head dim
-constexpr int kRows = 64;                    // resident rows per block
-constexpr int kTile = 32;                    // rows per streamed tile
-constexpr int kWarpgroup = 128;
-constexpr int kThreads = 2 * kWarpgroup;     // two consumer warpgroups
-constexpr int kSteps = kD / 8;               // k-steps of S and dP
-constexpr int kChain = 4;                    // k-steps per fresh S/dP chain
-// A resident tile: four chunks of 32 columns, 64 rows each, raw.
-constexpr uint32_t kResChunk = kRows * 128;
-constexpr uint32_t kResTile = 4 * kResChunk;
-// A streamed tile: four chunks of 32 columns, each 32 hi rows then 32 lo
-// rows (4096 B apart), which one m64n64 B operand reads together.
-constexpr uint32_t kStChunk = 2 * kTile * 128;
-constexpr uint32_t kStLo = kTile * 128;
-constexpr uint32_t kStTile = 4 * kStChunk;
-constexpr uint32_t kStage = 2 * kStTile;     // two streamed operands
-// A staged operand part: 64 rows x 32 columns, one swizzled chunk.
-constexpr uint32_t kAccPart = kRows * 128;
-constexpr uint32_t kOffRes = 0;              // two resident operands
-constexpr uint32_t kOffStage = 2 * kResTile;  // [stage]
-constexpr uint32_t kOffAcc = kOffStage + 2 * kStage;
-// dQ: dS hi, lo; P raw; Δ of the rows; the key words.
+constexpr int kD = kCols;                    // head dim
+// dQ: dS hi, lo; P raw; Δ of the rows; the key words; the key bits of the
+// first kMapTiles key tiles.
 constexpr uint32_t kDqOffP = kOffAcc + 2 * kAccPart;
 constexpr uint32_t kDqOffDelta = kDqOffP + kRows * kTile * 4;
 constexpr uint32_t kDqOffBar = kDqOffDelta + kRows * 4;
 constexpr uint32_t kDqOffWords = kDqOffBar + 2 * 8;
-// The key bits of the first kMapTiles key tiles, read once at the start.
-constexpr int kMapTiles = 2048;
 constexpr uint32_t kDqOffMap = kDqOffWords + 16;
 constexpr size_t kDqSmemBytes = kDqOffMap + kMapTiles * 4 + 1024;
-// dK/dV: P^T hi, lo, dS^T hi, lo; lse and Δ of each stage's queries.
-constexpr uint32_t kDkvOffStats = kOffAcc + 4 * kAccPart;
-constexpr uint32_t kDkvOffBar = kDkvOffStats + 2 * 2 * kTile * 4;
-constexpr size_t kDkvSmemBytes = kDkvOffBar + 2 * 8 + 1024;
-static_assert(kDqSmemBytes <= 232448 && kDkvSmemBytes <= 232448,
+static_assert(kDqSmemBytes <= 232448,
               "more shared memory than a block may use");
-
-__device__ __forceinline__ uint32_t loaded_bar(uint32_t bars, int s) {
-  return bars + 8 * s;
-}
-
-// Both streamed tiles of stage `dst` (hi rows of each chunk), by TMA.
-__device__ __forceinline__ void load_stage(const CUtensorMap* tm0,
-                                           const CUtensorMap* tm1, int row,
-                                           int bh, uint32_t dst,
-                                           uint32_t bar) {
-  mbar_expect_tx(bar, 2 * kTile * kD * 4);
-  for (int c = 0; c < kD / 32; ++c) {
-    tma_load_3d(dst + c * kStChunk, tm0, 32 * c, row, bh, bar);
-    tma_load_3d(dst + kStTile + c * kStChunk, tm1, 32 * c, row, bh, bar);
-  }
-}
-
-// Threads [0, n): a landed stage's two tiles split in place, hi rows
-// rewritten, lo rows 32 rows further (same swizzle).
-template <int n>
-__device__ __forceinline__ void split_stage(uint8_t* stage, int tid) {
-  constexpr int kPerTile = kTile * kD / 4;  // float4 of one part
-#pragma unroll
-  for (int f = tid; f < 2 * kPerTile; f += n) {
-    const int x = f % kPerTile;
-    uint8_t* hi = stage + (f / kPerTile) * kStTile +
-                  (x / (kStLo / 16)) * kStChunk + 16 * (x % (kStLo / 16));
-    store_split4(hi, hi + kStLo, *reinterpret_cast<const float4*>(hi));
-  }
-  fence_proxy_async();
-}
-
-// Rows [r0, r0 + 64) of one head's (T, 128) matrix, raw, zero past T, into
-// a resident tile (all threads).
-__device__ __forceinline__ void load_resident(uint8_t* dst, const float* src,
-                                              int r0, int t_len) {
-  for (int f = threadIdx.x; f < kRows * kD / 4; f += kThreads) {
-    const int r = f >> 5, c4 = f & 31;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < t_len)
-      x = *reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * kD +
-                                           4 * c4);
-    *reinterpret_cast<float4*>(dst + (c4 >> 3) * kResChunk +
-                               sw128(r, c4 & 7)) = x;
-  }
-}
-
-// out (64 x 32, m64n32 layout) = A B^T over D = 128: A the resident tile
-// (raw; each fragment split in registers), B the streamed tile at shared
-// address `b` ([hi; lo] per chunk). Four TF32 products as two m64n64k8
-// a k-step, each with both parts of B as its 64 columns: A hi times
-// [B hi; B lo] into `hi` (hi*hi in columns 0..31, hi*lo in 32..63), A lo
-// times [B hi; B lo] into `lo`. Each chain of kChain k-steps starts fresh
-// and is summed in software, small products first; then the chains. (out
-// starts at 0 and takes every chain's sum: ptxas returned wrong sums when
-// the first chain's sum defined it.)
-__device__ __forceinline__ void rows_product(float (&out)[16],
-                                             float (&hi)[32], float (&lo)[32],
-                                             const uint8_t* a, uint32_t b) {
-#pragma unroll
-  for (int c = 0; c < 16; ++c) out[c] = 0.f;
-#pragma unroll
-  for (int c0 = 0; c0 < kSteps; c0 += kChain) {
-    uint32_t ahi[kChain][4], alo[kChain][4];
-#pragma unroll
-    for (int i = 0; i < kChain; ++i) {
-      load_split_frag<false>(ahi[i], alo[i], a, 0, 8 * (c0 + i), kResChunk);
-      fence_operands(ahi[i]);
-      fence_operands(alo[i]);
-    }
-    wgmma_fence();
-    fence_operands(hi);
-    fence_operands(lo);
-#pragma unroll
-    for (int i = 0; i < kChain; ++i) {
-      const int kk = c0 + i;
-      const uint64_t bk =
-          desc_sw128(b + (kk >> 2) * kStChunk + (kk & 3) * 32);
-      wgmma_m64n64k8_rs(lo, alo[i], bk, i);
-      wgmma_m64n64k8_rs(hi, ahi[i], bk, i);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(hi);
-    fence_operands(lo);
-#pragma unroll
-    for (int i = 0; i < kChain; ++i) {
-      fence_operands(ahi[i]);
-      fence_operands(alo[i]);
-    }
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      out[c] += ((lo[16 + c] + lo[c]) + hi[16 + c]) + hi[c];
-  }
-}
-
-// acc (64 x 64, m64n64 layout) += rows [64 half, 64 half + 64) of A^T B
-// over the 32 streamed rows: A the streamed tile at `a` ([hi; lo] per
-// chunk, read column-wise: A^T(m, k) = tile(k, 64 half + m)), B the staged
-// tile whose hi part is at shared address `b` and lo part at b + kAccPart
-// (rows n, columns k). Three products in a fresh accumulator (lo*hi and
-// hi*lo first), added to acc in software.
-__device__ __forceinline__ void cols_product(float (&acc)[32],
-                                             float (&fresh)[32],
-                                             const uint8_t* a, int half,
-                                             uint32_t b) {
-  uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_parts_frag<true>(ahi[kk], alo[kk], a, a + kStLo, 8 * kk, 64 * half,
-                          kStChunk);
-    fence_operands(ahi[kk]);
-    fence_operands(alo[kk]);
-  }
-  wgmma_fence();
-  fence_operands(fresh);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_m64n64k8_rs(fresh, alo[kk], desc_sw128(b + 32 * kk), kk);
-    wgmma_m64n64k8_rs(fresh, ahi[kk], desc_sw128(b + kAccPart + 32 * kk), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n64k8_rs(fresh, ahi[kk], desc_sw128(b + 32 * kk), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_operands(fresh);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    fence_operands(ahi[kk]);
-    fence_operands(alo[kk]);
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] += fresh[i];
-}
-
-// Byte offset in a staged 64 x 32 tile of accumulator register 4j + 2h + e
-// (row 16w + g + 8h, column 8j + 2t + e; w the warp in its warpgroup),
-// swizzled as a K-major B operand reads it.
-__device__ __forceinline__ uint32_t staged_offset(int j, int h) {
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  return sw128(16 * warp + 8 * h + (lane >> 2), 2 * j + ((lane & 3) >> 1)) +
-         8 * (lane & 1);
-}
-
-// The m64n32 accumulator x, split, into a staged tile (hi at `dst`, lo
-// kAccPart further).
-__device__ __forceinline__ void stage_parts(uint8_t* dst,
-                                            const float (&x)[16]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t off = staged_offset(j, h);
-      float2 hi, lo;
-      split(x[4 * j + 2 * h], hi.x, lo.x);
-      split(x[4 * j + 2 * h + 1], hi.y, lo.y);
-      *reinterpret_cast<float2*>(dst + off) = hi;
-      *reinterpret_cast<float2*>(dst + kAccPart + off) = lo;
-    }
-}
-
-// The values a stage_parts of the same thread wrote, as hi + lo.
-__device__ __forceinline__ void read_staged(float (&x)[16],
-                                            const uint8_t* src) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t off = staged_offset(j, h);
-      const float2 hi = *reinterpret_cast<const float2*>(src + off);
-      const float2 lo = *reinterpret_cast<const float2*>(src + kAccPart + off);
-      x[4 * j + 2 * h] = hi.x + lo.x;
-      x[4 * j + 2 * h + 1] = hi.y + lo.y;
-    }
-}
-
-// Rows [r0, r0 + 64), dims [64 half, 64 half + 64) of a (T, 128) output from
-// the running m64n64 accumulator (row m: dim 64 half + m; column n: the
-// output's row r0 + n), times scale; rows past T are not stored.
-__device__ __forceinline__ void store_transposed(float* dst,
-                                                 const float (&acc)[32],
-                                                 int half, int r0, int t_len,
-                                                 float scale) {
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = r0 + 8 * j + 2 * t4 + e;
-      if (r >= t_len) continue;
-      float* row = dst + (int64_t)r * kD + 64 * half + 16 * warp + g;
-      row[0] = acc[4 * j + e] * scale;
-      row[8] = acc[4 * j + 2 + e] * scale;
-    }
-}
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw, uint32_t& base) {
-  const uint32_t addr = smem_addr(raw);
-  base = (addr + 1023u) & ~1023u;
-  return raw + (base - addr);
-}
 
 // ---------------------------------------------------------------------------
 // The dQ kernel.
-
-// Key bits of tile i (bit c: key 32 i + c valid), one tile a thread.
-__device__ __forceinline__ uint32_t tile_bits(const uint8_t* mrow, int t_len,
-                                              int i) {
-  uint32_t bits = 0;
-#pragma unroll
-  for (int c = 0; c < kTile; ++c) {
-    const int key = i * kTile + c;
-    bits |= (uint32_t)(key < t_len && mrow[key] == 0) << c;
-  }
-  return bits;
-}
-
-// Warp 0: the next live key tile after tile `after` (one whose 32 keys are
-// not all padded) goes into stage s: its key bits into the stage's word,
-// K and V by TMA (lane 0). Past the last, a word of 0 and a bare arrival
-// end the stream. The first kMapTiles tiles' bits come from the map; past
-// it, from the mask. Returns the tile's index.
-__device__ __forceinline__ int next_key_tile(const CUtensorMap* tm_k,
-                                             const CUtensorMap* tm_v,
-                                             const uint8_t* mrow, int t_len,
-                                             int bh, int after, int s,
-                                             uint32_t base, uint32_t bars,
-                                             volatile uint32_t* words,
-                                             const uint32_t* map) {
-  const int lane = threadIdx.x & 31;
-  const int n_tiles = (t_len + kTile - 1) / kTile;
-  int i = after + 1;
-  uint32_t bits = 0;
-  for (; i < n_tiles; ++i) {
-    const int key = i * kTile + lane;
-    bits = i < kMapTiles ? map[i]
-                         : __ballot_sync(0xffffffffu,
-                                         key < t_len && mrow[key] == 0);
-    if (bits != 0) break;
-  }
-  if (lane == 0) {
-    words[s] = bits;
-    if (bits == 0)
-      mbar_arrive(loaded_bar(bars, s));  // the end: no tile follows
-    else
-      load_stage(tm_k, tm_v, i * kTile, bh, base + kOffStage + s * kStage,
-                 loaded_bar(bars, s));
-  }
-  __syncwarp();
-  return i;
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 flash_mha_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -432,13 +159,13 @@ flash_mha_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_k,
   __syncthreads();
   int tile = -1;
   if (warp == 0)
-    tile = next_key_tile(&tm_k, &tm_v, mrow, t_len, bh, tile, 0, base, bars,
-                         words, map);
+    tile = next_key_tile(&tm_k, &tm_v, mrow, t_len, 0, bh, tile, 0, base,
+                         bars, words, map);
 
   uint8_t* qs = smem + kOffRes;
   uint8_t* dos = qs + kResTile;
-  load_resident(qs, q + head * kD, q0, t_len);
-  load_resident(dos, dout + head * kD, q0, t_len);
+  load_resident<kD>(qs, q + head * kD, q0, 0, t_len);
+  load_resident<kD>(dos, dout + head * kD, q0, 0, t_len);
   // Δ of the block's rows, 8 a warp (32 lanes x float4 = 128 dims); rows
   // past T get 0 (their P is 0).
   for (int i = 0; i < kRows / 8; ++i) {
@@ -492,12 +219,12 @@ flash_mha_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_k,
     // P are free, and tile n is split.
     __syncthreads();
     if (warp == 0)
-      tile = next_key_tile(&tm_k, &tm_v, mrow, t_len, bh, tile, s ^ 1, base,
-                           bars, words, map);
+      tile = next_key_tile(&tm_k, &tm_v, mrow, t_len, 0, bh, tile, s ^ 1,
+                           base, bars, words, map);
     const uint32_t kst = base + kOffStage + s * kStage;
     float x[16];
     if (wg == 0) {
-      rows_product(x, hi, lo, qs, kst);  // S = Q K^T
+      rows_product<false>(x, hi, lo, qs, kst);  // S = Q K^T
       // P at (row 16 (warp % 4) + g + 8h, key 8j + 2 t4 + e).
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -511,7 +238,7 @@ flash_mha_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_k,
                     ? expf(x[c] * sm_scale - lse_r[h]) : 0.f;
           }
     } else {
-      rows_product(x, hi, lo, dos, kst + kStTile);  // dP = dO V^T
+      rows_product<false>(x, hi, lo, dos, kst + kStTile);  // dP = dO V^T
       mbar_wait(loaded_bar(bars, s ^ 1), ((n + 1) >> 1) & 1);
       if (words[s ^ 1] != 0)
         split_stage<kWarpgroup>(smem + kOffStage + (s ^ 1) * kStage, wtid);
@@ -527,35 +254,11 @@ flash_mha_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_k,
     __syncthreads();  // dS staged
     cols_product(dqt, fresh, stage, wg, base + kOffAcc);  // K^T dS^T
   }
-  store_transposed(dq + head * kD, dqt, wg, q0, t_len, sm_scale);
+  store_transposed<kD>(dq + head * kD, dqt, wg, 0, q0, t_len, sm_scale);
 }
 
 // ---------------------------------------------------------------------------
 // The dK/dV kernel.
-
-// Warp 0: query tile i into stage s: its lse and Δ by the lanes with
-// cp.async (0 past T, where Q and dO read as 0 too, so those queries add
-// exactly 0), counted on the stage's mbarrier; Q and dO by TMA (lane 0).
-__device__ __forceinline__ void load_query_tile(const CUtensorMap* tm_q,
-                                                const CUtensorMap* tm_do,
-                                                const float* lse,
-                                                const float* delta,
-                                                int t_len, int bh, int i,
-                                                int s, uint32_t base,
-                                                uint32_t bars) {
-  const int lane = threadIdx.x & 31;
-  const bool in = i * kTile + lane < t_len;
-  const int64_t r = (int64_t)bh * t_len + (in ? i * kTile + lane : 0);
-  const uint32_t dst = base + kDkvOffStats + (s * 2 * kTile + lane) * 4;
-  cp_async4(dst, lse + r, in ? 4 : 0);
-  cp_async4(dst + kTile * 4, delta + r, in ? 4 : 0);
-  cp_async_mbar_arrive(loaded_bar(bars, s));
-  __syncwarp();
-  if (lane == 0)
-    load_stage(tm_q, tm_do, i * kTile, bh, base + kOffStage + s * kStage,
-               loaded_bar(bars, s));
-  __syncwarp();
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 flash_mha_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -604,12 +307,13 @@ flash_mha_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (warp == 0)
-    load_query_tile(&tm_q, &tm_do, lse, delta, t_len, bh, 0, 0, base, bars);
+    load_query_tile(&tm_q, &tm_do, lse, delta, t_len, 0, bh, 0, 0, base,
+                    bars);
 
   uint8_t* ks = smem + kOffRes;
   uint8_t* vs = ks + kResTile;
-  load_resident(ks, k + head * kD, k0, t_len);
-  load_resident(vs, v + head * kD, k0, t_len);
+  load_resident<kD>(ks, k + head * kD, k0, 0, t_len);
+  load_resident<kD>(vs, v + head * kD, k0, 0, t_len);
   // This thread's keys: 16 (warp % 4) + g + 8h.
   bool valid[2];
 #pragma unroll
@@ -643,14 +347,14 @@ flash_mha_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     // staged P^T and dS^T are free, and tile n is split.
     __syncthreads();
     if (warp == 0 && n + 1 < n_tiles)
-      load_query_tile(&tm_q, &tm_do, lse, delta, t_len, bh, n + 1, s ^ 1,
-                      base, bars);
+      load_query_tile(&tm_q, &tm_do, lse, delta, t_len, 0, bh, n + 1,
+                      s ^ 1, base, bars);
     const uint32_t qst = base + kOffStage + s * kStage;
     const float* lse_s = stats + s * 2 * kTile;
     const float* dlt_s = lse_s + kTile;
     float x[16];
     if (wg == 0) {
-      rows_product(x, hi, lo, ks, qst);  // S^T = K Q^T
+      rows_product<false>(x, hi, lo, ks, qst);  // S^T = K Q^T
       // P^T at (key 16 (warp % 4) + g + 8h, query 8j + 2 t4 + e).
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -666,7 +370,7 @@ flash_mha_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       stage_parts(p_st, x);
       fence_proxy_async();
     } else {
-      rows_product(x, hi, lo, vs, qst + kStTile);  // dP^T = V dO^T
+      rows_product<false>(x, hi, lo, vs, qst + kStTile);  // dP^T = V dO^T
       if (n + 1 < n_tiles) {
         mbar_wait(loaded_bar(bars, s ^ 1), ((n + 1) >> 1) & 1);
         split_stage<kWarpgroup>(smem + kOffStage + (s ^ 1) * kStage, wtid);
@@ -695,14 +399,8 @@ flash_mha_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     cols_product(dkt, fresh, stage, wg,
                  base + kOffAcc + 2 * kAccPart);                    // Q^T dS
   }
-  store_transposed(dk + head * kD, dkt, wg, k0, t_len, sm_scale);
-  store_transposed(dv + head * kD, dvt, wg, k0, t_len, 1.f);
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  store_transposed<kD>(dk + head * kD, dkt, wg, 0, k0, t_len, sm_scale);
+  store_transposed<kD>(dv + head * kD, dvt, wg, 0, k0, t_len, 1.f);
 }
 
 }  // namespace

@@ -1,37 +1,31 @@
 // Masked multi-head attention at head dim 256 in float32 (flash attention):
-// the forward, the dQ kernel (with Δ) and the dK/dV kernel, written by hand
-// for Hopper (sm_90a) on the CUDA cores, with a plain C interface for ctypes.
+// the forward, written by hand for Hopper (sm_90a) on the CUDA cores, with a
+// plain C interface for ctypes. The backward at D = 256 is
+// csrc/flash_mha_bwd_d256.cu (TF32 tensor cores).
 //
-// Replaces, at D = 256, what csrc/flash_mha.cu and csrc/flash_mha_bwd.cu
-// replace at D = 128: the JAX package's
-// expressive_fastspeech2_mandarin_tpu/ops/pallas/flash_mha.py (flash_mha,
-// :53), which wraps JAX's stock TPU flash attention
+// Replaces, at D = 256, what csrc/flash_mha.cu replaces at D = 128: the JAX
+// package's expressive_fastspeech2_mandarin_tpu/ops/pallas/flash_mha.py
+// (flash_mha, :53), which wraps JAX's stock TPU flash attention
 // (jax/experimental/pallas/ops/tpu/flash_attention.py: the forward,
-// _flash_attention_impl :589, pallas_call at :758; the backward's
-// _flash_attention_bwd_dkv :941, pallas_call at :1121, and
-// _flash_attention_bwd_dq :1287, pallas_call at :1456). That kernel takes
-// any multiple of 128 as the head dim. The functions are those of the D = 128
-// kernels, whose notes give them in full: for each (batch b, head h), with
+// _flash_attention_impl :589, pallas_call at :758). That kernel takes any
+// multiple of 128 as the head dim. The function is the D = 128 kernel's,
+// whose note gives it in full: for each (batch b, head h), with
 // s_ij = (q_i . k_j) * sm_scale and s_ij = -inf where key j is padded,
 //     out_i = sum_j softmax_j(s_ij) v_j,   lse_i = log sum_j exp(s_ij)
-//     P_ij  = exp(s_ij - lse_i),  Δ_i = dO_i . out_i
-//     dS_ij = P_ij (dO_i . v_j - Δ_i)
-//     dq_i  = sm_scale sum_j dS_ij k_j,  dk_j = sm_scale sum_i dS_ij q_i,
-//     dv_j  = sum_i P_ij dO_i
 // in float32, 0 (and lse = +inf) for a row whose keys are all padded. Only
-// keys are masked, so every query row equals the plain versions
-// (ops/flash_mha.py: flash_mha_plain, flash_mha_bwd_plain).
+// keys are masked, so every query row equals the plain version
+// (ops/flash_mha.py: flash_mha_plain).
 //
-// Why the CUDA cores. The D = 128 kernels keep float32 accuracy on the TF32
-// tensor cores by splitting each operand into two TF32 parts, and the
-// split copies fill shared memory at D = 128 already (230 KB of 227 KB a
-// block; see their notes): at D = 256 each of those parts doubles. These
-// kernels multiply in float32 on the CUDA cores instead: one fused
-// multiply-add a term, rounded to nearest, which is what the plain versions
-// do with TF32 off. That is slower (the card's float32 rate is ~1/7 of its
-// TF32 rate) and right; a tensor-core layout at D = 256 is later work.
+// Why the CUDA cores. The D = 128 forward keeps float32 accuracy on the TF32
+// tensor cores by splitting each operand into two TF32 parts, and the split
+// copies fill shared memory at D = 128 already (230 KB of 227 KB a block;
+// see its note): at D = 256 each of those parts doubles. This kernel
+// multiplies in float32 on the CUDA cores instead: one fused multiply-add a
+// term, rounded to nearest, which is what the plain version does with TF32
+// off. That is slower (the card's float32 rate is ~1/7 of its TF32 rate)
+// and right; a tensor-core layout at D = 256 is later work.
 //
-// Design, common to the three kernels (256 threads, one block per SM):
+// Design (256 threads, one block per SM):
 //   * a thread is (row group, lane of 8): ty = tid / 8, tx = tid % 8. The 8
 //     threads of a row group are 8 consecutive lanes of one warp; they
 //     share their rows and split the columns: column c of a row belongs to
@@ -39,46 +33,32 @@
 //     32 floats apart), and a float4 load of 8 lanes reads 128 contiguous
 //     bytes;
 //   * operands are staged in shared memory by cp.async, 16 bytes a copy,
-//     rows past T zero-filled. Rows that feed a dot product over d (Q, K,
-//     and dO, V in the backward) are 260 floats apart, so that the 8 lanes
-//     of a group reading 8 rows at one d hit 32 distinct banks;
+//     rows past T zero-filled. Rows that feed a dot product over d (Q, K)
+//     are 260 floats apart, so that the 8 lanes of a group reading 8 rows
+//     at one d hit 32 distinct banks;
 //   * a dot product over d runs d = 0, 4, ..., 252 in order, one fused
 //     multiply-add a term, in a register of the thread that owns the pair;
-//   * a product summed over a tile (P V, dS K, dS^T Q, P^T dO) goes into a
-//     fresh accumulator a tile and is added to the running sum after it (the
-//     forward rescales the running sum first), so that the running sums of
-//     long rows add tile sums, not single terms. The pair's value (P, dS)
-//     comes from the lane that computed it by __shfl_sync, no shared memory;
+//   * P V goes into a fresh accumulator a tile and is added to the rescaled
+//     running sum after it, so that the running sums of long rows add tile
+//     sums, not single terms. P comes from the lane that computed it by
+//     __shfl_sync, no shared memory;
 //   * key tiles of 32 (one warp's ballot of the mask): a tile whose 32 keys
 //     are all padded is neither loaded nor computed (it would add exp(-inf) =
 //     0 and not move the running max, so skipping is exact), and a padded
-//     key inside a live tile is skipped in the summed products (its P is 0);
+//     key inside a live tile is skipped in P V (its P is 0);
 //   * exp and log are the accurate expf, logf; offsets are 64-bit; ragged T
 //     needs no padding.
 //
-// The forward: a block per (b, h, 64 query rows). Q's rows stay in shared
-// memory; the live key tiles stream through two buffers (the next tile's
-// copies in flight while the current one is computed). A thread holds S for
-// its 2 rows and 4 keys (tx + 8j), the online softmax's max and sum of its
-// rows (reduced over the 8 lanes), and 2 x 32 output columns.
+// A block per (b, h, 64 query rows). Q's rows stay in shared memory; the
+// live key tiles stream through two buffers (the next tile's copies in
+// flight while the current one is computed). A thread holds S for its 2 rows
+// and 4 keys (tx + 8j), the online softmax's max and sum of its rows
+// (reduced over the 8 lanes), and 2 x 32 output columns.
 //   Q 64 x 260 x 4 = 66,560; K 2 x 32 x 260 x 4 = 66,560; V 2 x 32 x 256 x 4
 //   = 65,536: 198,656 bytes.
-// The dQ kernel: a block per (b, h, 64 query rows). Q's and dO's rows stay;
-// it writes Δ of its rows, then takes the live key tiles one at a time
-// (K, V), recomputing S and dP, P = exp(s - lse) and dS, and adds dS K.
-//   Q, dO 2 x 64 x 260 x 4 = 133,120; K, V 2 x 32 x 260 x 4 = 66,560:
-//   199,680 bytes.
-// The dK/dV kernel: a block per (b, h, 32 keys). A block whose keys are all
-// padded writes zeros and exits; the others keep their K and V rows and take
-// every query tile of 64 rows (padded query rows too: they have dO and count
-// for dk, dv), reading the Δ the dQ kernel wrote. A thread holds one key
-// (ty) and, of the tile, the queries tx + 8m, m = 0..7, for S^T and dP^T.
-//   K, V 2 x 32 x 260 x 4 = 66,560; Q, dO 2 x 64 x 260 x 4 = 133,120; lse
-//   and Δ of the tile 512: 200,192 bytes.
 //
-// Layouts: q, k, v, out, dout, dq, dk, dv (B, H, T, 256) float32,
-// contiguous, 16-byte aligned; mask (B, T) bytes, nonzero at padded keys;
-// lse and delta (B, H, T) float32 (lse may be null in the forward).
+// Layouts: q, k, v, out (B, H, T, 256) float32, contiguous, 16-byte aligned;
+// mask (B, T) bytes, nonzero at padded keys; lse (B, H, T) float32, or null.
 
 #include <math_constants.h>
 
@@ -93,18 +73,13 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 8;                // lanes that share a row
 constexpr int kCols = kD / kGroup;       // columns a thread holds: 32
 constexpr int kRows = 64;                // query rows a block (tile)
-constexpr int kKeys = 32;                // keys a tile (block, in dK/dV)
+constexpr int kKeys = 32;                // keys a tile
 constexpr int kStride = kD + 4;          // floats a row of a dot operand
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr size_t kFwdSmemBytes =
     4 * ((size_t)kRows * kStride + 2 * kKeys * kStride + 2 * kKeys * kD);
-constexpr size_t kDqSmemBytes =
-    4 * ((size_t)2 * kRows * kStride + 2 * kKeys * kStride);
-constexpr size_t kDkvSmemBytes =
-    4 * ((size_t)2 * kKeys * kStride + 2 * kRows * kStride + 2 * kRows);
-static_assert(kFwdSmemBytes <= 232448 && kDqSmemBytes <= 232448 &&
-                  kDkvSmemBytes <= 232448,
+static_assert(kFwdSmemBytes <= 232448,
               "more shared memory than a block may use");
 
 // 16 bytes from device memory to shared memory, asynchronously; src_bytes 0
@@ -340,251 +315,6 @@ flash_mha_fwd_d256_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-flash_mha_bwd_dq_d256_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const uint8_t* __restrict__ mask,
-                             const float* __restrict__ out,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             float* __restrict__ delta,
-                             float* __restrict__ dq, int n_head, int t_len,
-                             float sm_scale) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [64][kStride]
-  float* dos = qs + kRows * kStride;            // [64][kStride]
-  float* ks = dos + kRows * kStride;            // [32][kStride]
-  float* vs = ks + kKeys * kStride;             // [32][kStride]
-  const int tid = threadIdx.x;
-  const int ty = tid / kGroup, tx = tid % kGroup;
-  const int lane0 = (tid & 31) & ~(kGroup - 1);
-  const int bh = blockIdx.z * n_head + blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const int64_t head = (int64_t)bh * t_len;
-  const uint8_t* mrow = mask + (int64_t)blockIdx.z * t_len;
-  const int n_tiles = (t_len + kKeys - 1) / kKeys;
-
-  load_rows<kRows>(qs, kStride, q + head * kD, q0, t_len);
-  load_rows<kRows>(dos, kStride, dout + head * kD, q0, t_len);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Δ and lse of rows 2 ty + h (past T: Δ 0 and lse +inf, so P is 0). Each
-  // thread sums its rows' Δ over d in dP's order (below): where a row has
-  // one valid key, out is that key's v exactly, so dP - Δ is exactly 0 there
-  // as in exact arithmetic, and not float32 round-off that dk would sum
-  // over every query.
-  float dl[2], ls[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + 2 * ty + h;
-    float sum = 0.f;
-    if (r < t_len) {
-      const float* orow = out + (head + r) * kD;
-      const float* drow = dos + (2 * ty + h) * kStride;
-#pragma unroll 4
-      for (int d = 0; d < kD; d += 4)
-        sum = dot4(sum, ld4(drow + d), ld4(orow + d));
-    }
-    dl[h] = sum;
-    ls[h] = r < t_len ? lse[head + r] : CUDART_INF_F;
-    if (r < t_len && tx == 0) delta[head + r] = sum;
-  }
-
-  float acc[2][kCols], part[2][kCols];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[h][c] = 0.f;
-  const float* qa = qs + (2 * ty) * kStride;
-  const float* da = dos + (2 * ty) * kStride;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const uint32_t bits = tile_bits(mrow, i, t_len);
-    if (bits == 0) continue;
-    load_rows<kKeys>(ks, kStride, k + head * kD, i * kKeys, t_len);
-    load_rows<kKeys>(vs, kStride, v + head * kD, i * kKeys, t_len);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S and dP for rows 2 ty + h and keys tx + 8 j.
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[h][j] = dp[h][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < kD; d += 4) {
-      const float4 a = ld4(qa + d), b = ld4(qa + kStride + d);
-      const float4 ga = ld4(da + d), gb = ld4(da + kStride + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = (tx + kGroup * j) * kStride + d;
-        const float4 x = ld4(ks + row), y = ld4(vs + row);
-        s[0][j] = dot4(s[0][j], a, x);
-        s[1][j] = dot4(s[1][j], b, x);
-        dp[0][j] = dot4(dp[0][j], ga, y);
-        dp[1][j] = dot4(dp[1][j], gb, y);
-      }
-    }
-    // dS = P (dP - Δ), P = exp(s - lse), 0 at padded keys.
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = (bits >> (tx + kGroup * j)) & 1u
-                            ? expf(s[h][j] * sm_scale - ls[h])
-                            : 0.f;
-        s[h][j] = p * (dp[h][j] - dl[h]);
-      }
-
-    // This tile's dS K in a fresh accumulator, added to the running sum.
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) part[h][c] = 0.f;
-#pragma unroll
-    for (int key = 0; key < kKeys; ++key) {
-      const float xa = __shfl_sync(kFull, s[0][key / kGroup],
-                                   lane0 + key % kGroup);
-      const float xb = __shfl_sync(kFull, s[1][key / kGroup],
-                                   lane0 + key % kGroup);
-      if (!((bits >> key) & 1u)) continue;
-      const float* krow = ks + key * kStride + 4 * tx;
-      axpy_row(part[0], xa, krow);
-      axpy_row(part[1], xb, krow);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[h][c] += part[h][c];
-    __syncthreads();  // K and V are free for the next tile
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + 2 * ty + h;
-    if (r < t_len) store_row(dq + (head + r) * kD + 4 * tx, acc[h], sm_scale);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-flash_mha_bwd_dkv_d256_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const uint8_t* __restrict__ mask,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int n_head, int t_len, float sm_scale) {
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [32][kStride]
-  float* vs = ks + kKeys * kStride;             // [32][kStride]
-  float* qs = vs + kKeys * kStride;             // [64][kStride]
-  float* dos = qs + kRows * kStride;            // [64][kStride]
-  float* lse_s = dos + kRows * kStride;         // [64]
-  float* delta_s = lse_s + kRows;               // [64]
-  const int tid = threadIdx.x;
-  const int ty = tid / kGroup, tx = tid % kGroup;  // key ty of the block
-  const int lane0 = (tid & 31) & ~(kGroup - 1);
-  const int bh = blockIdx.z * n_head + blockIdx.y;
-  const int k0 = blockIdx.x * kKeys;
-  const int64_t head = (int64_t)bh * t_len;
-  const uint8_t* mrow = mask + (int64_t)blockIdx.z * t_len;
-  const int key = k0 + ty;
-
-  const uint32_t bits = tile_bits(mrow, blockIdx.x, t_len);
-  if (bits == 0) {  // every key padded: dk = dv = 0
-    if (key < t_len) {
-      const float zero[kCols] = {};
-      store_row(dk + (head + key) * kD + 4 * tx, zero, 1.f);
-      store_row(dv + (head + key) * kD + 4 * tx, zero, 1.f);
-    }
-    return;
-  }
-  const bool valid = (bits >> ty) & 1u;
-
-  load_rows<kKeys>(ks, kStride, k + head * kD, k0, t_len);
-  load_rows<kKeys>(vs, kStride, v + head * kD, k0, t_len);
-  cp_async_commit();
-
-  float acc_k[kCols], acc_v[kCols], part_k[kCols], part_v[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc_k[c] = acc_v[c] = 0.f;
-  const float* kr = ks + ty * kStride;
-  const float* vr = vs + ty * kStride;
-
-  const int n_qtiles = (t_len + kRows - 1) / kRows;
-  for (int n = 0; n < n_qtiles; ++n) {
-    const int r0 = n * kRows;
-    load_rows<kRows>(qs, kStride, q + head * kD, r0, t_len);
-    load_rows<kRows>(dos, kStride, dout + head * kD, r0, t_len);
-    if (tid < kRows) {
-      const bool in = r0 + tid < t_len;
-      lse_s[tid] = in ? lse[head + r0 + tid] : CUDART_INF_F;
-      delta_s[tid] = in ? delta[head + r0 + tid] : 0.f;
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S^T and dP^T for key ty and the tile's queries tx + 8 m.
-    float s[8], dp[8];
-#pragma unroll
-    for (int mm = 0; mm < 8; ++mm) s[mm] = dp[mm] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < kD; d += 4) {
-      const float4 a = ld4(kr + d), b = ld4(vr + d);
-#pragma unroll
-      for (int mm = 0; mm < 8; ++mm) {
-        const int row = (tx + kGroup * mm) * kStride + d;
-        s[mm] = dot4(s[mm], a, ld4(qs + row));
-        dp[mm] = dot4(dp[mm], b, ld4(dos + row));
-      }
-    }
-    // P (in s) and dS (in dp); P = 0 at a padded key, past T (lse +inf)
-    // and for a row with no valid key (lse +inf).
-#pragma unroll
-    for (int mm = 0; mm < 8; ++mm) {
-      const int r = tx + kGroup * mm;
-      const float p = valid ? expf(s[mm] * sm_scale - lse_s[r]) : 0.f;
-      s[mm] = p;
-      dp[mm] = p * (dp[mm] - delta_s[r]);
-    }
-
-    // This tile's dS^T Q and P^T dO in fresh accumulators.
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) part_k[c] = part_v[c] = 0.f;
-    const int rows = min(kRows, t_len - r0);  // the same in the whole block
-#pragma unroll
-    for (int mm = 0; mm < 8; ++mm)
-#pragma unroll 2
-      for (int g = 0; g < kGroup; ++g) {
-        const int r = kGroup * mm + g;
-        const float p = __shfl_sync(kFull, s[mm], lane0 + g);
-        const float ds = __shfl_sync(kFull, dp[mm], lane0 + g);
-        if (r >= rows) continue;  // past T: Q and dO are 0
-        axpy_row(part_v, p, dos + r * kStride + 4 * tx);
-        axpy_row(part_k, ds, qs + r * kStride + 4 * tx);
-      }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      acc_k[c] += part_k[c];
-      acc_v[c] += part_v[c];
-    }
-    __syncthreads();  // Q, dO, lse and Δ are free for the next tile
-  }
-
-  if (key < t_len) {
-    store_row(dk + (head + key) * kD + 4 * tx, acc_k, sm_scale);
-    store_row(dv + (head + key) * kD + 4 * tx, acc_v, 1.f);
-  }
-}
-
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -610,49 +340,8 @@ extern "C" int flash_mha_fwd_f32_d256(const float* q, const float* k,
   return (int)cudaGetLastError();
 }
 
-// The dQ kernel; also writes delta (B, H, T) = rowsum(dout * out) for the
-// dK/dV kernel. Returns cudaGetLastError() after the launch.
-extern "C" int flash_mha_bwd_dq_f32_d256(const float* q, const float* k,
-                                         const float* v, const uint8_t* mask,
-                                         const float* out, const float* dout,
-                                         const float* lse, float* delta,
-                                         float* dq, int batch, int n_head,
-                                         int t_len, float sm_scale,
-                                         void* stream) {
-  const int err = set_smem(flash_mha_bwd_dq_d256_kernel, kDqSmemBytes);
-  if (err != 0) return err;
-  const dim3 grid((t_len + kRows - 1) / kRows, n_head, batch);
-  flash_mha_bwd_dq_d256_kernel<<<grid, kThreads, kDqSmemBytes,
-                                 (cudaStream_t)stream>>>(
-      q, k, v, mask, out, dout, lse, delta, dq, n_head, t_len, sm_scale);
-  return (int)cudaGetLastError();
-}
+// Dynamic shared memory of the forward's block, in bytes.
+extern "C" int flash_mha_d256_smem_bytes() { return (int)kFwdSmemBytes; }
 
-// The dK/dV kernel; reads the delta the dQ kernel wrote. Returns
-// cudaGetLastError() after the launch.
-extern "C" int flash_mha_bwd_dkv_f32_d256(const float* q, const float* k,
-                                          const float* v, const uint8_t* mask,
-                                          const float* dout, const float* lse,
-                                          const float* delta, float* dk,
-                                          float* dv, int batch, int n_head,
-                                          int t_len, float sm_scale,
-                                          void* stream) {
-  const int err = set_smem(flash_mha_bwd_dkv_d256_kernel, kDkvSmemBytes);
-  if (err != 0) return err;
-  const dim3 grid((t_len + kKeys - 1) / kKeys, n_head, batch);
-  flash_mha_bwd_dkv_d256_kernel<<<grid, kThreads, kDkvSmemBytes,
-                                  (cudaStream_t)stream>>>(
-      q, k, v, mask, dout, lse, delta, dk, dv, n_head, t_len, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory of each kernel's block, in bytes: 0 the forward,
-// 1 the dQ kernel, 2 the dK/dV kernel.
-extern "C" int flash_mha_d256_smem_bytes(int kernel) {
-  const size_t bytes[3] = {kFwdSmemBytes, kDqSmemBytes, kDkvSmemBytes};
-  return kernel >= 0 && kernel < 3 ? (int)bytes[kernel] : -1;
-}
-
-// Keys per tile, the unit in which the kernels skip wholly padded keys (and
-// the dK/dV kernel's keys a block).
+// Keys per tile, the unit in which the forward skips wholly padded keys.
 extern "C" int flash_mha_d256_key_tile() { return kKeys; }

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) plumbing that does not depend on the operand type: shared
-// addresses, mbarriers, bulk and TMA copies, named barriers, the wgmma
-// fence/commit/wait, the 128-byte swizzle and its descriptors, and float32
-// and bf16 tensor maps. Included by csrc/mrf_resblock.cu (bf16 wgmma, and
-// TF32 through csrc/tf32_wgmma.cuh), through csrc/tf32_wgmma.cuh by
-// csrc/flash_mha.cu and csrc/flash_mha_bwd.cu (TF32 wgmma) and, through
-// csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu and
-// csrc/flash_mha_bwd_bf16.cu (bf16 wgmma).
+// addresses, mbarriers, bulk and TMA copies, named barriers, cluster
+// barriers and distributed shared memory, the wgmma fence/commit/wait, the
+// 128-byte swizzle and its descriptors, and float32 and bf16 tensor maps.
+// Included by csrc/mrf_resblock.cu (bf16 wgmma, and TF32 through
+// csrc/tf32_wgmma.cuh), through csrc/tf32_wgmma.cuh by csrc/flash_mha.cu,
+// csrc/flash_mha_bwd.cu and csrc/flash_mha_bwd_d256.cu (TF32 wgmma) and,
+// through csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu,
+// csrc/flash_mha_bwd_bf16.cu and csrc/flash_mha_bf16_d256.cu (bf16 wgmma);
+// csrc/flash_mha_d256.cu takes smem_addr.
 //
 // The 128-byte swizzle, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it: a tile
 // is rows of 128 bytes; within each 1024-byte-aligned atom of 8 rows, the
@@ -110,6 +112,52 @@ __device__ __forceinline__ void fence_proxy_async() {
 template <int id, int n>
 __device__ __forceinline__ void named_sync() {
   asm volatile("bar.sync %0, %1;\n" :: "n"(id), "n"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: a block's rank in its cluster, the cluster-wide
+// barrier, and reads of a peer block's shared memory (distributed shared
+// memory).
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster-wide barrier in two halves: every thread of every block of
+// the cluster arrives, and later waits for all the arrivals; shared-memory
+// accesses (any block's) before an arrival are ordered before those after
+// the wait. A thread alternates arrive and wait; between them it may do
+// work that does not depend on the barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address, in the cluster's shared window, of shared address `addr` of
+// the block of rank `rank`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w) : "r"(addr)
+               : "memory");
+  return x;
 }
 
 // ---------------------------------------------------------------------------

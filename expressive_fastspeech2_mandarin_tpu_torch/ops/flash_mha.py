@@ -27,7 +27,7 @@ whose backward launches the dQ kernel (which also writes Δ in float32) and
 then the dK/dV kernel of the same dtype and head dim: ``csrc/flash_mha_bwd.cu``
 (``bwd_dq_launch_count``, ``bwd_dkv_launch_count``),
 ``csrc/flash_mha_bwd_bf16.cu`` (``bf16_bwd_dq_launch_count``,
-``bf16_bwd_dkv_launch_count``), ``csrc/flash_mha_d256.cu``
+``bf16_bwd_dkv_launch_count``), ``csrc/flash_mha_bwd_d256.cu``
 (``d256_bwd_dq_launch_count``, ``d256_bwd_dkv_launch_count``) or
 ``csrc/flash_mha_bf16_d256.cu`` (``bf16_d256_bwd_dq_launch_count``,
 ``bf16_d256_bwd_dkv_launch_count``). A head dim under 128 goes to the
@@ -60,7 +60,8 @@ import torch.nn.functional as F
 
 # The tensor-core kernels' head dim; a head dim under it is zero-padded to it.
 HEAD_DIM = 128
-# The head dim of csrc/flash_mha_d256.cu (float32, CUDA cores) and
+# The head dim of csrc/flash_mha_d256.cu (the float32 forward, CUDA cores),
+# csrc/flash_mha_bwd_d256.cu (the float32 backward, tensor cores) and
 # csrc/flash_mha_bf16_d256.cu (bfloat16, tensor cores).
 WIDE_HEAD_DIM = 256
 # As in the JAX package (flash_mha.py:supported), the kernel is taken past
@@ -102,7 +103,7 @@ _KERNELS = {
                                 COUNTERS[0:3]),
     (torch.bfloat16, HEAD_DIM): ("flash_mha_bf16", "flash_mha_bwd_bf16",
                                  "bf16", COUNTERS[3:6]),
-    (torch.float32, WIDE_HEAD_DIM): ("flash_mha_d256", "flash_mha_d256",
+    (torch.float32, WIDE_HEAD_DIM): ("flash_mha_d256", "flash_mha_bwd_d256",
                                      "f32_d256", COUNTERS[6:9]),
     (torch.bfloat16, WIDE_HEAD_DIM): ("flash_mha_bf16_d256",
                                       "flash_mha_bf16_d256", "bf16_d256",

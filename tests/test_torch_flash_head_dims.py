@@ -4,8 +4,9 @@ The JAX package's ``flash_mha`` hands any head dim to JAX's TPU kernel,
 which takes D < 128 and the multiples of 128 (JAX 0.9.0
 ``flash_attention.py:455-462``). The port's kernels take D ≤ 128 in both
 dtypes (zero-padded to the D = 128 kernels: ``through_padding``) and D = 256
-in float32 (``csrc/flash_mha_d256.cu``, on the CUDA cores) and in bf16
-(``csrc/flash_mha_bf16_d256.cu``; tests/test_torch_flash_bf16_d256.py).
+in float32 (the forward ``csrc/flash_mha_d256.cu``, on the CUDA cores; the
+backward ``csrc/flash_mha_bwd_d256.cu``, on the TF32 tensor cores) and in
+bf16 (``csrc/flash_mha_bf16_d256.cu``; tests/test_torch_flash_bf16_d256.py).
 Here, with the
 JAX kernel in Pallas interpret mode and the port's plain versions standing
 in for its kernels on CPU tensors:
@@ -18,11 +19,17 @@ in for its kernels on CPU tensors:
   bit at D = 64, forward and backward, in both dtypes;
 * ``supported``: JAX's rule (D % 128 == 0, T > 2048, on the card) where the
   port has a kernel for the head dim and dtype;
-* the D = 256 kernels' arithmetic emulated (float32 fused multiply-adds
-  over d in the kernels' order, 32-key tiles, each tile's sums in a fresh
-  accumulator, wholly padded tiles skipped, Δ summed in dP's order) against
-  float64 with the card's bounds, and a row of one valid key exactly 0 in
-  dk, where float32 plain leaves round-off;
+* the D = 256 kernels' arithmetic emulated against float64 with the
+  card's bounds: the forward (``csrc/flash_mha_d256.cu``: float32 fused
+  multiply-adds over d in its order, 32-key tiles, each tile's P·V in a
+  fresh accumulator, wholly padded tiles skipped) and the backward pair
+  (``csrc/flash_mha_bwd_d256.cu``: 3xTF32 products on operands split by
+  bit masks, S and dP as two blocks' partials over 128 columns each, in
+  chains of 32 columns, added in rank order; Δ formed as dP is, the
+  diagonal of dO outᵀ; the dK/dV kernel's swapped chain order giving Sᵀ
+  and dPᵀ bit for bit), with a row of one valid key exactly 0 in dq and
+  dk, where float32 plain leaves round-off; the backward's emulation also
+  against the JAX TPU kernel at the valid rows;
 * the slice: FastSpeech2 at hidden 256 with one head (D = 256), 1 encoder
   and 1 decoder block, under ``attention_impl="flash"``: a long-form
   synthesis and one train step's loss and gradients against the JAX
@@ -93,9 +100,12 @@ OUT_REL = 2.0 ** -7    # tests/test_torch_flash_bf16.py
 GRAD_REL = 2.0 ** -6
 FWD_REL = 1e-5         # chip_smoke.py: FLASH_REL_BOUND, LSE_REL_BOUND
 BWD_REL = 1e-4         # chip_smoke.py: FLASH_BWD_REL_BOUND
-KEY_TILE = 32          # csrc/flash_mha_d256.cu: kKeys (key tile, dK/dV block)
-QUERY_TILE = 64        # csrc/flash_mha_d256.cu: kRows (the dK/dV query tile)
+KEY_TILE = 32          # csrc/flash_mha_d256.cu: kKeys (the forward's key tile)
 GROUP = 8              # csrc/flash_mha_d256.cu: kGroup (lanes sharing a row)
+# csrc/flash_mha_bwd_d256.cu: kCols (head-dim columns a block of the
+# cluster holds), kChain k-steps of 8 columns per S/dP chain, kTile (the
+# dQ kernel's key tile, the dK/dV kernel's query tile).
+CHUNK, CHAIN_COLS, STREAM_TILE = 128, 32, 32
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -288,42 +298,112 @@ def emulate_forward(q, k, v, mask, scale):
     return out, lse
 
 
+def _tf32(x):
+    """float32 rounded to TF32, to nearest with ties away from zero, by bit
+    masks (csrc/tf32_wgmma.cuh: tf32_rna)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _dot(a, b):
+    """a (..., n, C) · b (..., m, C) → (..., n, m): each pair's C products
+    (exact in float32 for TF32 parts) summed in float32 along C. Position-
+    and order-free: (a, b) and (b, a) give each other's transposes bit for
+    bit, as the tensor cores do for the same operands in either role."""
+    return (a[..., :, None, :] * b[..., None, :, :]).sum(-1, dtype=np.float32)
+
+
+def _partial(a, b, swapped=False):
+    """One block's partial A Bᵀ (A = a, the resident rows; B = b, the
+    streamed tile) over its 128 columns, as rows_product forms S or dP:
+    fresh chains of 32 columns, each chain's four TF32 products (A lo into
+    one accumulator, A hi into the other, each against B's hi and lo parts)
+    added in software, and the chains added in order to a sum that starts
+    at 0. The dQ kernel adds ((lo·lo + lo·hi) + hi·lo) + hi·hi (A's part
+    first); the dK/dV kernel (``swapped``), whose A is the dQ kernel's B,
+    adds ((lo·lo + hi·lo) + lo·hi) + hi·hi: the same four terms in the
+    same order, so its Sᵀ and dPᵀ are the dQ kernel's S and dP."""
+    out = np.float32(0)
+    for c0 in range(0, a.shape[-1], CHAIN_COLS):
+        (a_hi, a_lo), (b_hi, b_lo) = (_split(x[..., c0:c0 + CHAIN_COLS])
+                                      for x in (a, b))
+        lo_lo, lo_hi = _dot(a_lo, b_lo), _dot(a_lo, b_hi)
+        hi_lo, hi_hi = _dot(a_hi, b_lo), _dot(a_hi, b_hi)
+        out = out + ((((lo_lo + hi_lo) + lo_hi) if swapped
+                      else ((lo_lo + lo_hi) + hi_lo)) + hi_hi)
+    return out
+
+
+def rows_product(a, b, swapped=False):
+    """a · bᵀ over the head dim as the backward pair forms S and dP (and
+    with ``swapped``, as the dK/dV kernel forms Sᵀ and dPᵀ): each block of
+    the cluster's partial over its 128 columns, added in rank order (rank
+    0's first)."""
+    total = None
+    for c in range(0, a.shape[-1], CHUNK):
+        part = _partial(a[..., c:c + CHUNK], b[..., c:c + CHUNK], swapped)
+        total = part if total is None else total + part
+    return total
+
+
+def third_product(a, b):
+    """a @ b over the streamed tile's 32 rows from TF32 parts, the small
+    products first: (lo·hi + hi·lo) + hi·hi, in a fresh accumulator (the
+    kernels' dq, dk and dv products; each tile's sum is added to the
+    running sum)."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
 def emulate_backward(q, k, v, mask, out, dout, lse, scale):
-    """csrc/flash_mha_d256.cu's dQ kernel (with Δ) and dK/dV kernel:
-    (dq, dk, dv)."""
-    b, h, t, d = q.shape
-    s_all, dp_all = _dots(q, k), _dots(dout, v)
-    delta = np.zeros((b, h, t), np.float32)
-    for c in range(d):  # Δ in dP's order
-        delta = _fma(dout[..., c], out[..., c], delta)
-    valid = ~mask[:, None, None, :]
-    p_all = np.where(valid, np.exp(s_all * np.float32(scale)
-                                   - lse[..., None]), 0).astype(np.float32)
-    ds_all = (p_all * (dp_all - delta[..., None])).astype(np.float32)
-    dq = np.zeros_like(q)
-    dk, dv = np.zeros_like(k), np.zeros_like(v)
-    for i in range(b):
-        acc = np.zeros((h, t, d), np.float32)
-        for k0 in _live_tiles(mask[i]):
-            part = np.zeros_like(acc)
-            for j in range(k0, min(k0 + KEY_TILE, t)):
-                if not mask[i, j]:
-                    part = _fma(ds_all[i, :, :, j:j + 1],
-                                k[i, :, j][:, None, :], part)
-            acc = acc + part
-        dq[i] = acc * np.float32(scale)
-        acc_k, acc_v = np.zeros((h, t, d), np.float32), np.zeros(
-            (h, t, d), np.float32)
-        for r0 in range(0, t, QUERY_TILE):  # every key block at once
-            part_k, part_v = np.zeros_like(acc_k), np.zeros_like(acc_v)
-            for r in range(r0, min(r0 + QUERY_TILE, t)):
-                part_v = _fma(p_all[i, :, r, :, None],
-                              dout[i, :, r][:, None, :], part_v)
-                part_k = _fma(ds_all[i, :, r, :, None],
-                              q[i, :, r][:, None, :], part_k)
-            acc_k, acc_v = acc_k + part_k, acc_v + part_v
-        dk[i], dv[i] = acc_k * np.float32(scale), acc_v
-    return dq, dk, dv
+    """csrc/flash_mha_bwd_d256.cu's dQ kernel (with Δ) and dK/dV kernel on
+    (B, H, T, 256) float32 numpy arrays: (dq, dk, dv, delta)."""
+    b_, h_, t_, d_ = q.shape
+    scale = np.float32(scale)
+    # Δ: the diagonal of dO outᵀ, formed as dP is.
+    delta = np.diagonal(rows_product(dout, out), axis1=-2,
+                        axis2=-1).astype(np.float32)
+    dq, dk, dv = (np.zeros(q.shape, np.float32) for _ in range(3))
+    for i in range(b_):
+        valid = ~mask[i]
+        s_all = rows_product(q[i], k[i])
+        dp_all = rows_product(dout[i], v[i])
+        # The dQ kernel: the live 32-key tiles, P in float32.
+        acc = np.zeros((h_, t_, d_), np.float32)
+        for k0 in range(0, t_, STREAM_TILE):
+            keys = slice(k0, k0 + STREAM_TILE)
+            if not valid[keys].any():
+                continue
+            p = np.where(valid[keys], np.exp(s_all[..., keys] * scale
+                                             - lse[i][..., None]),
+                         np.float32(0)).astype(np.float32)
+            ds = p * (dp_all[..., keys] - delta[i][..., None])
+            acc = acc + third_product(ds, k[i][:, keys])
+        dq[i] = acc * scale
+        # The dK/dV kernel: every 32-query tile; a key block of 64 whose
+        # keys are all padded writes zeros, as P = 0 at a padded key gives.
+        s_all = rows_product(k[i], q[i], swapped=True).swapaxes(-1, -2)
+        dp_all = rows_product(v[i], dout[i], swapped=True).swapaxes(-1, -2)
+        acc_k = np.zeros((h_, t_, d_), np.float32)
+        acc_v = np.zeros((h_, t_, d_), np.float32)
+        for r0 in range(0, t_, STREAM_TILE):
+            rows = slice(r0, r0 + STREAM_TILE)
+            p = np.where(valid, np.exp(s_all[:, rows] * scale
+                                       - lse[i][:, rows, None]),
+                         np.float32(0)).astype(np.float32)
+            p_hi, p_lo = _split(p)  # read back from its staged parts
+            ds = (p_hi + p_lo) * (dp_all[:, rows] - delta[i][:, rows, None])
+            acc_v = acc_v + third_product(p.swapaxes(-1, -2),
+                                          dout[i][:, rows])
+            acc_k = acc_k + third_product(ds.swapaxes(-1, -2), q[i][:, rows])
+        dk[i], dv[i] = acc_k * scale, acc_v
+    return dq, dk, dv, delta
 
 
 def test_d256_kernel_emulation_matches_float64_plain():
@@ -348,7 +428,7 @@ def test_d256_kernel_emulation_matches_float64_plain():
     assert np.abs(lse - lse_ref).max() <= FWD_REL * np.abs(lse_ref).max()
     np.testing.assert_array_equal(out[0], v[0, :, :1].repeat(t, 1))
 
-    grads = emulate_backward(q, k, v, mask, out, dout, lse, scale)
+    grads = emulate_backward(q, k, v, mask, out, dout, lse, scale)[:3]
     plain32 = fm.flash_mha_bwd_plain(tq, tk, tv, tmask, ref32, tdo, scale)
     plain64 = fm.flash_mha_bwd_plain(tq.double(), tk.double(), tv.double(),
                                      tmask, torch.from_numpy(ref64),
@@ -359,12 +439,52 @@ def test_d256_kernel_emulation_matches_float64_plain():
         assert np.abs(g - r64).max() <= BWD_REL * top
         assert (np.abs(g - r64).max()
                 <= 2 * np.abs(r32 - r64).max() + 1e-6 * top)
-    # The one-key row: dP - Δ is 0 in exact arithmetic. Δ summed in dP's
-    # order keeps it 0, so dk there is exactly 0; float32 plain sums Δ in
+    # The one-key row: dP - Δ is 0 in exact arithmetic. Δ formed as dP is
+    # keeps it 0, so dq and dk there are exactly 0; float32 plain sums Δ in
     # another order and leaves round-off.
     assert np.count_nonzero(grads[1][0]) == 0
     assert np.count_nonzero(grads[0][0]) == 0
     assert np.count_nonzero(plain32[1][0].numpy()) > 0
+    # The wholly padded 32-key tiles and 64-key blocks: dk, dv exactly 0.
+    for g in grads[1:]:
+        assert not g[1, :, :40].any() and not g[1, :, 96:128].any()
+
+
+def test_d256_bwd_swapped_chain_order_gives_the_dq_kernels_s_and_dp():
+    """The dK/dV kernel forms Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with the operands'
+    roles swapped; its chain order makes them the dQ kernel's S and dP bit
+    for bit (so a row of one valid key has dP - Δ = 0 in both kernels),
+    which the dQ kernel's own order with the roles swapped does not."""
+    rng = np.random.default_rng(21)
+    a, b = (rng.normal(size=(1, 96, 256)).astype(np.float32)
+            for _ in range(2))
+    ref = rows_product(a, b)
+    assert np.array_equal(rows_product(b, a, swapped=True).swapaxes(-1, -2),
+                          ref)
+    assert not np.array_equal(rows_product(b, a).swapaxes(-1, -2), ref)
+    # Δ, the diagonal of dO outᵀ formed as dP: equal to dP where out = v.
+    assert np.array_equal(np.diagonal(rows_product(a, b[:, :1].repeat(96, 1)),
+                                      axis1=-2, axis2=-1), ref[..., 0])
+
+
+def test_d256_bwd_emulation_matches_jax_tpu_kernel_at_valid_rows():
+    """The backward pair's emulation against ``jax.grad`` of the JAX
+    package's TPU kernel in Pallas interpret mode, dO zero at padded query
+    rows (as the FFT block leaves it): dq at the valid rows, dk and dv at
+    every row, within 1e-5 (tests/test_torch_flash_bwd_tc.py's D = 128
+    check)."""
+    lens = (300, 1, 173)
+    scale = 256 ** -0.5
+    q, k, v, dout, mask = _inputs(300, lens, 1, 256, seed=7)
+    ref = _jax_out_and_grads(q, k, v, dout, mask, scale, jnp.float32)
+    out, lse = emulate_forward(q, k, v, mask, scale)
+    dq, dk, dv, _ = emulate_backward(q, k, v, mask, out, dout, lse, scale)
+    for i, n in enumerate(lens):
+        np.testing.assert_allclose(dq[i, :, :n], ref[1][i, :, :n], atol=ATOL,
+                                   rtol=0)
+    np.testing.assert_allclose(dk, ref[2], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dv, ref[3], atol=ATOL, rtol=0)
+    assert np.count_nonzero(dk[1]) == 0  # one valid key: dS = 0
 
 
 # The slice: FastSpeech2 with one head of 256.

@@ -433,19 +433,29 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
                                rtol=0, atol=0)
 
 
-# The float32 kernels at D = 256 (csrc/flash_mha_d256.cu, CUDA cores)
-# against their plain versions: the forward within 1e-5 · max|ref| of
-# float32 and float64 plain, the backward within 1e-4 · max|ref| (against
-# float64 where float32 plain is itself further than that from it) and
-# within twice float32 plain's distance to float64 + 1e-6 · max|ref64|
-# (chip_smoke.py phases 2b and 2d); H = 1, as the one-head configuration.
+# The float32 kernels at D = 256 (the forward csrc/flash_mha_d256.cu, CUDA
+# cores; the dQ and dK/dV kernels csrc/flash_mha_bwd_d256.cu, 3xTF32 wgmma
+# in clusters of two blocks) against their plain versions: the forward
+# within 1e-5 · max|ref| of float32 and float64 plain, the backward within
+# 1e-4 · max|ref| (against float64 where float32 plain is itself further
+# than that from it) and within twice float32 plain's distance to float64 +
+# 1e-6 · max|ref64| (chip_smoke.py phases 2b and 2d); H = 1, as the
+# one-head configuration. Each call launches the three float32 D = 256
+# kernels once and no other flash kernel; padded keys (wholly padded key
+# blocks too) get dk = dv = 0; a row of one valid key dq = dk = 0 exactly
+# (Δ is formed as dP is).
 
 D256_SCALE = 256 ** -0.5
 
 
-def _d256_counts():
-    return (fa.d256_launch_count, fa.d256_bwd_dq_launch_count,
-            fa.d256_bwd_dkv_launch_count)
+def _only(names, before, n=1):
+    """The flash counters ``before`` with ``n`` added to each of ``names``."""
+    return tuple(c + n * (name in names)
+                 for name, c in zip(fa.COUNTERS, before))
+
+
+D256_F32 = ("d256_launch_count", "d256_bwd_dq_launch_count",
+            "d256_bwd_dkv_launch_count")
 
 
 @pytest.mark.gpu
@@ -462,10 +472,9 @@ def test_d256_flash_kernels_match_plain_on_card(t, rows):
     q, k, v, mask = (x[:, :1].contiguous() if x.ndim == 4 else x
                      for x in _flash_inputs(t, rows, seed=t + 3, d=256))
     dout = torch.randn_like(q)
-    before, before128 = _d256_counts(), _bf16_counts()
+    before = _all_flash_counts()
     out, dq, dk, dv = _flash_grads(q, k, v, mask, dout, scale=D256_SCALE)
-    assert _d256_counts() == tuple(n + 1 for n in before)
-    assert _bf16_counts() == before128  # no D = 128 kernel
+    assert _all_flash_counts() == _only(D256_F32, before)
     ref = fa.flash_mha_plain(q, k, v, mask, D256_SCALE)
     q64, k64, v64, do64 = (x.double() for x in (q, k, v, dout))
     ref64 = fa.flash_mha_plain(q64, k64, v64, mask, D256_SCALE)
@@ -483,6 +492,11 @@ def test_d256_flash_kernels_match_plain_on_card(t, rows):
         if bool(mask[i].all()):  # no valid key → exactly 0
             for x in (out, dq, dk, dv):
                 assert torch.count_nonzero(x[i]).item() == 0
+        if int((~mask[i]).sum()) == 1:  # one valid key: dS = 0 exactly
+            assert torch.count_nonzero(dq[i]).item() == 0
+            assert torch.count_nonzero(dk[i]).item() == 0
+    padded = mask[:, None, :, None].expand_as(dk)
+    assert not dk[padded].any() and not dv[padded].any()
     _, lse = fa._flash_mha_cuda(q, k, v, mask, D256_SCALE, with_lse=True)
     lse_ref = fa.flash_mha_lse_plain(q, k, mask, D256_SCALE)
     finite = torch.isfinite(lse_ref)
@@ -491,6 +505,51 @@ def test_d256_flash_kernels_match_plain_on_card(t, rows):
     again = _flash_grads(q, k, v, mask, dout, scale=D256_SCALE)
     for a, b in zip((out, dq, dk, dv), again):
         assert torch.equal(a, b)
+
+
+def _bwd_formulas(q, k, v, mask, out, dout, lse, scale):
+    """The backward's formulas from a given lse: P = exp(s - lse), 0 at
+    padded keys; dS = P (dO vᵀ - Δ), Δ = rowsum(dO ∘ out)."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill(mask[:, None, None, :],
+                                                  0.0)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dout, v.transpose(-1, -2)) - delta)
+    return (torch.matmul(ds, k) * scale,
+            torch.matmul(ds.transpose(-1, -2), q) * scale,
+            torch.matmul(p.transpose(-1, -2), dout))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,lens", [(300, (300, 150)), (320, (320, 2))])
+def test_d256_backward_layout_witness_is_exact_on_card(t, lens):
+    """The float32 backward pair at D = 256 on the layout witness (two-hot
+    keys of every query over all 256 columns, so both blocks of a cluster
+    and every 32-column chunk hold one), sm_scale 1, a given lse of 1024
+    and an out in {-1, 0, 1}: P is 1 at each query's two keys and 0
+    elsewhere, every product and sum an integer that the TF32 hi part and
+    float32 hold exactly, so dq, dk and dv equal float64's formulas bit for
+    bit. T = 300 is no multiple of the 32-row tile or the 64-key block, and
+    its second row's 150 valid keys leave [192, 256) and [256, 300) wholly
+    padded; each call launches the pair once and no other flash kernel."""
+    _cuda_or_skip()
+    q, k, v, dout, mask = _layout_witness(t=t, lens=lens, d=256)
+    q, k, v, dout = (torch.from_numpy(x[:, :1]).contiguous()
+                     for x in (q, k, v, dout))
+    mask = torch.from_numpy(mask)
+    gen = torch.Generator().manual_seed(t)
+    out = torch.randint(-1, 2, q.shape, generator=gen).double()
+    lse = torch.full(q.shape[:-1], 1024.0, dtype=torch.float64)
+    want = _bwd_formulas(q, k, v, mask, out, dout, lse, 1.0)
+    assert float(want[0].abs().max()) > 1 and float(want[1].abs().max()) > 1
+    args = [x.to("cuda", torch.float32) for x in (q, k, v)] + [
+        mask.to("cuda")] + [x.to("cuda", torch.float32)
+                            for x in (out, dout, lse)]
+    before = _all_flash_counts()
+    got = fa._flash_mha_bwd_cuda(*args, 1.0)
+    assert _all_flash_counts() == _only(D256_F32[1:], before)
+    for g, w in zip(got, want):
+        assert torch.equal(g.double().cpu(), w)
 
 
 @pytest.mark.gpu
