@@ -300,13 +300,17 @@ Phases:
   16. flash attention at head dims other than 128, on "h1d256" (Config()
      with one encoder and one decoder head: D = 256 at the parameters'
      shapes of Config()): (a) the float32 forward at D = 256
-     (csrc/flash_mha_d256.cu, CUDA cores) and the dQ and dK/dV kernels
-     (csrc/flash_mha_bwd_d256.cu, 3xTF32 wgmma in clusters of two blocks)
-     against their plain versions at phases 2b's and 2d's cases with H = 1
-     and their bounds (also against float64), each call on the D = 256
-     kernels and no other; the backward pair on an exact layout witness
-     (two-hot P from a given lse, small integers: dq, dk, dv equal to
-     float64) and a row of one valid key (dq and dk exactly 0); at D = 64,
+     (csrc/flash_mha_d256.cu) and the dQ and dK/dV kernels
+     (csrc/flash_mha_bwd_d256.cu), all on 3xTF32 wgmma in clusters of two
+     blocks, against their plain versions at phases 2b's and 2d's cases
+     with H = 1 and their bounds (also against float64), each call on the
+     D = 256 kernels and no other; the forward on exact witnesses (the
+     layout witness's two-hot P over all 256 columns: out equal to
+     float64; small-integer v with one valid key a row: out equal to that
+     key's v) and a rerun bit-identical; the backward pair on an exact
+     layout witness (two-hot P from a given lse, small integers: dq, dk,
+     dv equal to float64) and a row of one valid key (dq and dk exactly
+     0); at D = 64,
      the six D = 128 kernels on zero-padded inputs at (4, 2, 1000, 64)
      against the plain versions at D = 64 (float32: phases 2b and 2d's
      bounds; bf16: phase 2e's); (b) h1d256 long-form synthesis
@@ -320,10 +324,11 @@ Phases:
      under "auto": the logged losses within phase 5's 1e-5 relative; the
      graphed train step of each at B = 4, bucket (128, 1000), in turns;
      (d) times, each kernel call from a CUDA graph: the D = 256 forward at
-     (4, 1, T, 256) for T = 2300 and 4096 and the backward pair at
-     T = 1000 and 4096 against their bounds (TF32 rate over the live key
-     tiles; the forward also the same flops at the float32 rate; TF/s and
-     the share of the bound), plain versions and SDPA in float32 with the
+     (4, 1, T, 256) for T = 1000 (the train step's key lengths), 2300 and
+     4096 and the backward pair at T = 1000 and 4096 against their bounds
+     (TF32 rate over the live key tiles; the forward also at three TF32
+     products a product; TF/s and the share of the bound), plain versions
+     and SDPA in float32 with the
      same bool mask, and the backward pair beside the D = 128 pair at the
      same H·D (4, 2, T, 128); D = 64 at (4, 2, 4096, 64)
      through the padding against the D = 128 kernel on inputs padded
@@ -403,11 +408,10 @@ F32_BOUND = 1e-4
 # such units at the output's peak magnitude.
 BF16_REL_BOUND = 2.0 ** -6
 
-# Published H100 SXM peaks (dense bf16 and TF32 tensor-core rates, float32
-# outside the tensor cores, HBM3 bandwidth).
+# Published H100 SXM peaks (dense bf16 and TF32 tensor-core rates, HBM3
+# bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 def prefixes(*lens):
@@ -594,21 +598,29 @@ def phase_environment(smoke: Smoke):
           f"flash_mha_bwd_dkv_kernel: {bwd.flash_mha_bwd_dkv_smem_bytes()} "
           f"bytes a block, {bwd.flash_mha_bwd_block_rows()} keys, "
           f"{bwd.flash_mha_bwd_stream_tile()}-query tiles")
-    d256 = build.load("flash_mha_d256")
-    print(f"  flash_mha_fwd_d256_kernel (CUDA cores): "
-          f"{d256.flash_mha_d256_smem_bytes()} bytes of dynamic shared "
-          f"memory a block, 256 threads, {d256.flash_mha_d256_key_tile()}-key"
-          f" tiles, 64 query rows")
-    bwd256 = build.load("flash_mha_bwd_d256")
     regs256 = {}
-    for line in build.ptxas_report("flash_mha_bwd_d256").splitlines():
-        if "Compiling entry function" in line:
-            current = line
-        elif "Used" in line and "registers" in line:
-            for k in ("flash_mha_bwd_dq_d256_kernel",
-                      "flash_mha_bwd_dkv_d256_kernel"):
-                if k in current:
-                    regs256[k] = int(line.split("Used")[1].split()[0])
+    for lib in ("flash_mha_d256", "flash_mha_bwd_d256"):
+        for line in build.ptxas_report(lib).splitlines():
+            if "Compiling entry function" in line:
+                current = line
+            elif "Used" in line and "registers" in line:
+                for k in ("flash_mha_fwd_d256_kernel",
+                          "flash_mha_bwd_dq_d256_kernel",
+                          "flash_mha_bwd_dkv_d256_kernel"):
+                    if k in current:
+                        regs256[k] = int(line.split("Used")[1].split()[0])
+    d256 = build.load("flash_mha_d256")
+    print(f"  flash_mha_fwd_d256_kernel (3xTF32 wgmma): "
+          f"{d256.flash_mha_d256_smem_bytes()} bytes of dynamic shared "
+          f"memory a block, 256 threads (a consumer warpgroup, a producer "
+          f"warp, three converter warps), registers a thread "
+          f"{regs256.get('flash_mha_fwd_d256_kernel')}; clusters of "
+          f"{d256.flash_mha_d256_cluster()} blocks (one a 128-column chunk "
+          f"of the head dim, partial S swapped through distributed shared "
+          f"memory), {d256.flash_mha_d256_key_tile()}-key tiles, 64 query "
+          f"rows")
+    bwd256 = build.load("flash_mha_bwd_d256")
+    regs256.pop("flash_mha_fwd_d256_kernel", None)
     smem256 = [bwd256.flash_mha_bwd_d256_smem_bytes(i) for i in range(2)]
     print(f"  flash_mha_bwd_dq_d256_kernel, flash_mha_bwd_dkv_d256_kernel "
           f"(3xTF32 wgmma): {smem256} bytes of dynamic shared memory a "
@@ -6901,13 +6913,18 @@ def phase_deep_times(smoke: Smoke, device):
 # Phase 16: flash attention at head dims other than 128. "h1d256" is
 # Config() with one encoder and one decoder head, so D = 256 in every FFT
 # block at the parameters' shapes of Config(); its attention runs on the
-# float32 kernels at D = 256 (the forward csrc/flash_mha_d256.cu, on the
-# CUDA cores; the backward csrc/flash_mha_bwd_d256.cu, on 3xTF32 wgmma). A
-# head dim under 128 runs on the D = 128 kernels of its dtype, zero-padded.
+# float32 kernels at D = 256 (the forward csrc/flash_mha_d256.cu and the
+# backward csrc/flash_mha_bwd_d256.cu, on 3xTF32 wgmma in clusters of two
+# blocks). A head dim under 128 runs on the D = 128 kernels of its dtype,
+# zero-padded.
 
 D256 = 256
 D64_CASE = (4, 1000, FLASH_HOLES)      # (B, T, rows) at H = 2, D = 64
 D64_TIMED = (4, 4096, prefixes(4096, 1, 0, 3001))
+# The D = 256 forward's timed cases: the train step's bucket with phase
+# 6's key lengths, then the long-form shapes of FLASH_CASES.
+D256_FWD_TIMED = ((4, 1000, prefixes(1000, 750, 500, 250)),) + tuple(
+    c for c in FLASH_CASES if c[1] in FLASH_TIMED and c[0] == 4)
 
 
 def d256_counts() -> tuple[int, int, int]:
@@ -7009,8 +7026,66 @@ def phase_d256_d64_vs_plain(smoke: Smoke):
             f"{lse_rel:.3e}; launches "
             f"{counts} (expected {want})")
         del q, k, v, mask, dout, out, lse, grads, ref, refs
+    phase_d256_fwd_exact(smoke)
     phase_d256_bwd_exact(smoke)
     return worst_fwd, worst_dq, worst_dkv
+
+
+def phase_d256_fwd_exact(smoke: Smoke) -> None:
+    """16a: the float32 forward at D = 256 where its result is exact. (1)
+    The layout witness at T = 300, H = 1, sm_scale 1: each query scores
+    1024 against two valid keys whose hot columns lie anywhere in the 256
+    (so in either block of a cluster, or both), P is 1 at those two and 0
+    elsewhere, v in {-1, 0, 1}: out must equal float64's bit for bit,
+    which a block that mislaid its chunk of Q, K or V, or its partial of
+    S, would not. (2) Small-integer v (its TF32 lo part 0) and one valid
+    key a batch row, at the start, inside and at the end of T = 300: P is
+    1 exactly, so every query's out must be that key's v bit for bit in
+    all 256 columns. (3) A rerun at (4, 1, 4096, 256) equal bit for bit.
+    Each call launches the forward once and no other flash kernel."""
+    import torch
+
+    from expressive_fastspeech2_mandarin_tpu_torch.ops import flash_mha as fa
+
+    q, k, v, _, mask = layout_witness(300, (300, 150), d=D256)
+    q, k, v = (x[:, :1].contiguous() for x in (q, k, v))
+    want = fa.flash_mha_plain(q, k, v, mask, 1.0)
+    before = flash_all_counts()
+    got = fa.flash_mha(*(x.to("cuda", torch.float32) for x in (q, k, v)),
+                       mask.to("cuda"), 1.0)
+    counts = tuple(a - b for a, b in zip(flash_all_counts(), before))
+    exact = torch.equal(got.double().cpu(), want)
+    smoke.check(exact and counts == (0,) * 6 + (1, 0, 0) + (0,) * 3
+                and float(want.abs().max()) >= 1,
+                f"D = 256 forward layout witness (2, 1, 300, 256), two-hot P "
+                f"over all 256 columns: out equal to float64 {exact} "
+                f"({int((got.double().cpu() != want).sum())} elements "
+                f"differ); launches {counts}")
+
+    gen = torch.Generator().manual_seed(23)
+    t, keys = 300, (0, 137, 299)
+    q, k = (torch.randn(len(keys), 1, t, D256, generator=gen)
+            for _ in range(2))
+    v = torch.randint(-8, 9, q.shape, generator=gen).float()
+    mask = torch.ones(len(keys), t, dtype=torch.bool)
+    for i, j in enumerate(keys):
+        mask[i, j] = False
+    out = fa.flash_mha(q.cuda(), k.cuda(), v.cuda(), mask.cuda(),
+                       D256 ** -0.5).cpu()
+    exact = [torch.equal(out[i, 0], v[i, 0, j].expand(t, D256))
+             for i, j in enumerate(keys)]
+    smoke.check(all(exact),
+                f"D = 256 forward, small-integer v, one valid key a row (at "
+                f"{keys}): every query's out equal to that key's v in all "
+                f"256 columns {exact}")
+
+    b, t, rows = FLASH_CASES[5]
+    q, k, v, mask = flash_inputs(b, t, rows, gen, 1, D256)
+    runs = [fa._flash_mha_cuda(q, k, v, mask, D256 ** -0.5, with_lse=True)
+            for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    smoke.check(same, f"D = 256 forward ({b}, 1, {t}, 256), valid keys "
+                      f"{rows}: a rerun's out and lse bit-identical {same}")
 
 
 def bwd_formulas(q, k, v, mask, out, dout, lse, scale):
@@ -7300,16 +7375,13 @@ def phase_d256_times(smoke: Smoke):
         return lambda: F.scaled_dot_product_attention(q, k, v,
                                                       attn_mask=keep, scale=s)
 
-    for b, t, case_rows in FLASH_CASES:
-        if t not in FLASH_TIMED:
-            continue
+    for b, t, case_rows in D256_FWD_TIMED:
         q, k, v, mask = flash_inputs(b, t, case_rows, gen, 1, D256)
         ms, how = graph_time_ms(lambda: fa.flash_mha(q, k, v, mask, scale))
         plain = cuda_time_ms(lambda: fa.flash_mha_plain(q, k, v, mask,
                                                         scale), 10)
         lib, _ = graph_time_ms(sdpa_fn(q, k, v, mask, scale))
         bd = flash_bounds_ms(mask, 1, D256, "flash_mha_d256")
-        f32_ms = 1e3 * bd["flops_live"] / PEAK_F32_FLOPS
         rows["fwd"] = {"shape": f"({b}, 1, {t}, 256) float32, valid keys "
                                 f"{case_rows}",
                        "ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -7319,11 +7391,12 @@ def phase_d256_times(smoke: Smoke):
               f"{case_rows}: kernel {ms:.4f} ms ({how}; "
               f"{bd['flops_live'] / ms / 1e9:.1f} TF/s over the "
               f"{bd['live_tiles']} of {bd['tiles']} live {bd['tile']}-key "
-              f"tiles); bound {bd['tf32_live']:.4f} ms live, "
-              f"{bd['tf32_dense']:.4f} ms dense (TF32 rate, "
-              f"{bd['bound_by']}); the same flops at the CUDA cores' float32 "
-              f"rate {f32_ms:.4f} ms; plain {plain:.4f} ms; SDPA {lib:.4f} ms"
-              f" [{card}]", flush=True)
+              f"tiles, {bd['tf32_live'] / ms:.3f} of the bound); bound "
+              f"{bd['tf32_live']:.4f} ms live, {bd['tf32_dense']:.4f} ms "
+              f"dense (TF32 rate, {bd['bound_by']}); at three TF32 products "
+              f"a product {bd['x3_live']:.4f} ms; plain {plain:.4f} ms; SDPA "
+              f"{lib:.4f} ms (kernel / SDPA {ms / lib:.3f}) [{card}]",
+              flush=True)
         del q, k, v, mask
     for t in FLASH_BWD_TIMED:
         lens = (t, 3 * t // 4, t // 2, t // 4)

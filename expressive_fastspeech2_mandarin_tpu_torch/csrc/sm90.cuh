@@ -4,10 +4,9 @@
 // 128-byte swizzle and its descriptors, and float32 and bf16 tensor maps.
 // Included by csrc/mrf_resblock.cu (bf16 wgmma, and TF32 through
 // csrc/tf32_wgmma.cuh), through csrc/tf32_wgmma.cuh by csrc/flash_mha.cu,
-// csrc/flash_mha_bwd.cu and csrc/flash_mha_bwd_d256.cu (TF32 wgmma) and,
-// through csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu,
-// csrc/flash_mha_bwd_bf16.cu and csrc/flash_mha_bf16_d256.cu (bf16 wgmma);
-// csrc/flash_mha_d256.cu takes smem_addr.
+// csrc/flash_mha_bwd.cu, csrc/flash_mha_d256.cu and csrc/flash_mha_bwd_d256.cu
+// (TF32 wgmma) and, through csrc/bf16_wgmma.cuh, by csrc/flash_mha_bf16.cu,
+// csrc/flash_mha_bwd_bf16.cu and csrc/flash_mha_bf16_d256.cu (bf16 wgmma).
 //
 // The 128-byte swizzle, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it: a tile
 // is rows of 128 bytes; within each 1024-byte-aligned atom of 8 rows, the
@@ -150,6 +149,33 @@ __device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(r) : "r"(addr), "r"(rank));
   return r;
+}
+
+// Arrive on the mbarrier at shared address `bar` of the block of rank
+// `rank` in the cluster, releasing at cluster scope what this thread (and,
+// after a __syncwarp, its warp) wrote and read before.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile("{\n.reg .b32 remote;\n"
+               "mapa.shared::cluster.u32 remote, %0, %1;\n"
+               "mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+               "[remote];\n}\n"
+               :: "r"(bar), "r"(rank) : "memory");
+}
+
+// mbar_wait for a phase that other blocks of the cluster complete
+// (mbar_arrive_cluster): acquire at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
 
 __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {

@@ -1,6 +1,6 @@
 // float32 products on Hopper's tensor cores at float32 accuracy (3xTF32): the
 // operand split, A fragments loaded from shared memory, and TF32 wgmma.
-// Included by csrc/flash_mha.cu, csrc/flash_mha_bwd.cu,
+// Included by csrc/flash_mha.cu, csrc/flash_mha_bwd.cu, csrc/flash_mha_d256.cu,
 // csrc/flash_mha_bwd_d256.cu and csrc/mrf_resblock.cu (its float32 kernel). The type-neutral
 // plumbing (barriers, TMA, the swizzle and descriptors, wgmma ordering) is
 // in csrc/sm90.cuh.

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import tempfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -127,7 +128,9 @@ class PreprocessedCorpus:
 
     def lengths(self, filename: str) -> dict[str, tuple[int, int]]:
         """{basename: (src_len, mel_len)}, cached beside the metadata as
-        ``.lengths-<filename>.json``."""
+        ``.lengths-<filename>.json``. The cache is written to a file of
+        this process's own and moved into place, so that processes sharing
+        the corpus (the ranks of one host) see no file or a whole one."""
         cache = os.path.join(self.root, f".lengths-{filename}.json")
         if os.path.exists(cache):
             with open(cache) as f:
@@ -136,6 +139,10 @@ class PreprocessedCorpus:
         for utt in self.metadata(filename):
             d = self.duration(utt)
             out[utt.basename] = (len(d), int(d.sum()))
-        with open(cache, "w") as f:
+        fd, tmp = tempfile.mkstemp(
+            dir=self.root, prefix=f".lengths-{filename}.{os.getpid()}.",
+            suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
             json.dump(out, f)
+        os.replace(tmp, cache)
         return out

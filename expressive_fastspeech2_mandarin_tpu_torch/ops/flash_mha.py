@@ -60,9 +60,9 @@ import torch.nn.functional as F
 
 # The tensor-core kernels' head dim; a head dim under it is zero-padded to it.
 HEAD_DIM = 128
-# The head dim of csrc/flash_mha_d256.cu (the float32 forward, CUDA cores),
-# csrc/flash_mha_bwd_d256.cu (the float32 backward, tensor cores) and
-# csrc/flash_mha_bf16_d256.cu (bfloat16, tensor cores).
+# The head dim of csrc/flash_mha_d256.cu (the float32 forward),
+# csrc/flash_mha_bwd_d256.cu (the float32 backward) and
+# csrc/flash_mha_bf16_d256.cu (bfloat16), all on the tensor cores.
 WIDE_HEAD_DIM = 256
 # As in the JAX package (flash_mha.py:supported), the kernel is taken past
 # the reference's 2000-frame cap.

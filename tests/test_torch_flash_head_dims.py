@@ -4,9 +4,10 @@ The JAX package's ``flash_mha`` hands any head dim to JAX's TPU kernel,
 which takes D < 128 and the multiples of 128 (JAX 0.9.0
 ``flash_attention.py:455-462``). The port's kernels take D ≤ 128 in both
 dtypes (zero-padded to the D = 128 kernels: ``through_padding``) and D = 256
-in float32 (the forward ``csrc/flash_mha_d256.cu``, on the CUDA cores; the
-backward ``csrc/flash_mha_bwd_d256.cu``, on the TF32 tensor cores) and in
-bf16 (``csrc/flash_mha_bf16_d256.cu``; tests/test_torch_flash_bf16_d256.py).
+in float32 (the forward ``csrc/flash_mha_d256.cu`` and the backward
+``csrc/flash_mha_bwd_d256.cu``, both on the TF32 tensor cores in clusters of
+two blocks) and in bf16 (``csrc/flash_mha_bf16_d256.cu``;
+tests/test_torch_flash_bf16_d256.py).
 Here, with the
 JAX kernel in Pallas interpret mode and the port's plain versions standing
 in for its kernels on CPU tensors:
@@ -20,16 +21,18 @@ in for its kernels on CPU tensors:
 * ``supported``: JAX's rule (D % 128 == 0, T > 2048, on the card) where the
   port has a kernel for the head dim and dtype;
 * the D = 256 kernels' arithmetic emulated against float64 with the
-  card's bounds: the forward (``csrc/flash_mha_d256.cu``: float32 fused
-  multiply-adds over d in its order, 32-key tiles, each tile's P·V in a
-  fresh accumulator, wholly padded tiles skipped) and the backward pair
-  (``csrc/flash_mha_bwd_d256.cu``: 3xTF32 products on operands split by
-  bit masks, S and dP as two blocks' partials over 128 columns each, in
-  chains of 32 columns, added in rank order; Δ formed as dP is, the
-  diagonal of dO outᵀ; the dK/dV kernel's swapped chain order giving Sᵀ
-  and dPᵀ bit for bit), with a row of one valid key exactly 0 in dq and
-  dk, where float32 plain leaves round-off; the backward's emulation also
-  against the JAX TPU kernel at the valid rows;
+  card's bounds: the forward (``csrc/flash_mha_d256.cu``: 3xTF32 products
+  on operands split by bit masks, S as two blocks' partials over 128
+  columns each, in chains of 64 columns, added in rank order; 32-key
+  tiles, wholly padded tiles skipped, the row sum over the four threads
+  that share a row, each block's P·V per tile in a fresh accumulator) and
+  the backward pair (``csrc/flash_mha_bwd_d256.cu``: the same split, S and
+  dP in chains of 32 columns; Δ formed as dP is, the diagonal of dO outᵀ;
+  the dK/dV kernel's swapped chain order giving Sᵀ and dPᵀ bit for bit),
+  with a row of one valid key whose output is v's TF32 parts' sum and
+  whose dq and dk are exactly 0, where float32 plain leaves round-off;
+  both emulations against the JAX TPU kernel at the valid rows, the
+  forward's one-key row exact on small-integer v;
 * the slice: FastSpeech2 at hidden 256 with one head (D = 256), 1 encoder
   and 1 decoder block, under ``attention_impl="flash"``: a long-form
   synthesis and one train step's loss and gradients against the JAX
@@ -100,12 +103,13 @@ OUT_REL = 2.0 ** -7    # tests/test_torch_flash_bf16.py
 GRAD_REL = 2.0 ** -6
 FWD_REL = 1e-5         # chip_smoke.py: FLASH_REL_BOUND, LSE_REL_BOUND
 BWD_REL = 1e-4         # chip_smoke.py: FLASH_BWD_REL_BOUND
-KEY_TILE = 32          # csrc/flash_mha_d256.cu: kKeys (the forward's key tile)
-GROUP = 8              # csrc/flash_mha_d256.cu: kGroup (lanes sharing a row)
-# csrc/flash_mha_bwd_d256.cu: kCols (head-dim columns a block of the
-# cluster holds), kChain k-steps of 8 columns per S/dP chain, kTile (the
-# dQ kernel's key tile, the dK/dV kernel's query tile).
-CHUNK, CHAIN_COLS, STREAM_TILE = 128, 32, 32
+KEY_TILE = 32          # csrc/flash_mha_d256.cu: kBk (the forward's key tile)
+ROW_THREADS = 4        # csrc/flash_mha_d256.cu: the threads that share a row
+# kCols (head-dim columns a block of either cluster holds); the forward's
+# S chains of 8 k-steps (64 columns, flash_mha_d256.cu: scores), the
+# backward's of kChain = 4 (csrc/tf32_flash_bwd.cuh); kTile (the dQ
+# kernel's key tile, the dK/dV kernel's query tile).
+CHUNK, FWD_CHAIN_COLS, CHAIN_COLS, STREAM_TILE = 128, 64, 32, 32
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -238,27 +242,21 @@ def _fma(a, b, c):
     return (np.asarray(a, np.float64) * b + c).astype(np.float32)
 
 
-def _dots(a, b):
-    """a (..., n, D) · b (..., m, D) → (..., n, m), each dot d = 0..D-1 in
-    order, one fused multiply-add a term (the kernels' S and dP)."""
-    acc = np.zeros(a.shape[:-1] + (b.shape[-2],), np.float32)
-    for d in range(a.shape[-1]):
-        acc = _fma(a[..., :, None, d], b[..., None, :, d], acc)
-    return acc
-
-
-def _group_sum(x):
-    """Sum over the last axis as the kernels do over a row's keys: each of
-    the 8 lanes adds its keys tx, tx + 8, ... in order, then three xor
-    butterflies."""
-    x = np.concatenate([x, np.zeros(x.shape[:-1] + (
-        KEY_TILE - x.shape[-1],), np.float32)], -1)  # past T: p = 0
-    lanes = np.zeros(x.shape[:-1] + (GROUP,), np.float32)
-    for j in range(0, KEY_TILE, GROUP):
-        lanes = lanes + x[..., j:j + GROUP]
-    for step in (1, 2, 4):
-        lanes = lanes + lanes[..., np.arange(GROUP) ^ step]
-    return lanes[..., 0]
+def _row_sum(p):
+    """Sum over a tile's keys (the last axis) as the forward takes it: each
+    of the four threads that share a row adds its keys 8j + 2t + e (j = 0..3,
+    e = 0, 1) in that order, then two xor butterflies: (s0 + s1) + (s2 +
+    s3)."""
+    p = np.concatenate([p, np.zeros(p.shape[:-1] + (
+        KEY_TILE - p.shape[-1],), np.float32)], -1)  # past T: p = 0
+    sums = []
+    for t in range(ROW_THREADS):
+        acc = np.zeros(p.shape[:-1], np.float32)
+        for j in range(KEY_TILE // 8):
+            for e in range(2):
+                acc = acc + p[..., 8 * j + 2 * t + e]
+        sums.append(acc)
+    return (sums[0] + sums[1]) + (sums[2] + sums[3])
 
 
 def _live_tiles(mask_row):
@@ -269,32 +267,38 @@ def _live_tiles(mask_row):
 
 def emulate_forward(q, k, v, mask, scale):
     """csrc/flash_mha_d256.cu's forward on (B, H, T, 256) float32 numpy
-    arrays: (out, lse)."""
+    arrays: (out, lse). S as the cluster forms it (rows_product, chains of
+    64 columns); per live 32-key tile the online softmax, the row sum as
+    the kernel takes it, and each block's P·V over its 128 columns from
+    TF32 parts in a fresh accumulator, added to the rescaled output with a
+    fused multiply-add; the output divided by the row sum."""
     b, h, t, d = q.shape
-    s_all = _dots(q, k)
+    scale = np.float32(scale)
     out = np.zeros_like(q)
     lse = np.full((b, h, t), np.inf, np.float32)
     for i in range(b):
+        s_all = rows_product(q[i], k[i], chain=FWD_CHAIN_COLS)
         o = np.zeros((h, t, d), np.float32)
         m = np.full((h, t, 1), -np.inf, np.float32)
         l = np.zeros((h, t, 1), np.float32)
         for k0 in _live_tiles(mask[i]):
             keys = slice(k0, k0 + KEY_TILE)
-            valid = ~mask[i, keys]
-            s = np.where(valid, s_all[i, :, :, keys] * np.float32(scale),
-                         -np.inf).astype(np.float32)
+            s = np.where(~mask[i, keys], s_all[..., keys] * scale,
+                         np.float32(-np.inf))
             m_new = np.maximum(m, s.max(-1, keepdims=True))
-            shift = np.where(m_new == -np.inf, 0, m_new).astype(np.float32)
+            shift = np.where(m_new == -np.inf, np.float32(0), m_new)
             alpha = np.exp(m - shift)
-            p = np.exp(s - shift).astype(np.float32)
-            l = _fma(l, alpha, _group_sum(p)[..., None])
+            p = np.exp(s - shift)
+            l = _fma(l, alpha, _row_sum(p)[..., None])
             m = m_new
-            pv = np.zeros_like(o)
-            for j in np.flatnonzero(valid):  # padded keys skipped
-                pv = _fma(p[..., j:j + 1], v[i, :, k0 + j][:, None, :], pv)
+            pv = np.concatenate([
+                third_product(p, v[i][:, keys, c:c + CHUNK])
+                for c in range(0, d, CHUNK)], -1)
             o = _fma(o, alpha, pv)
-        out[i] = o * (np.float32(1) / np.where(l == 0, 1, l))
-        lse[i] = np.where(l == 0, np.inf, m + np.log(l))[..., 0]
+        out[i] = o / np.where(l == 0, np.float32(1), l)
+        lse[i] = np.where(l == 0, np.float32(np.inf),
+                          m + np.log(np.where(l == 0, np.float32(1),
+                                              l)))[..., 0]
     return out, lse
 
 
@@ -319,19 +323,20 @@ def _dot(a, b):
     return (a[..., :, None, :] * b[..., None, :, :]).sum(-1, dtype=np.float32)
 
 
-def _partial(a, b, swapped=False):
-    """One block's partial A Bᵀ (A = a, the resident rows; B = b, the
-    streamed tile) over its 128 columns, as rows_product forms S or dP:
-    fresh chains of 32 columns, each chain's four TF32 products (A lo into
-    one accumulator, A hi into the other, each against B's hi and lo parts)
-    added in software, and the chains added in order to a sum that starts
-    at 0. The dQ kernel adds ((lo·lo + lo·hi) + hi·lo) + hi·hi (A's part
+def _partial(a, b, swapped=False, chain=CHAIN_COLS):
+    """One block's partial A Bᵀ (A = a, the resident rows or Q; B = b, the
+    streamed tile) over its 128 columns, as the backward's rows_product
+    forms S or dP (and the forward's scores S): fresh chains of ``chain``
+    columns, each chain's four TF32 products (A lo into one accumulator, A
+    hi into the other, each against B's hi and lo parts) added in software,
+    and the chains added in order to a sum that starts at 0. The dQ kernel
+    and the forward add ((lo·lo + lo·hi) + hi·lo) + hi·hi (A's part
     first); the dK/dV kernel (``swapped``), whose A is the dQ kernel's B,
     adds ((lo·lo + hi·lo) + lo·hi) + hi·hi: the same four terms in the
     same order, so its Sᵀ and dPᵀ are the dQ kernel's S and dP."""
     out = np.float32(0)
-    for c0 in range(0, a.shape[-1], CHAIN_COLS):
-        (a_hi, a_lo), (b_hi, b_lo) = (_split(x[..., c0:c0 + CHAIN_COLS])
+    for c0 in range(0, a.shape[-1], chain):
+        (a_hi, a_lo), (b_hi, b_lo) = (_split(x[..., c0:c0 + chain])
                                       for x in (a, b))
         lo_lo, lo_hi = _dot(a_lo, b_lo), _dot(a_lo, b_hi)
         hi_lo, hi_hi = _dot(a_hi, b_lo), _dot(a_hi, b_hi)
@@ -340,14 +345,15 @@ def _partial(a, b, swapped=False):
     return out
 
 
-def rows_product(a, b, swapped=False):
-    """a · bᵀ over the head dim as the backward pair forms S and dP (and
-    with ``swapped``, as the dK/dV kernel forms Sᵀ and dPᵀ): each block of
-    the cluster's partial over its 128 columns, added in rank order (rank
-    0's first)."""
+def rows_product(a, b, swapped=False, chain=CHAIN_COLS):
+    """a · bᵀ over the head dim as the backward pair forms S and dP (with
+    ``swapped``, as the dK/dV kernel forms Sᵀ and dPᵀ; with ``chain`` 64,
+    as the forward forms S): each block of the cluster's partial over its
+    128 columns, added in rank order (rank 0's first)."""
     total = None
     for c in range(0, a.shape[-1], CHUNK):
-        part = _partial(a[..., c:c + CHUNK], b[..., c:c + CHUNK], swapped)
+        part = _partial(a[..., c:c + CHUNK], b[..., c:c + CHUNK], swapped,
+                        chain)
         total = part if total is None else total + part
     return total
 
@@ -419,6 +425,11 @@ def test_d256_kernel_emulation_matches_float64_plain():
     out, lse = emulate_forward(q, k, v, mask, scale)
     tq, tk, tv, tdo, tmask = (torch.from_numpy(a)
                               for a in (q, k, v, dout, mask))
+    # Row 0's one valid key: P = 1 exactly, so its output is the sum of v's
+    # TF32 parts (lo·hi + hi·lo + hi·hi with P's lo 0), which keeps ~22 of
+    # v's 24 significant bits: held to the bound below, not to v.
+    v_hi, v_lo = _split(v[0, :, :1])
+    np.testing.assert_array_equal(out[0], (v_hi + v_lo).repeat(t, 1))
     ref32 = fm.flash_mha_plain(tq, tk, tv, tmask, scale)
     ref64 = fm.flash_mha_plain(tq.double(), tk.double(), tv.double(), tmask,
                                scale).numpy()
@@ -426,7 +437,6 @@ def test_d256_kernel_emulation_matches_float64_plain():
     lse_ref = fm.flash_mha_lse_plain(tq.double(), tk.double(), tmask,
                                      scale).numpy()
     assert np.abs(lse - lse_ref).max() <= FWD_REL * np.abs(lse_ref).max()
-    np.testing.assert_array_equal(out[0], v[0, :, :1].repeat(t, 1))
 
     grads = emulate_backward(q, k, v, mask, out, dout, lse, scale)[:3]
     plain32 = fm.flash_mha_bwd_plain(tq, tk, tv, tmask, ref32, tdo, scale)
@@ -440,8 +450,9 @@ def test_d256_kernel_emulation_matches_float64_plain():
         assert (np.abs(g - r64).max()
                 <= 2 * np.abs(r32 - r64).max() + 1e-6 * top)
     # The one-key row: dP - Δ is 0 in exact arithmetic. Δ formed as dP is
-    # keeps it 0, so dq and dk there are exactly 0; float32 plain sums Δ in
-    # another order and leaves round-off.
+    # keeps it 0 (out's TF32 parts are v's here), so dq and dk there are
+    # exactly 0; float32 plain sums Δ in another order and leaves
+    # round-off.
     assert np.count_nonzero(grads[1][0]) == 0
     assert np.count_nonzero(grads[0][0]) == 0
     assert np.count_nonzero(plain32[1][0].numpy()) > 0
@@ -485,6 +496,33 @@ def test_d256_bwd_emulation_matches_jax_tpu_kernel_at_valid_rows():
     np.testing.assert_allclose(dk, ref[2], atol=ATOL, rtol=0)
     np.testing.assert_allclose(dv, ref[3], atol=ATOL, rtol=0)
     assert np.count_nonzero(dk[1]) == 0  # one valid key: dS = 0
+
+
+def test_d256_fwd_emulation_matches_jax_tpu_kernel_at_valid_rows():
+    """The forward's emulation against the JAX package's TPU kernel in
+    Pallas interpret mode at the valid rows, within 1e-5 (as the D = 128
+    forward's, tests/test_torch_flash_tc.py), with a row of one valid key,
+    one whose first 32-key tile is wholly padded and a middle one too; and
+    on small-integer v, whose TF32 lo part is 0, the one-key row exactly
+    that key's v (P = 1 exactly), as phase 16a asks of the kernel."""
+    t, scale = 300, 256 ** -0.5
+    q, k, v, _, _ = _inputs(t, (t,), 1, 256, seed=12)
+    q, k, v = (np.concatenate([x, x[::-1]]) for x in (q, k, v))
+    mask = np.ones((2, t), bool)
+    mask[0, 137] = False
+    mask[1, 40:96] = mask[1, 128:300] = False
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_flash_mha(
+            *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask), scale))
+    out, _ = emulate_forward(q, k, v, mask, scale)
+    for i in range(2):  # the valid query rows
+        np.testing.assert_allclose(out[i][:, ~mask[i]], ref[i][:, ~mask[i]],
+                                   atol=ATOL, rtol=0)
+    assert np.abs(out[1]).max() > 0.5
+    small = np.random.default_rng(13).integers(
+        -8, 9, v.shape).astype(np.float32)
+    out, _ = emulate_forward(q, k, small, mask, scale)
+    np.testing.assert_array_equal(out[0], small[0, :, 137:138].repeat(t, 1))
 
 
 # The slice: FastSpeech2 with one head of 256.

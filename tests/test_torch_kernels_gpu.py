@@ -433,9 +433,10 @@ def test_flash_forward_lse_matches_logsumexp_on_card():
                                rtol=0, atol=0)
 
 
-# The float32 kernels at D = 256 (the forward csrc/flash_mha_d256.cu, CUDA
-# cores; the dQ and dK/dV kernels csrc/flash_mha_bwd_d256.cu, 3xTF32 wgmma
-# in clusters of two blocks) against their plain versions: the forward
+# The float32 kernels at D = 256 (the forward csrc/flash_mha_d256.cu and the
+# dQ and dK/dV kernels csrc/flash_mha_bwd_d256.cu, all on 3xTF32 wgmma in
+# clusters of two blocks, one a 128-column chunk of the head dim) against
+# their plain versions: the forward
 # within 1e-5 · max|ref| of float32 and float64 plain, the backward within
 # 1e-4 · max|ref| (against float64 where float32 plain is itself further
 # than that from it) and within twice float32 plain's distance to float64 +
@@ -550,6 +551,43 @@ def test_d256_backward_layout_witness_is_exact_on_card(t, lens):
     assert _all_flash_counts() == _only(D256_F32[1:], before)
     for g, w in zip(got, want):
         assert torch.equal(g.double().cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,keys", [(300, (0, 137, 299)), (4096, (0, 4095))])
+def test_d256_forward_exact_witnesses_on_card(t, keys):
+    """The float32 forward at D = 256 where its result is exact (chip_smoke
+    phase 16a): the layout witness (two-hot P over all 256 columns, so in
+    either block of a cluster or both; v in {-1, 0, 1}) equal to float64
+    plain bit for bit; small-integer v (TF32 lo part 0) with one valid key
+    a batch row, so P = 1 exactly and every query's out is that key's v in
+    all 256 columns; a rerun bit-identical. Each call launches the forward
+    once and no other flash kernel."""
+    _cuda_or_skip()
+    q, k, v, _, mask = _layout_witness(t=300, lens=(300, 150), d=256)
+    q, k, v = (torch.from_numpy(x[:, :1]).contiguous() for x in (q, k, v))
+    mask = torch.from_numpy(mask)
+    want = fa.flash_mha_plain(q, k, v, mask, 1.0)
+    before = _all_flash_counts()
+    got = fa.flash_mha(*(x.to("cuda", torch.float32) for x in (q, k, v)),
+                       mask.to("cuda"), 1.0)
+    assert _all_flash_counts() == _only(D256_F32[:1], before)
+    assert torch.equal(got.double().cpu(), want)
+    assert float(want.abs().max()) >= 1
+
+    gen = torch.Generator().manual_seed(t)
+    q, k = (torch.randn(len(keys), 1, t, 256, generator=gen).cuda()
+            for _ in range(2))
+    v = torch.randint(-8, 9, q.shape, generator=gen).float().cuda()
+    mask = torch.ones(len(keys), t, dtype=torch.bool)
+    for i, j in enumerate(keys):
+        mask[i, j] = False
+    mask = mask.cuda()
+    out, lse = fa._flash_mha_cuda(q, k, v, mask, D256_SCALE, with_lse=True)
+    for i, j in enumerate(keys):
+        assert torch.equal(out[i, 0], v[i, 0, j].expand(t, 256))
+    again = fa._flash_mha_cuda(q, k, v, mask, D256_SCALE, with_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 @pytest.mark.gpu

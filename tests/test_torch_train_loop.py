@@ -163,6 +163,40 @@ def test_bucketed_batches_match_jax(tmp_path):
                 np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
+def test_lengths_cache_is_whole_to_a_reader_while_it_is_written(
+        tmp_path, monkeypatch):
+    """Two ranks of one host share the corpus: one calls ``lengths`` while
+    the other is still writing ``.lengths-<filename>.json``. The reader
+    gets the whole dict (it saw no file, or a whole one), never a
+    ``JSONDecodeError``, and the cache left behind is whole."""
+    from expressive_fastspeech2_mandarin_tpu_torch.data import metadata
+
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_utts=12)
+    writer, reader = PreprocessedCorpus(corpus), PreprocessedCorpus(corpus)
+    dump = json.dump
+    seen = []
+
+    def dump_with_a_reader_inside(obj, f, **kw):
+        text = json.dumps(obj, **kw)
+        f.write(text[:len(text) // 2])
+        f.flush()
+        if not seen:
+            seen.append(None)
+            seen[0] = reader.lengths("val.txt")
+        f.write(text[len(text) // 2:])
+
+    monkeypatch.setattr(metadata.json, "dump", dump_with_a_reader_inside)
+    written = writer.lengths("val.txt")
+    monkeypatch.setattr(metadata.json, "dump", dump)
+    expected = {u.basename: (len(writer.duration(u)),
+                             int(writer.duration(u).sum()))
+                for u in writer.metadata("val.txt")}
+    assert written == expected
+    assert seen == [expected]
+    assert PreprocessedCorpus(corpus).lengths("val.txt") == expected
+    assert not [n for n in os.listdir(corpus) if n.endswith(".tmp")]
+
+
 def _sample_cfgs(ckpt_path: str = ""):
     from expressive_fastspeech2_mandarin_tpu.config import (
         Config as JaxConfig,
